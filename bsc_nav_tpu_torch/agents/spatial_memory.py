@@ -1,14 +1,18 @@
 """Host-side spatial memory agent over the torch pipelines.
 
 Counterpart of ``bsc_nav_tpu/agents/spatial_memory.py`` for the memory
-spine: frames are queued on the host and ingested in fixed-size batches
-(short batches padded with zero-depth frames, whose points all fail the
-min-depth gate), and image prompts are localized against the store.
+spine and the long-term memory: frames are queued on the host and
+ingested in fixed-size batches (short batches padded with zero-depth
+frames, whose points all fail the min-depth gate), a detector's boxes
+become located instances in ``long_memory_dict``, and image prompts are
+localized against the store.  A host detector (``detect``) runs inline
+per frame; one with ``detect_batch`` (``ClipPatchDetector``) runs once per
+flush.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-text prompts (imagination), detectors and the long-term memory,
-segmented stores, batched queries and persistence -- each is a later
-item of ROADMAP.md Queue 1.
+text prompts (imagination), a detector's device feed
+(``detect_batch_instances``, YOLO-World), segmented stores, batched
+queries and persistence -- each is a later item of ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from bsc_nav_tpu.config import Config
 from bsc_nav_tpu_torch import geometry as G
 from bsc_nav_tpu_torch import resolve_device
+from bsc_nav_tpu_torch.memory import longterm as LT
 from bsc_nav_tpu_torch.memory.pipeline import make_build_step, make_query_step
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import vit
@@ -82,13 +87,20 @@ class Perception:
         )
 
 
+def state_to_pose_vec(agent_state) -> np.ndarray:
+    """habitat AgentState -> (px, py, pz, qx, qy, qz, qw)."""
+    p, r = agent_state.position, agent_state.rotation
+    return np.array([p[0], p[1], p[2], r.x, r.y, r.z, r.w], np.float32)
+
+
 class VoxelTokenMemory:
     def __init__(self, cfg: Config, env, perception: Perception,
                  detector=None, imagination=None,
                  store_dtype=torch.float32,
                  segmented: bool = False):
-        if detector is not None:
-            raise _not_ported("the detector feed", "10")
+        if hasattr(detector, "detect_batch_instances"):
+            raise _not_ported("a detector's device feed "
+                              "(detect_batch_instances, YOLO-World)", "10")
         if imagination is not None:
             raise _not_ported("imagination (text queries)", "13")
         if segmented:
@@ -96,6 +108,7 @@ class VoxelTokenMemory:
         self.cfg = cfg
         self.Env = env
         self.perception = perception
+        self.detector = detector
         self.device = perception.device
         self.state = init_store(cfg.memory, store_dtype=store_dtype,
                                 device=self.device)
@@ -105,6 +118,7 @@ class VoxelTokenMemory:
         self._inv_init_host: Optional[np.ndarray] = None
         self._base_tf = G.base_axes_transform()
         self._base2cam = G.base_to_cam_transform(cfg.sensor.sensor_height)
+        self.long_memory_dict: List[dict] = []
 
         self.load_single_floor = cfg.agent.load_single_floor
         self.floor_min_height: Optional[int] = None
@@ -125,8 +139,12 @@ class VoxelTokenMemory:
     def push_frame(self, obs, pose: np.ndarray) -> None:
         rgb = np.asarray(obs["rgb"])[:, :, :3]
         depth = np.asarray(obs["depth"], np.float32)
-        self._host_cam_to_world(pose)      # fixes the host frame chain
+        cam_tf = self._host_cam_to_world(pose)
         self._queue.append((rgb, depth, np.asarray(pose, np.float32)))
+        if self.detector is not None and not hasattr(self.detector,
+                                                     "detect_batch"):
+            # host detectors run inline; batch detectors once per flush
+            self._add_instances(self.detector.detect(rgb), depth, cam_tf)
         if len(self._queue) >= self.perception.batch_size:
             self.flush()
 
@@ -135,6 +153,16 @@ class VoxelTokenMemory:
         zero-depth frames."""
         B = self.perception.batch_size
         H, W = self.cfg.sensor.height, self.cfg.sensor.width
+        if self._queue and hasattr(self.detector, "detect_batch"):
+            all_dets = self.detector.detect_batch(
+                np.stack([f[0] for f in self._queue]))
+            for (_, depth_f, pose_f), dets in zip(self._queue, all_dets):
+                if dets:
+                    self.long_memory_dict.extend(LT.instances_from_detections(
+                        dets, depth_f, self._host_cam_to_world(pose_f),
+                        self.cfg))
+            if any(all_dets):
+                self.long_memory_integration()
         while self._queue:
             chunk, self._queue = self._queue[:B], self._queue[B:]
             rgb = np.zeros((B, H, W, 3), np.uint8)
@@ -151,6 +179,42 @@ class VoxelTokenMemory:
 
     def obs2voxeltoken(self, obs, pose: np.ndarray) -> None:
         self.push_frame(obs, np.asarray(pose, np.float32))
+
+    # ------------------------------------------------------------------
+    # long-term memory
+    # ------------------------------------------------------------------
+    def _add_instances(self, dets, depth: np.ndarray,
+                       cam_tf: np.ndarray) -> None:
+        if dets:
+            self.long_memory_dict.extend(
+                LT.instances_from_detections(dets, depth, cam_tf, self.cfg))
+            self.long_memory_integration()
+
+    def long_memory(self, obs) -> None:
+        """Standalone detector pass on the agent's current view;
+        ``push_frame`` already detects when a detector is configured."""
+        if self.detector is None:
+            return
+        pose = state_to_pose_vec(self.Env.agent.get_state())
+        rgb = np.asarray(obs["rgb"])[:, :, :3]
+        dets = self.detector.detect(rgb)
+        if dets:
+            self.long_memory_dict.extend(LT.instances_from_detections(
+                dets, np.asarray(obs["depth"], np.float32),
+                self._host_cam_to_world(pose), self.cfg))
+        self.long_memory_integration()
+
+    def long_memory_integration(self, threshold: Optional[int] = None):
+        self.long_memory_dict = LT.integrate(
+            self.long_memory_dict,
+            threshold or self.cfg.detector.dedup_l1_threshold)
+
+    def long_memory_filter(self) -> List[dict]:
+        if self.load_single_floor and self.floor_min_height is not None:
+            return LT.filter_by_floor(
+                self.long_memory_dict, self.floor_min_height,
+                self.floor_max_height)
+        return self.long_memory_dict
 
     # ------------------------------------------------------------------
     # queries

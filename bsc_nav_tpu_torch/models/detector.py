@@ -1,0 +1,88 @@
+"""Open-vocabulary detection feeding the long-term memory, over the torch
+CLIP image tower.
+
+Counterpart of ``bsc_nav_tpu/models/detector.py``.  ``ClipPatchDetector``
+is MaskCLIP-style dense zero-shot detection: the vision tower runs its
+blocks but the last (kernel K3 in every layer on the card), the last block
+contributes its value path only, and ``ln_post`` + ``proj`` turn each
+patch token into an embedding compared with the class text embeddings.
+The host side -- ``Detection``, the heat-map to boxes step and the
+``ColorPrototypeDetector`` test double -- imports no JAX and is shared by
+import.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from bsc_nav_tpu.models import tokenizer as T
+from bsc_nav_tpu.models.detector import (  # noqa: F401  (shared surface)
+    ColorPrototypeDetector, Detection, Detector, _boxes_from_heatmap)
+from bsc_nav_tpu_torch.agents.matchers import model_device
+from bsc_nav_tpu_torch.models import clip as C
+
+
+@torch.no_grad()
+def dense_embed(model: C.CLIP, images_uint8: torch.Tensor,
+                cfg: C.CLIPConfig) -> torch.Tensor:
+    """uint8 [B, H, W, 3] -> unit patch embeddings [B, grid^2, embed_dim]
+    f32 (``detector.py:93-118``).  As there, the blocks run with the tanh
+    GELU whatever ``cfg`` says."""
+    v = model.visual
+    h = C.vision_tokens(v, C.preprocess(images_uint8, cfg), cfg)
+    h = C._tower_forward(h, v.blocks[:-1], cfg.vision_heads, cfg.ln_eps)
+    # value-only path of the last block (MaskCLIP)
+    blk = v.blocks[-1]
+    val = blk.qkv(blk.ln1(h))[..., 2 * cfg.vision_width:]
+    val = v.ln_post(blk.proj(val) + h)
+    emb = C._normalize(C._project(val, v.proj))
+    return emb[:, 1:]                   # patch tokens only
+
+
+class ClipPatchDetector:
+    """MaskCLIP-style dense zero-shot detector.  ``clip_params`` is the
+    ``CLIP`` module; frames go to its device (``device``, when given, must
+    be that device)."""
+
+    def __init__(self, clip_params: C.CLIP, clip_cfg: C.CLIPConfig,
+                 tokenizer, classes: Sequence[str],
+                 confidence: float = 0.55, device: Optional[str] = None):
+        self.device = model_device(clip_params, device)
+        self.classes = list(classes)
+        self.confidence = confidence
+        self.cfg = clip_cfg
+        self.params = clip_params
+        ids = T.tokenize([f"a photo of a {c}" for c in classes], tokenizer)
+        self.text_emb = C.encode_text(
+            clip_params, torch.from_numpy(ids).to(self.device),
+            clip_cfg).cpu().numpy()
+
+    def embed(self, rgbs: np.ndarray) -> np.ndarray:
+        """[B, H, W, 3+] uint8 frames -> [B, grid^2, embed_dim] numpy."""
+        imgs = torch.from_numpy(np.ascontiguousarray(rgbs[:, :, :, :3]))
+        return dense_embed(self.params, imgs.to(self.device),
+                           self.cfg).cpu().numpy()
+
+    def detect(self, rgb: np.ndarray) -> List[Detection]:
+        return self.detect_batch(rgb[None])[0]
+
+    def detect_batch(self, rgbs: np.ndarray) -> List[List[Detection]]:
+        """One device call for a whole frame batch; heat maps and boxes on
+        the host, as ``detector.py:125-144``."""
+        B, H, W = rgbs.shape[:3]
+        embs = self.embed(rgbs)
+        g = self.cfg.grid
+        out: List[List[Detection]] = []
+        for b in range(B):
+            sims = embs[b] @ self.text_emb.T             # [T, C]
+            p = np.exp(sims * 100.0 - sims.max(axis=1, keepdims=True) * 100.0)
+            p /= p.sum(axis=1, keepdims=True)
+            heat = p.max(axis=1).reshape(g, g)
+            labels_idx = p.argmax(axis=1).reshape(g, g)
+            out.append(_boxes_from_heatmap(
+                heat, labels_idx, self.classes, self.confidence,
+                scale_y=H / g, scale_x=W / g))
+        return out

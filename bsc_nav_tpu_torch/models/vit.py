@@ -29,6 +29,7 @@ from torch import nn
 
 from bsc_nav_tpu_torch import resolve_device
 from bsc_nav_tpu_torch.ops.flash_attention import attention_from_qkv
+from bsc_nav_tpu_torch.ops.quant import linear_q8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,15 +165,29 @@ class Linear(nn.Module):
     """``y = x @ w + b`` with ``w [fan_in, fan_out]``.  Mixed input and
     parameter dtypes compute in the promoted dtype, as jnp.einsum does;
     the bias is added inside the matmul's accumulator (addmm) before the
-    result is cast back to the input dtype."""
+    result is cast back to the input dtype.
+
+    ``quantized=True`` holds the JAX package's int8 leaves instead --
+    ``w_q`` int8 [fan_in, fan_out], ``w_s`` f32 [fan_out], ``b`` -- and
+    serves them through ``ops.quant.linear_q8``, as JAX's ``_linear``
+    does (``vit.py:148-151``)."""
 
     def __init__(self, fan_in, fan_out, bias=True, dtype=torch.float32,
-                 device=None):
+                 device=None, quantized=False):
         super().__init__()
-        self.w = _param((fan_in, fan_out), dtype, device)
+        if quantized:
+            self.w = None
+            self.w_q = _param((fan_in, fan_out), torch.int8, device)
+            self.w_s = _param((fan_out,), torch.float32, device)
+        else:
+            self.w = _param((fan_in, fan_out), dtype, device)
+            self.w_q = self.w_s = None
         self.b = _param((fan_out,), dtype, device) if bias else None
 
     def forward(self, x):
+        if self.w_q is not None:
+            return linear_q8(x, {"w_q": self.w_q, "w_s": self.w_s,
+                                 "b": self.b})
         ct = torch.promote_types(x.dtype, self.w.dtype)
         x2 = x.reshape(-1, x.shape[-1]).to(ct)
         w = self.w.to(ct)

@@ -75,6 +75,9 @@ def kernels() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.short_attention_qkv_launch.argtypes = [p, p, i, i, i, i, i, p]
         lib.short_attention_qkv_launch.restype = i
+        lib.short_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                               p]
+        lib.short_attention_launch.restype = i
         lib.max_cosine_per_voxel_launch.argtypes = [p, p, p, p, p, i, i, i,
                                                     i, p]
         lib.max_cosine_per_voxel_launch.restype = i

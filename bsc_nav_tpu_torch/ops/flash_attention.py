@@ -1,15 +1,20 @@
-"""Attention for the ViT encoder: kernel K1 and its plain version.
+"""Attention for the ViT and CLIP towers: kernels K1 and K3 and their
+plain versions.
 
-Counterpart of ``bsc_nav_tpu/ops/flash_attention.py``.  Only the path the
-memory spine runs is ported: ``attention_from_qkv`` -> ``short_attention_qkv``
-(the fused-QKV kernel, ``csrc/short_attention_qkv.cu``).  The other TPU
-kernels of that module -- ``short_attention`` (K3), ``joint_qkv_attention``
-(K4), ``mid_attention`` (K5) and ``flash_attention`` (K6) -- are queued in
-ROADMAP.md; on a CUDA tensor a call that would need them raises.
+Counterpart of ``bsc_nav_tpu/ops/flash_attention.py``, with its dispatch:
+``attention_from_qkv`` takes the fused-QKV kernel K1
+(``csrc/short_attention_qkv.cu``) only where ``use_fused_qkv_attention``
+holds, as the JAX package does, and otherwise splits heads and calls
+``attention``, which takes K3 ``short_attention`` (``csrc/short_attention.cu``)
+for at most 640 keys.  The other TPU kernels of that module --
+``joint_qkv_attention`` (K4), ``mid_attention`` (K5) and
+``flash_attention`` (K6) -- are queued in ROADMAP.md; on a CUDA tensor a
+call that would need them raises.
 
-Layouts follow the JAX package: ``reference_attention`` takes
-[B, H, S, Dh]; the fused-QKV functions take [B, S, 3*D] (q | k | v
-column groups, heads contiguous inside each group) and return [B, S, D].
+Layouts follow the JAX package: ``attention``, ``short_attention`` and
+``reference_attention`` take [B, H, S, Dh]; the fused-QKV functions take
+[B, S, 3*D] (q | k | v column groups, heads contiguous inside each group)
+and return [B, S, D].
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 from bsc_nav_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
+# flash_attention.py:158: the longest key sequence K1 and K3 serve
+_SHORT_MAX_KV = 640
 
 
 def reference_attention(q, k, v, causal: bool = False, scale=None):
@@ -60,9 +67,21 @@ def short_attention_qkv_reference(qkv, heads: int):
 
 
 def kernel_supports(head_dim: int, causal: bool = False) -> bool:
-    """K1's gate: non-causal, head_dim a multiple of 16 up to 128.  Any
-    head count and any sequence length (the kernel streams K/V tiles)."""
+    """K1's argument check: non-causal, head_dim a multiple of 16 up to
+    128.  Any head count and any sequence length (the kernel streams K/V
+    tiles).  Which calls reach K1 is ``use_fused_qkv_attention``'s rule."""
     return not causal and head_dim % 16 == 0 and 16 <= head_dim <= 128
+
+
+def use_fused_qkv_attention(seq_len: int, heads: int, head_dim: int,
+                            causal: bool = False) -> bool:
+    """True when ``attention_from_qkv`` takes K1: the JAX package's rule
+    (``flash_attention.py:234-241``), non-causal, S <= 640, head_dim 64
+    and an even head count.  The JAX package also asks for a TPU backend;
+    here the tensor's device decides only between kernel and plain
+    version, so CPU and card route alike."""
+    return (not causal and seq_len <= _SHORT_MAX_KV and head_dim == 64
+            and heads % 2 == 0)
 
 
 def short_attention_qkv(qkv, heads: int):
@@ -105,25 +124,112 @@ def short_attention_qkv(qkv, heads: int):
 short_attention_qkv.launches = 0
 
 
+def _check_cuda_input(name: str, *tensors) -> None:
+    """Raise for what a kernel does not take: another dtype, a
+    non-contiguous or misaligned buffer (the kernels read 16-byte rows and
+    never copy an input quietly)."""
+    for t in tensors:
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: dtype {t.dtype} (kernel takes float32 "
+                            "or bfloat16)")
+        if t.dtype != tensors[0].dtype or t.device != tensors[0].device:
+            raise ValueError(f"{name}: inputs differ in dtype or device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
+                             "aligned (the kernel reads vectors)")
+
+
+def short_attention_reference(q, k, v, causal: bool = False):
+    """Plain version of K3: what ``_short_kernel`` computes, in f32 -- q
+    scaled by 1/sqrt(Dh) before the dot, the causal mask q_pos >= k_pos,
+    a max-subtracted exp, P @ V divided by the row sum -- cast back to the
+    input dtype.  [B, H, Sq, Dh], [B, H, Sk, Dh] x 2 -> [B, H, Sq, Dh]."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    logits = (qf * (1.0 / math.sqrt(q.shape[-1]))) @ kf.transpose(-1, -2)
+    if causal:
+        s_q, s_k = logits.shape[-2:]
+        keep = (torch.arange(s_q, device=q.device)[:, None]
+                >= torch.arange(s_k, device=q.device)[None, :])
+        logits = logits.masked_fill(~keep, _NEG_INF)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return ((p @ vf) / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def short_attention(q, k, v, causal: bool = False):
+    """One-shot attention [B, H, Sq, Dh] -> [B, H, Sq, Dh]; causal needs
+    Sq == Sk.
+
+    A CPU tensor takes ``short_attention_reference``.  A CUDA tensor
+    launches kernel K3 (``csrc/short_attention.cu``) on the current stream
+    without synchronising, or raises for what it does not take.
+    """
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    if causal and Sq != Sk:
+        raise ValueError(f"short_attention: causal requires Sq == Sk, got "
+                         f"{Sq} != {Sk}")
+    if k.shape != (B, H, Sk, hd) or v.shape != k.shape:
+        raise ValueError(f"short_attention: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return short_attention_reference(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"short_attention: unsupported device {q.device}")
+    _check_cuda_input("short_attention", q, k, v)
+    if hd % 16 or not 16 <= hd <= 128:
+        raise NotImplementedError(
+            f"short_attention: head_dim {hd} (K3 takes multiples of 16 up "
+            "to 128)")
+    if B * H > 65535:
+        raise NotImplementedError(f"short_attention: B*H = {B * H} over "
+                                  "the grid's 65535")
+    out = torch.empty_like(q)
+    rc = _build.kernels().short_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Sq,
+        Sk, hd, int(causal), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "short_attention")
+    short_attention.launches += 1
+    return out
+
+
+short_attention.launches = 0
+
+
+def attention(q, k, v, causal: bool = False):
+    """Shape-dispatched attention [B, H, Sq, Dh] -> [B, H, Sq, Dh]
+    (``flash_attention.py:163-178``).
+
+    At most 640 keys: K3 ``short_attention`` (its plain version on the
+    CPU).  Longer: on CUDA ``NotImplementedError`` naming K5/K6, which are
+    not ported; on the CPU ``reference_attention``, the JAX package's
+    off-TPU path."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError(
+            f"causal attention requires Sq == Sk (kernel masks have no "
+            f"length offset); got Sq={q.shape[2]} Sk={k.shape[2]}")
+    if k.shape[2] <= _SHORT_MAX_KV:
+        return short_attention(q, k, v, causal=causal)
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, causal=causal)
+    raise NotImplementedError(
+        f"attention over {k.shape[2]} keys on {q.device} needs a kernel not "
+        "ported yet (K5 mid_attention or K6 flash_attention; see "
+        "ROADMAP.md)")
+
+
 def attention_from_qkv(qkv, heads: int, causal: bool = False):
     """Attention straight from the fused qkv projection [B, S, 3*D] ->
-    [B, S, D] (``flash_attention.py:244``).
+    [B, S, D] (``flash_attention.py:244-260``).
 
-    CUDA: kernel K1 when its gate allows; anything else (causal, head_dim
-    over 128 or not a multiple of 16) raises ``NotImplementedError``
-    naming the TPU kernels K3/K5/K6 still to be ported -- there is no
-    quiet plain path on the card.  CPU: the plain versions."""
+    K1 where ``use_fused_qkv_attention`` allows; otherwise the heads are
+    split ([B, S, 3, H, hd] -> three contiguous [B, H, S, hd]) and
+    ``attention`` dispatches.  A CPU tensor takes the plain versions on
+    the same route."""
     B, S, threeD = qkv.shape
     hd = threeD // 3 // heads
-    if qkv.device.type == "cpu":
-        if not causal:
-            return short_attention_qkv(qkv, heads)
-        q, k, v = _split_heads(qkv, heads)
-        att = reference_attention(q, k, v, causal=True)
-        return att.transpose(1, 2).reshape(B, S, threeD // 3)
-    if not kernel_supports(hd, causal):
-        raise NotImplementedError(
-            f"attention_from_qkv(causal={causal}, head_dim={hd}) on "
-            f"{qkv.device} needs a kernel not ported yet (K3 short_attention,"
-            " K5 mid_attention or K6 flash_attention; see ROADMAP.md)")
-    return short_attention_qkv(qkv, heads)
+    if use_fused_qkv_attention(S, heads, hd, causal):
+        return short_attention_qkv(qkv, heads)
+    q, k, v = (t.contiguous() for t in _split_heads(qkv, heads))
+    att = attention(q, k, v, causal=causal)
+    return att.transpose(1, 2).reshape(B, S, threeD // 3)

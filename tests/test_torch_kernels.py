@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 short_attention_qkv, K2 max_cosine_per_voxel)
-against their plain PyTorch versions.
+"""The port's CUDA kernels (K1 short_attention_qkv, K2 max_cosine_per_voxel,
+K3 short_attention) against their plain PyTorch versions.
 
 This file imports no JAX, so the card tests also run where JAX is not
 installed.  On a machine with an NVIDIA GPU and nvcc:
@@ -60,6 +60,18 @@ def _store(V1, K, D, seed=0):
     return [torch.from_numpy(a) for a in (feats, norms, counts, q)]
 
 
+def _bhsd(B, H, S, hd, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(B, H, S, hd)).astype(np.float32))
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at the magnitude of each element of x (8 significant
+    bits)."""
+    mag = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
 def _check_sims(got, want, atol):
     got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
@@ -76,13 +88,19 @@ def test_cpu_tensors_take_the_plain_versions():
     n2 = tsim.max_cosine_per_voxel.launches
     torch.testing.assert_close(tsim.max_cosine_per_voxel(*store),
                                tsim.reference_max_cosine(*store))
+    q, k, v = _qkv(2, 9, 2, 16).reshape(2, 9, 3, 2, 16).unbind(2)
+    n3 = tfa.short_attention.launches
+    torch.testing.assert_close(tfa.short_attention(q, k, v, causal=True),
+                               tfa.short_attention_reference(q, k, v, True))
     assert tfa.short_attention_qkv.launches == n1
     assert tsim.max_cosine_per_voxel.launches == n2
+    assert tfa.short_attention.launches == n3
 
 
 def test_kernel_sources_are_the_build_inputs():
     names = {p.name for p in _build.sources()}
-    assert names == {"short_attention_qkv.cu", "max_cosine.cu"}
+    assert names == {"short_attention_qkv.cu", "max_cosine.cu",
+                     "short_attention.cu"}
     for p in _build.sources():
         head = pathlib.Path(p).read_text()[:3000]
         assert "Replaces: bsc_nav_tpu/ops/" in head and "Bound on" in head
@@ -130,10 +148,65 @@ def test_k2_matches_plain(cuda, V1, K, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", [
+    (3, 16, 257, 257, 80, False),       # MetaCLIP ViT-H vision tower
+    (4, 16, 77, 77, 64, True),          # CLIP text towers
+    (2, 3, 50, 203, 80, False),         # ragged, Sq != Sk
+    (1, 2, 130, 130, 128, True), (2, 5, 9, 9, 16, False)])
+def test_k3_matches_plain(cuda, B, H, Sq, Sk, hd, causal, dtype):
+    """f32: sums in another order, 2e-5 abs.  bf16: each side rounds its
+    f32 result (within that 2e-5) to bf16 once, so they differ by at most
+    2e-5 plus one bf16 ulp at the output's magnitude."""
+    q = _bhsd(B, H, Sq, hd, 5).to(cuda, dtype)
+    k, v = (_bhsd(B, H, Sk, hd, s).to(cuda, dtype) for s in (6, 7))
+    before = tfa.short_attention.launches
+    got = tfa.short_attention(q, k, v, causal=causal)
+    assert tfa.short_attention.launches == before + 1
+    want = tfa.short_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, Sq, hd)
+    diff = (got.float() - want.float()).abs()
+    tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+def test_clip_attention_routes_to_k3(cuda):
+    """hd 80 and causal inputs reach K3 and not K1; ViT-L's shape reaches
+    K1; more than 640 keys raises naming K5/K6."""
+    n1, n3 = tfa.short_attention_qkv.launches, tfa.short_attention.launches
+    tfa.attention_from_qkv(torch.zeros(2, 257, 3 * 16 * 80, device=cuda), 16)
+    tfa.attention_from_qkv(torch.zeros(2, 77, 3 * 16 * 64, device=cuda), 16,
+                           causal=True)
+    assert tfa.short_attention.launches == n3 + 2
+    assert tfa.short_attention_qkv.launches == n1
+    tfa.attention_from_qkv(torch.zeros(2, 261, 3 * 16 * 64, device=cuda), 16)
+    assert tfa.short_attention_qkv.launches == n1 + 1
+    with pytest.raises(NotImplementedError, match="K5.*K6"):
+        tfa.attention_from_qkv(torch.zeros(1, 641, 3 * 2 * 64, device=cuda),
+                               2)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
     qkv = torch.zeros(1, 8, 3 * 2 * 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tfa.attention_from_qkv(qkv, heads=2, causal=True)
+    with pytest.raises(NotImplementedError, match="K5"):
+        tfa.attention_from_qkv(torch.zeros(1, 700, 3 * 2 * 64, device=cuda),
+                               heads=2, causal=True)
+    q = torch.zeros(2, 2, 40, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.short_attention(q[:, :, ::2], q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.short_attention(q, q.transpose(0, 1), q)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.short_attention(q, torch.zeros(1 + q.numel(), device=cuda)[1:]
+                            .view(q.shape), q)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        tfa.short_attention(q, q[:, :, :20].contiguous(),
+                            q[:, :, :20].contiguous(), causal=True)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        tfa.short_attention(*(torch.zeros(1, 1, 8, 40, device=cuda),) * 3)
     with pytest.raises(NotImplementedError):
         tfa.short_attention_qkv(torch.zeros(1, 8, 3 * 160, device=cuda), 1)
     with pytest.raises(TypeError):

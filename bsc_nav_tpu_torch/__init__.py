@@ -4,13 +4,19 @@ NVIDIA H100.
 Module paths mirror the JAX package (``bsc_nav_tpu/memory/ingest.py`` ->
 ``bsc_nav_tpu_torch/memory/ingest.py``); the JAX package stays the
 reference the port is tested against.  This package imports ``torch`` and
-never ``jax``.  It shares the JAX-free host code of ``bsc_nav_tpu`` by
-import: ``bsc_nav_tpu.config`` and ``bsc_nav_tpu.env``.
+never ``jax``, and nothing of ``bsc_nav_tpu``: the port keeps its own copy
+of the JAX-free host code it needs (``config``, ``env/{fake,pathfinding}``,
+``models/{tokenizer,sentencepiece}``, the host halves of
+``models/detector`` and ``agents/matchers``), held equal to the original by
+the parity tests.
 
 Every Pallas kernel on the ported path has a hand-written CUDA kernel in
 ``csrc/`` with a plain PyTorch version beside its wrapper: a tensor on
 the CPU takes the plain version, a CUDA tensor launches the kernel (or
-the wrapper raises).
+the wrapper raises).  Entry points that allocate (model constructors,
+loaders, ``init_store``, ``Perception.create``) default to
+``device="cuda"`` and raise where there is no card; the CPU is used only
+when a caller asks for it.
 """
 
 from __future__ import annotations

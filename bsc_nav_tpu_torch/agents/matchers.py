@@ -3,22 +3,29 @@
 Counterpart of ``bsc_nav_tpu/agents/matchers.py``: ``CLIPMatcher`` scores
 the 360-degree scan views against a text or image prompt (``check_around``)
 and picks the goal label among long-term memory labels.  The Protocols and
-the ``ColorViewScorer`` test double import no JAX, so they are shared by
-import.
+the ``ColorViewScorer`` test double are the port's own copies of the JAX
+package's (``matchers.py:18-24, 95-136``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Protocol, Sequence
 
 import numpy as np
 import torch
 
-from bsc_nav_tpu.agents.matchers import (  # noqa: F401  (shared surface)
-    ColorViewScorer, LabelMatcher, ViewScorer)
-from bsc_nav_tpu.models import tokenizer as T
 from bsc_nav_tpu_torch import resolve_device
 from bsc_nav_tpu_torch.models import clip as C
+from bsc_nav_tpu_torch.models import tokenizer as T
+
+
+class ViewScorer(Protocol):
+    def score(self, views: Sequence[np.ndarray],
+              prompt) -> np.ndarray: ...
+
+
+class LabelMatcher(Protocol):
+    def best(self, text: str, labels: Sequence[str]) -> int: ...
 
 
 def model_device(model: C.CLIP, device=None) -> torch.device:
@@ -86,3 +93,47 @@ class CLIPMatcher:
         tf = self._embed_text([text])[0]
         lf = self._embed_text(list(labels))
         return int(np.argmax(lf @ tf))
+
+
+class ColorViewScorer:
+    """Test double: scores a view by the fraction of pixels close to the
+    prototype color of the prompt's object (fake box world)."""
+
+    def __init__(self, prototypes: dict, tol: float = 40.0):
+        self.prototypes = {k: np.asarray(v, float)
+                           for k, v in prototypes.items()}
+        self.tol = tol
+
+    def _frac(self, view: np.ndarray, proto: np.ndarray) -> float:
+        img = np.asarray(view)[:, :, :3].astype(float)
+        d = np.linalg.norm(img - proto[None, None], axis=-1)
+        return float((d < self.tol).mean())
+
+    def _proto_for(self, prompt) -> Optional[np.ndarray]:
+        if not isinstance(prompt, str):
+            # image prompt: dominant non-gray color
+            img = np.asarray(prompt)[:, :, :3].astype(float)
+            best, bestf = None, 0.0
+            for proto in self.prototypes.values():
+                f = self._frac(img, proto)
+                if f > bestf:
+                    best, bestf = proto, f
+            return best
+        for label, proto in self.prototypes.items():
+            if label in prompt:
+                return proto
+        return None
+
+    def score(self, views, prompt) -> np.ndarray:
+        proto = self._proto_for(prompt)
+        if proto is None:
+            return np.full(len(views), 1.0 / len(views))
+        f = np.array([self._frac(v, proto) for v in views])
+        e = np.exp(f * 20.0 - (f * 20.0).max())
+        return e / e.sum()
+
+    def best(self, text: str, labels: Sequence[str]) -> int:
+        for i, lbl in enumerate(labels):
+            if lbl in text or text in lbl:
+                return i
+        return 0

@@ -7,12 +7,14 @@ frames, whose points all fail the min-depth gate), a detector's boxes
 become located instances in ``long_memory_dict``, and image prompts are
 localized against the store.  A host detector (``detect``) runs inline
 per frame; one with ``detect_batch`` (``ClipPatchDetector``) runs once per
-flush.
+flush.  A text prompt goes through the imagination (``DiffusionImagination``:
+SD3.5-medium with CLIP-L/G and T5 conditioning) and the text-query steps
+of ``memory.pipeline``, the imagined images staying on the device.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-text prompts (imagination), a detector's device feed
-(``detect_batch_instances``, YOLO-World), segmented stores, batched
-queries and persistence -- each is a later item of ROADMAP.md Queue 1.
+Not ported yet, and raising ``NotImplementedError`` when asked for: a
+detector's device feed (``detect_batch_instances``, YOLO-World),
+segmented stores, batched queries and persistence -- each is a later item
+of ROADMAP.md Queue 1.
 """
 
 from __future__ import annotations
@@ -25,11 +27,14 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from bsc_nav_tpu.config import Config
+from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch import geometry as G
 from bsc_nav_tpu_torch import resolve_device
 from bsc_nav_tpu_torch.memory import longterm as LT
-from bsc_nav_tpu_torch.memory.pipeline import make_build_step, make_query_step
+from bsc_nav_tpu_torch.memory.pipeline import (
+    make_build_step, make_query_step, make_text_pool_step,
+    make_text_query_step)
+from bsc_nav_tpu_torch.memory.query import localize
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import vit
 from bsc_nav_tpu_torch.models.weights import load_dinov2_npz
@@ -58,7 +63,7 @@ class Perception:
     def create(cfg: Config, vit_cfg: Optional[vit.ViTConfig] = None,
                vit_params: Optional[vit.ViT] = None, batch_size: int = 8,
                compute_dtype=torch.float32, seed: int = 0,
-               device="cpu") -> "Perception":
+               device="cuda") -> "Perception":
         dev = resolve_device(device)
         vit_cfg = vit_cfg or vit.CONFIGS[cfg.models.encoder]
         if cfg.models.encoder_int8:
@@ -97,18 +102,24 @@ class VoxelTokenMemory:
     def __init__(self, cfg: Config, env, perception: Perception,
                  detector=None, imagination=None,
                  store_dtype=torch.float32,
-                 segmented: bool = False):
+                 segmented: bool = False,
+                 text_query_split: Optional[bool] = None):
         if hasattr(detector, "detect_batch_instances"):
             raise _not_ported("a detector's device feed "
                               "(detect_batch_instances, YOLO-World)", "10")
-        if imagination is not None:
-            raise _not_ported("imagination (text queries)", "13")
         if segmented:
             raise _not_ported("the segmented store", "11")
         self.cfg = cfg
         self.Env = env
         self.perception = perception
         self.detector = detector
+        self.imagination = imagination
+        self._text_query_step = None     # built at the first text query
+        self._text_pool_step = None
+        # split text query (imagination + encode + pool, then the scan) or
+        # the single step; None chooses as the JAX package does
+        self.text_query_split = text_query_split
+        self.last_imagined = None        # device images of the last one
         self.device = perception.device
         self.state = init_store(cfg.memory, store_dtype=store_dtype,
                                 device=self.device)
@@ -249,12 +260,71 @@ class VoxelTokenMemory:
             return np.zeros((0, 3), int), np.zeros((0, 3), int), scores
         return positions[:1], positions, scores
 
+    def imaginary(self, text_prompt: str) -> np.ndarray:
+        """text -> query images [N, H, W, 3] uint8 via the imagination."""
+        if self.imagination is None:
+            raise RuntimeError(
+                "no imagination model configured (text queries need one; "
+                "pass imagination= to VoxelTokenMemory)")
+        return self.imagination(text_prompt)
+
+    def _use_split_textq(self) -> bool:
+        """The JAX package's choice (``spatial_memory.py:355-359``): split
+        when T5 conditioning meets a store of more than 2^16 slots.  Both
+        forms run the same work here; the choice picks the steps."""
+        if self.text_query_split is not None:
+            return self.text_query_split
+        return (getattr(self.imagination, "t5_params", None) is not None
+                and self.state.feat_count.shape[0] > (1 << 16))
+
+    def voxel_localized_async(self, prompt, K: int = 100,
+                              region_radius: float = np.inf,
+                              curr_grid=None):
+        """Queue a text query on the device without waiting: returns a
+        zero-argument function giving ``voxel_localized``'s result, or None
+        for a prompt that is not text or a memory without imagination.
+        Kernels run on the CUDA stream while the host goes on; the
+        function's copy to the host waits for them."""
+        if not isinstance(prompt, str) or self.imagination is None:
+            return None
+        self.flush()
+        im = self.imagination
+        inputs = im.prep_inputs(prompt)
+        mask = self._mask_kwargs(region_radius, curr_grid)
+        vit_params = self.perception.vit_params
+        if self._use_split_textq():
+            if self._text_pool_step is None:
+                self._text_pool_step = make_text_pool_step(
+                    self.cfg, self.perception.vit_cfg, im,
+                    self.perception.compute_dtype)
+            pooled, imgs = self._text_pool_step(vit_params, *inputs)
+            positions, scores = localize(self.state, pooled, top_k=K, **mask)
+        else:
+            if self._text_query_step is None:
+                self._text_query_step = make_text_query_step(
+                    self.cfg, self.perception.vit_cfg, im,
+                    self.perception.compute_dtype)
+            positions, scores, imgs = self._text_query_step(
+                self.state, vit_params, *inputs, top_k=K, **mask)
+
+        def finish():
+            self.last_imagined = imgs
+            return self._live_topk(positions, scores)
+
+        return finish
+
     def voxel_localized(self, prompt, K: int = 100,
                         region_radius: float = np.inf, curr_grid=None):
-        """Image prompt(s) [H, W, 3] or [N, H, W, 3] -> (best_pos [1, 3],
-        top_k_positions [<=K, 3], top_k_similarity [<=K])."""
+        """A text prompt, or image prompt(s) [H, W, 3] or [N, H, W, 3] ->
+        (best_pos [1, 3], top_k_positions [<=K, 3], top_k_similarity
+        [<=K])."""
         if isinstance(prompt, str):
-            raise _not_ported("text prompts (imagination)", "13")
+            finish = self.voxel_localized_async(prompt, K, region_radius,
+                                                curr_grid)
+            if finish is None:
+                raise RuntimeError("no imagination model configured (text "
+                                   "queries need one)")
+            return finish()
         self.flush()
         arr = np.asarray(prompt)
         imgs = (arr[None] if arr.ndim == 3 else arr)[:, :, :, :3]

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from bsc_nav_tpu.config import Config
+from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch import geometry as G
 from bsc_nav_tpu_torch.memory.store import VoxelStoreState, linear_voxel_id
 

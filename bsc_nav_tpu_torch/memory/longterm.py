@@ -15,8 +15,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from bsc_nav_tpu.config import Config
-from bsc_nav_tpu.models.detector import Detection
+from bsc_nav_tpu_torch.config import Config
+from bsc_nav_tpu_torch.models.detector import Detection
 from bsc_nav_tpu_torch import geometry as G
 
 

@@ -4,12 +4,16 @@ Counterpart of ``bsc_nav_tpu/memory/pipeline.py``:
 
   build_step: RGB-D frames + poses -> DINOv2 patch tokens -> voxel ingest
   query_step: query images -> pooled token -> store scan -> top-K voxels
+  text_query_step: text -> imagined images -> the query step
+  text_pool_step: text -> imagined images -> pooled token (the split
+      text query's first half; ``query.localize`` is the second)
 
 PyTorch runs eagerly, so each "step" is a plain function; kernels are
 queued on the current CUDA stream and nothing synchronises until a caller
-reads a result.  The carry is ``(state, generator)``; the state is
-updated in place.  The text-query, pooled-query and batched-query steps
-are queued in ROADMAP.md.
+reads a result, so the imagined images never leave the device between
+the diffusion sampler and the encoder.  The carry is ``(state,
+generator)``; the state is updated in place.  The batched-query step is
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from bsc_nav_tpu.config import Config
+from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch.memory.ingest import ingest_frames
 from bsc_nav_tpu_torch.memory.query import gaussian_center_pool, localize
 from bsc_nav_tpu_torch.memory.store import VoxelStoreState
@@ -57,6 +61,15 @@ def make_build_step(cfg: Config, vit_cfg: vit.ViTConfig,
     return build_step
 
 
+def _pooled_query(cfg: Config, vit_params: vit.ViT, images_uint8,
+                  compute_dtype) -> torch.Tensor:
+    """uint8 images -> the center-Gaussian pooled DINOv2 token [D]."""
+    q = (cfg.query.query_height, cfg.query.query_width)
+    x = vit.preprocess(images_uint8, out_hw=q).to(compute_dtype)
+    return gaussian_center_pool(
+        vit_params.forward_features(x)["x_norm_patchtokens"])
+
+
 def make_query_step(cfg: Config, vit_cfg: vit.ViTConfig,
                     compute_dtype=torch.float32):
     """Returns (state, params, query_images_uint8, top_k, masks...) ->
@@ -69,13 +82,56 @@ def make_query_step(cfg: Config, vit_cfg: vit.ViTConfig,
                    region_radius: float = 0.0,
                    use_floor: bool = False,
                    floor_range: Optional[torch.Tensor] = None):
-        q = (cfg.query.query_height, cfg.query.query_width)
-        x = vit.preprocess(images_uint8, out_hw=q).to(compute_dtype)
-        tokens = params.forward_features(x)["x_norm_patchtokens"]
-        pooled = gaussian_center_pool(tokens)
+        pooled = _pooled_query(cfg, params, images_uint8, compute_dtype)
         return localize(
             state, pooled, top_k=top_k, use_region=use_region,
             curr_grid=curr_grid, region_radius=region_radius,
             use_floor=use_floor, floor_range=floor_range)
 
     return query_step
+
+
+def make_text_query_step(cfg: Config, vit_cfg: vit.ViTConfig, imagination,
+                         compute_dtype=torch.float32):
+    """The whole text query in one call (``pipeline.py:98-143``): text ids
+    -> ``imagination.imagine_core`` -> DINOv2 encode -> store scan.
+    Returns (state, vit_params, ids, ids_uncond, t5_ids, t5_ids_uncond,
+    noise=None, top_k, masks...) -> (positions [K, 3], scores [K], images
+    [N, H, W, 3] uint8 on the device); ``noise`` injects the sampler's
+    initial draw."""
+
+    def text_query_step(state: VoxelStoreState, vit_params: vit.ViT,
+                        ids, ids_uncond, t5_ids, t5_ids_uncond,
+                        noise: Optional[torch.Tensor] = None,
+                        top_k: int = 100,
+                        use_region: bool = False,
+                        curr_grid: Optional[torch.Tensor] = None,
+                        region_radius: float = 0.0,
+                        use_floor: bool = False,
+                        floor_range: Optional[torch.Tensor] = None):
+        imgs = imagination.imagine_core(ids, ids_uncond, t5_ids,
+                                        t5_ids_uncond, noise)
+        pooled = _pooled_query(cfg, vit_params, imgs, compute_dtype)
+        positions, scores = localize(
+            state, pooled, top_k=top_k, use_region=use_region,
+            curr_grid=curr_grid, region_radius=region_radius,
+            use_floor=use_floor, floor_range=floor_range)
+        return positions, scores, imgs
+
+    return text_query_step
+
+
+def make_text_pool_step(cfg: Config, vit_cfg: vit.ViTConfig, imagination,
+                        compute_dtype=torch.float32):
+    """First half of the split text query (``pipeline.py:146-178``):
+    (vit_params, ids, ids_uncond, t5_ids, t5_ids_uncond, noise=None) ->
+    (pooled [D] f32, images [N, H, W, 3] uint8), both on the device; the
+    store scan (``query.localize``) consumes the pooled vector as it is."""
+
+    def text_pool_step(vit_params: vit.ViT, ids, ids_uncond, t5_ids,
+                       t5_ids_uncond, noise: Optional[torch.Tensor] = None):
+        imgs = imagination.imagine_core(ids, ids_uncond, t5_ids,
+                                        t5_ids_uncond, noise)
+        return _pooled_query(cfg, vit_params, imgs, compute_dtype), imgs
+
+    return text_pool_step

@@ -18,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from bsc_nav_tpu.config import MemoryConfig
+from bsc_nav_tpu_torch.config import MemoryConfig
 from bsc_nav_tpu_torch import resolve_device
 
 
@@ -71,7 +71,7 @@ def padded_rows(cfg: MemoryConfig) -> int:
 
 
 def init_store(cfg: MemoryConfig, store_dtype=torch.float32,
-               device="cpu") -> VoxelStoreState:
+               device="cuda") -> VoxelStoreState:
     if store_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"store dtype {store_dtype}: the int8 store is queued in "

@@ -137,7 +137,7 @@ class CLIP(nn.Module):
     ``quantized`` ("none", "visual", "text" or "both") names the towers
     whose block matmuls hold int8 leaves."""
 
-    def __init__(self, cfg: CLIPConfig, dtype=torch.float32, device="cpu",
+    def __init__(self, cfg: CLIPConfig, dtype=torch.float32, device="cuda",
                  quantized: str = "none"):
         super().__init__()
         dev = resolve_device(device)
@@ -179,7 +179,7 @@ def _init_(module: nn.Module, generator: torch.Generator):
 
 
 def init_params(cfg: CLIPConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> CLIP:
+                dtype=torch.float32, device="cuda") -> CLIP:
     """A randomly initialized CLIP; ``generator`` must live on ``device``."""
     model = CLIP(cfg, dtype=dtype, device=device)
     _init_(model, generator)
@@ -187,7 +187,7 @@ def init_params(cfg: CLIPConfig, generator: torch.Generator,
 
 
 def init_text_params(cfg: CLIPConfig, generator: torch.Generator,
-                     dtype=torch.float32, device="cpu") -> TextTower:
+                     dtype=torch.float32, device="cuda") -> TextTower:
     """A randomly initialized text tower alone (the SD3 conditioning
     towers have no vision side)."""
     tower = TextTower(cfg, dtype, resolve_device(device))

@@ -7,22 +7,55 @@ blocks but the last (kernel K3 in every layer on the card), the last block
 contributes its value path only, and ``ln_post`` + ``proj`` turn each
 patch token into an embedding compared with the class text embeddings.
 The host side -- ``Detection``, the heat-map to boxes step and the
-``ColorPrototypeDetector`` test double -- imports no JAX and is shared by
-import.
+``ColorPrototypeDetector`` test double -- is the port's own copy of the
+JAX package's (``detector.py:28-59, 147-182``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+from typing import List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from bsc_nav_tpu.models import tokenizer as T
-from bsc_nav_tpu.models.detector import (  # noqa: F401  (shared surface)
-    ColorPrototypeDetector, Detection, Detector, _boxes_from_heatmap)
 from bsc_nav_tpu_torch.agents.matchers import model_device
 from bsc_nav_tpu_torch.models import clip as C
+from bsc_nav_tpu_torch.models import tokenizer as T
+
+
+@dataclasses.dataclass
+class Detection:
+    label: str
+    confidence: float
+    xyxy: Tuple[float, float, float, float]
+
+
+class Detector(Protocol):
+    def detect(self, rgb: np.ndarray) -> List[Detection]: ...
+
+
+def _boxes_from_heatmap(heat: np.ndarray, labels_idx: np.ndarray,
+                        classes: Sequence[str], conf: float, scale_y: float,
+                        scale_x: float) -> List[Detection]:
+    """Connected components over a thresholded per-patch heatmap."""
+    from scipy import ndimage
+
+    out: List[Detection] = []
+    for ci, cname in enumerate(classes):
+        mask = (labels_idx == ci) & (heat >= conf)
+        if not mask.any():
+            continue
+        lab, n = ndimage.label(mask)
+        for comp in range(1, n + 1):
+            ys, xs = np.nonzero(lab == comp)
+            score = float(heat[lab == comp].max())
+            out.append(Detection(
+                cname, score,
+                (float(xs.min() * scale_x), float(ys.min() * scale_y),
+                 float((xs.max() + 1) * scale_x),
+                 float((ys.max() + 1) * scale_y))))
+    return out
 
 
 @torch.no_grad()
@@ -85,4 +118,42 @@ class ClipPatchDetector:
             out.append(_boxes_from_heatmap(
                 heat, labels_idx, self.classes, self.confidence,
                 scale_y=H / g, scale_x=W / g))
+        return out
+
+
+class ColorPrototypeDetector:
+    """Test-double detector for the fake box world: per-class RGB
+    prototypes matched within tolerance, component boxes with confidence
+    proportional to color closeness."""
+
+    def __init__(self, prototypes: dict, confidence: float = 0.55,
+                 tol: float = 40.0):
+        self.prototypes = {k: np.asarray(v, float)
+                           for k, v in prototypes.items()}
+        self.confidence = confidence
+        self.tol = tol
+
+    def detect(self, rgb: np.ndarray) -> List[Detection]:
+        from scipy import ndimage
+
+        img = rgb[:, :, :3].astype(float)
+        out: List[Detection] = []
+        for label, proto in self.prototypes.items():
+            d = np.linalg.norm(img - proto[None, None], axis=-1)
+            mask = d < self.tol
+            if mask.sum() < 12:
+                continue
+            lab, n = ndimage.label(mask)
+            for comp in range(1, n + 1):
+                sel = lab == comp
+                if sel.sum() < 12:
+                    continue
+                ys, xs = np.nonzero(sel)
+                conf = float(1.0 - d[sel].mean() / 255.0)
+                if conf < self.confidence:
+                    continue
+                out.append(Detection(
+                    label, conf,
+                    (float(xs.min()), float(ys.min()),
+                     float(xs.max() + 1), float(ys.max() + 1))))
         return out

@@ -256,7 +256,7 @@ class ViT(nn.Module):
     """DINOv2-style encoder.  Parameters are created empty; fill them with
     ``init_params`` or the loaders in ``models.weights``."""
 
-    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device="cpu"):
+    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
         d = cfg.dim
@@ -304,7 +304,7 @@ class ViT(nn.Module):
 
 @torch.no_grad()
 def init_params(cfg: ViTConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> ViT:
+                dtype=torch.float32, device="cuda") -> ViT:
     """A randomly initialized ViT, with the JAX package's distributions
     (linear weights N(0, 1/fan_in), zero biases, unit LayerNorms,
     layerscale 1e-5, tokens N(0, 0.02^2)).  Draws come from ``generator``,

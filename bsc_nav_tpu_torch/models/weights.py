@@ -1,4 +1,5 @@
-"""Load ViT and CLIP weights into the torch modules.
+"""Load ViT and CLIP weights into the torch modules, and the MMDiT, VAE
+and T5 weights into the port's dict trees.
 
 Two sources, one key scheme: the JAX params tree (nested dicts and lists,
 ``bsc_nav_tpu/models/vit.py`` layout, linear ``w`` stored
@@ -8,7 +9,9 @@ tree's paths joined by dots (``blocks.3.qkv.w``).  Those dotted keys are
 exactly the modules' ``state_dict()`` keys, so loading is a strict
 ``load_state_dict`` and a missing or extra tensor raises.  A CLIP tree may
 hold int8 ``w_q`` / ``w_s`` leaves (``clip.quantize_params``); the towers
-that do are built quantized.
+that do are built quantized.  The MMDiT, VAE and T5 keep the JAX tree
+itself (nested dicts and lists of tensors), so their loaders only rebuild
+the tree from the dotted keys and move each leaf to the device.
 """
 
 from __future__ import annotations
@@ -18,7 +21,12 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from bsc_nav_tpu_torch import resolve_device
+
 from bsc_nav_tpu_torch.models.clip import CLIP, CLIPConfig
+from bsc_nav_tpu_torch.models.mmdit import MMDiTConfig
+from bsc_nav_tpu_torch.models.t5 import T5Config
+from bsc_nav_tpu_torch.models.vae import VAEConfig
 from bsc_nav_tpu_torch.models.vit import ViT, ViTConfig
 
 
@@ -35,6 +43,27 @@ def flatten_params(params: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     else:
         out[prefix[:-1]] = np.asarray(params)
     return out
+
+
+def unflatten_params(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{dotted path: array} -> nested tree; a dict whose keys are all
+    digits becomes a list (the JAX package's ``unflatten_params``)."""
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        parts = key.split(".")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+
+    def listify(node):
+        if isinstance(node, dict):
+            if node and all(k.isdigit() for k in node):
+                return [listify(node[str(i)]) for i in range(len(node))]
+            return {k: listify(v) for k, v in node.items()}
+        return node
+
+    return listify(tree)
 
 
 def _fill(model, flat: Mapping[str, np.ndarray]):
@@ -54,14 +83,14 @@ def _fill(model, flat: Mapping[str, np.ndarray]):
 
 
 def vit_from_jax_params(params: Any, cfg: ViTConfig, dtype=torch.float32,
-                        device="cpu") -> ViT:
+                        device="cuda") -> ViT:
     """A ViT holding the weights of a JAX params tree (numpy leaves)."""
     return _fill(ViT(cfg, dtype=dtype, device=device),
                  flatten_params(params))
 
 
 def load_dinov2_npz(path: str, cfg: ViTConfig, dtype=torch.float32,
-                    device="cpu") -> ViT:
+                    device="cuda") -> ViT:
     """A ViT holding the weights of a converted ``.npz``."""
     with np.load(path) as z:
         return _fill(ViT(cfg, dtype=dtype, device=device), dict(z.items()))
@@ -77,15 +106,87 @@ def _clip(flat: Mapping[str, np.ndarray], cfg: CLIPConfig, dtype,
 
 
 def clip_from_jax_params(params: Any, cfg: CLIPConfig, dtype=torch.float32,
-                         device="cpu") -> CLIP:
+                         device="cuda") -> CLIP:
     """A CLIP holding the weights of a JAX ``clip.init_params`` tree (numpy
     leaves), quantized or not."""
     return _clip(flatten_params(params), cfg, dtype, device)
 
 
 def load_clip_npz(path: str, cfg: CLIPConfig, dtype=torch.float32,
-                  device="cpu") -> CLIP:
+                  device="cuda") -> CLIP:
     """A CLIP holding the weights of the ``.npz`` that
     ``tools/convert_weights.py clip`` writes."""
     with np.load(path) as z:
         return _clip(dict(z.items()), cfg, dtype, device)
+
+
+def _tree(params: Any, dtype, device, name: str = "") -> Any:
+    """A numpy tree as tensors on ``device``: int8 leaves stay int8, the
+    int8 leaves' f32 scales ``w_s`` stay f32, other floats take ``dtype``."""
+    if isinstance(params, dict):
+        return {k: _tree(v, dtype, device, k) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_tree(v, dtype, device) for v in params]
+    a = np.asarray(params)
+    if a.dtype == np.int8:
+        return torch.from_numpy(np.array(a)).to(device)
+    t = torch.from_numpy(np.array(a, np.float32))
+    return t.to(device=device,
+                dtype=torch.float32 if name == "w_s" else dtype)
+
+
+def _check_depth(tree, n: int, what: str) -> None:
+    if len(tree["blocks"]) != n:
+        raise ValueError(f"{what}: {len(tree['blocks'])} blocks, the config "
+                         f"has {n}")
+
+
+def mmdit_from_jax_params(params: Any, cfg: MMDiTConfig,
+                          dtype=torch.float32, device="cuda") -> dict:
+    """The port's MMDiT tree from a JAX ``mmdit.init_params`` /
+    ``convert_sd3`` tree (numpy leaves), quantized or not."""
+    _check_depth(params, cfg.depth, "mmdit")
+    return _tree(params, dtype, resolve_device(device))
+
+
+def vae_from_jax_params(params: Any, cfg: VAEConfig, dtype=torch.float32,
+                        device="cuda") -> dict:
+    """The port's VAE decoder tree from a JAX ``vae.init_params`` /
+    ``convert_vae_decoder`` tree (numpy leaves)."""
+    if len(params["stages"]) != len(cfg.channel_mults):
+        raise ValueError(f"vae: {len(params['stages'])} stages, the config "
+                         f"has {len(cfg.channel_mults)}")
+    return _tree(params, dtype, resolve_device(device))
+
+
+def t5_from_jax_params(params: Any, cfg: T5Config, dtype=torch.float32,
+                       device="cuda") -> dict:
+    """The port's T5 encoder tree from a JAX ``t5.init_params`` /
+    ``convert_t5`` tree or a ``quantize_params_host`` tree (numpy
+    leaves)."""
+    _check_depth(params, cfg.layers, "t5")
+    return _tree(params, dtype, resolve_device(device))
+
+
+def _npz_tree(path: str) -> dict:
+    with np.load(path) as z:
+        return unflatten_params(dict(z.items()))
+
+
+def load_sd35_medium_npz(path: str, cfg: MMDiTConfig, dtype=torch.float32,
+                         device="cuda") -> dict:
+    """The MMDiT tree of the ``sd35_medium.npz`` that ``save_params_npz``
+    writes."""
+    return mmdit_from_jax_params(_npz_tree(path), cfg, dtype, device)
+
+
+def load_sd3_vae_npz(path: str, cfg: VAEConfig, dtype=torch.float32,
+                     device="cuda") -> dict:
+    """The VAE decoder tree of ``sd3_vae.npz``."""
+    return vae_from_jax_params(_npz_tree(path), cfg, dtype, device)
+
+
+def load_t5_xxl_npz(path: str, cfg: T5Config, dtype=torch.float32,
+                    device="cuda") -> dict:
+    """The T5 encoder tree of ``t5_xxl.npz``."""
+    return t5_from_jax_params(_npz_tree(path), cfg, dtype, device)

@@ -81,6 +81,9 @@ def kernels() -> ctypes.CDLL:
         lib.max_cosine_per_voxel_launch.argtypes = [p, p, p, p, p, i, i, i,
                                                     i, p]
         lib.max_cosine_per_voxel_launch.restype = i
+        lib.joint_qkv_attention_launch.argtypes = [p, p, p, p, i, i, i, i,
+                                                   ctypes.c_float, i, p]
+        lib.joint_qkv_attention_launch.restype = i
         _lib = lib
     return _lib
 

@@ -1,13 +1,15 @@
-"""Attention for the ViT and CLIP towers: kernels K1 and K3 and their
-plain versions.
+"""Attention for the ViT, CLIP and MMDiT towers: kernels K1, K3 and K4 and
+their plain versions.
 
 Counterpart of ``bsc_nav_tpu/ops/flash_attention.py``, with its dispatch:
 ``attention_from_qkv`` takes the fused-QKV kernel K1
 (``csrc/short_attention_qkv.cu``) only where ``use_fused_qkv_attention``
 holds, as the JAX package does, and otherwise splits heads and calls
 ``attention``, which takes K3 ``short_attention`` (``csrc/short_attention.cu``)
-for at most 640 keys.  The other TPU kernels of that module --
-``joint_qkv_attention`` (K4), ``mid_attention`` (K5) and
+for at most 640 keys.  The MMDiT's joint attention goes through
+``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4 ``joint_qkv_attention``
+(``csrc/joint_qkv_attention.cu``) where ``use_joint_qkv_attention`` holds.
+The other TPU kernels of that module -- ``mid_attention`` (K5) and
 ``flash_attention`` (K6) -- are queued in ROADMAP.md; on a CUDA tensor a
 call that would need them raises.
 
@@ -26,8 +28,10 @@ import torch
 from bsc_nav_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-# flash_attention.py:158: the longest key sequence K1 and K3 serve
+# flash_attention.py:158-159: the longest key sequence K1 and K3 serve, and
+# the longest joint sequence K4 takes
 _SHORT_MAX_KV = 640
+_MID_MAX_KV = 4096
 
 
 def reference_attention(q, k, v, causal: bool = False, scale=None):
@@ -233,3 +237,148 @@ def attention_from_qkv(qkv, heads: int, causal: bool = False):
     q, k, v = (t.contiguous() for t in _split_heads(qkv, heads))
     att = attention(q, k, v, causal=causal)
     return att.transpose(1, 2).reshape(B, S, threeD // 3)
+
+
+# --------------------------------------------------------------------------
+# K4: MMDiT joint attention from the two streams' fused qkv
+# --------------------------------------------------------------------------
+
+def use_joint_qkv_attention(seq_len: int, heads: int, head_dim: int,
+                            qk_norm: bool) -> bool:
+    """True when the MMDiT takes K4: the JAX package's rule
+    (``flash_attention.py:591-595``) -- qk-norm on, head_dim 64, an even
+    head count, S <= 4096 -- without its TPU test; the tensor's device
+    decides only between kernel and plain version."""
+    return (qk_norm and head_dim == 64 and heads % 2 == 0
+            and seq_len <= _MID_MAX_KV)
+
+
+def _stream_gammas(g_x, g_c, Sx: int, Sc: int, hd: int) -> torch.Tensor:
+    """[Sx + Sc, hd] f32: each row's qk-norm gamma by its stream."""
+    return torch.cat([g_x.float().expand(Sx, hd), g_c.float().expand(Sc, hd)])
+
+
+def joint_qkv_attention_reference(qkv_x, qkv_c, heads: int, q_gamma_x,
+                                  k_gamma_x, q_gamma_c, k_gamma_c,
+                                  eps: float = 1e-6):
+    """Plain version of K4: what ``_joint_qkv_kernel`` computes, in f32 --
+    over the [x | ctx] rows (x first), RMS-normalise each q and k row over
+    its head dims (eps inside the rsqrt), multiply by the gamma of the
+    row's stream, scale q by 1/sqrt(hd), softmax over all keys, P @ V
+    divided by the row sum -- cast back to the input dtype.  The
+    normalised q and k stay f32 (the composed ``joint_qkv_reference``
+    rounds them to the input dtype).  [B, Sx, 3D], [B, Sc, 3D] ->
+    [B, Sx+Sc, D]."""
+    B, Sx, threeD = qkv_x.shape
+    Sc = qkv_c.shape[1]
+    D = threeD // 3
+    hd = D // heads
+    q, k, v = _split_heads(torch.cat([qkv_x, qkv_c], dim=1).float(), heads)
+
+    def rms(t, g):
+        return t * torch.rsqrt(t.square().mean(-1, keepdim=True) + eps) * g
+
+    q = rms(q, _stream_gammas(q_gamma_x, q_gamma_c, Sx, Sc, hd)) * (
+        1.0 / math.sqrt(hd))
+    k = rms(k, _stream_gammas(k_gamma_x, k_gamma_c, Sx, Sc, hd))
+    logits = q @ k.transpose(-1, -2)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = (p @ v) / p.sum(dim=-1, keepdim=True)
+    return out.transpose(1, 2).reshape(B, Sx + Sc, D).to(qkv_x.dtype)
+
+
+def joint_qkv_attention(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
+                        q_gamma_c, k_gamma_c, eps: float = 1e-6):
+    """MMDiT joint attention with per-stream RMS qk-norm:
+    qkv_x [B, Sx, 3D], qkv_c [B, Sc, 3D] (Sc may be 0), gammas [hd] ->
+    [B, Sx+Sc, D] with x rows first.
+
+    A CPU tensor takes ``joint_qkv_attention_reference``.  A CUDA tensor
+    launches kernel K4 (``csrc/joint_qkv_attention.cu``) on the current
+    stream without synchronising, or raises for what it does not take
+    (head_dim other than 64, another dtype, a non-contiguous or
+    misaligned stream)."""
+    B, Sx, threeD = qkv_x.shape
+    Sc = qkv_c.shape[1]
+    if (qkv_c.dim() != 3 or qkv_c.shape[0] != B or qkv_c.shape[2] != threeD
+            or threeD % (3 * heads)):
+        raise ValueError(f"joint_qkv_attention: qkv_x {tuple(qkv_x.shape)} "
+                         f"and qkv_c {tuple(qkv_c.shape)} are not [B, S, 3*D]"
+                         f" with D divisible by {heads}")
+    args = (qkv_x, qkv_c, heads, q_gamma_x, k_gamma_x, q_gamma_c, k_gamma_c)
+    if qkv_x.device.type == "cpu":
+        return joint_qkv_attention_reference(*args, eps=eps)
+    if qkv_x.device.type != "cuda":
+        raise ValueError(f"joint_qkv_attention: unsupported device "
+                         f"{qkv_x.device}")
+    D = threeD // 3
+    if D // heads != 64:
+        raise NotImplementedError(
+            f"joint_qkv_attention: head_dim {D // heads} (K4 takes 64)")
+    # an empty ctx stream (self_qkv_dispatch) is never read
+    _check_cuda_input("joint_qkv_attention", *((qkv_x, qkv_c) if Sc
+                                                else (qkv_x,)))
+    if B * heads > 65535:
+        raise NotImplementedError(f"joint_qkv_attention: B*heads = "
+                                  f"{B * heads} over the grid's 65535")
+    gam = torch.stack([q_gamma_x, k_gamma_x, q_gamma_c, k_gamma_c]).to(
+        device=qkv_x.device, dtype=torch.float32).contiguous()
+    out = torch.empty(B, Sx + Sc, D, dtype=qkv_x.dtype, device=qkv_x.device)
+    rc = _build.kernels().joint_qkv_attention_launch(
+        qkv_x.data_ptr(), qkv_c.data_ptr() if Sc else None, gam.data_ptr(),
+        out.data_ptr(), B, Sx, Sc, heads, eps,
+        int(qkv_x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(qkv_x.device).cuda_stream)
+    _build.check(rc, "joint_qkv_attention")
+    joint_qkv_attention.launches += 1
+    return out
+
+
+joint_qkv_attention.launches = 0
+
+
+def joint_qkv_reference(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
+                        q_gamma_c, k_gamma_c, eps: float = 1e-6):
+    """The composed joint attention (``flash_attention.py:598-626``): split
+    heads, RMS qk-norm rounded back to the input dtype (gammas None: no
+    norm), ``reference_attention`` over [x | ctx] rows."""
+    B, Sx, threeD = qkv_x.shape
+    Sc = qkv_c.shape[1]
+    D = threeD // 3
+
+    def rms(t, g):
+        if g is None:
+            return t
+        tf = t.float()
+        return (tf * torch.rsqrt(tf.square().mean(-1, keepdim=True) + eps)
+                * g.float()).to(t.dtype)
+
+    qx, kx, vx = _split_heads(qkv_x, heads)
+    qc, kc, vc = _split_heads(qkv_c, heads)
+    q = torch.cat([rms(qx, q_gamma_x), rms(qc, q_gamma_c)], dim=2)
+    k = torch.cat([rms(kx, k_gamma_x), rms(kc, k_gamma_c)], dim=2)
+    v = torch.cat([vx, vc], dim=2)
+    out = reference_attention(q, k, v)
+    return out.transpose(1, 2).reshape(B, Sx + Sc, D)
+
+
+def joint_qkv_dispatch(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
+                       q_gamma_c, k_gamma_c, eps: float = 1e-6):
+    """K4 where ``use_joint_qkv_attention`` allows, else the composed
+    ``joint_qkv_reference`` (gammas None: qk-norm off), as
+    ``flash_attention.py:629-641``."""
+    hd = qkv_x.shape[-1] // 3 // heads
+    fn = (joint_qkv_attention
+          if use_joint_qkv_attention(qkv_x.shape[1] + qkv_c.shape[1], heads,
+                                     hd, q_gamma_x is not None)
+          else joint_qkv_reference)
+    return fn(qkv_x, qkv_c, heads, q_gamma_x, k_gamma_x, q_gamma_c,
+              k_gamma_c, eps=eps)
+
+
+def self_qkv_dispatch(qkv, heads: int, q_gamma, k_gamma, eps: float = 1e-6):
+    """Self-attention with RMS qk-norm from one fused qkv [B, S, 3D]: the
+    joint dispatch with an empty ctx stream (the MMDiT-X dual-attention
+    branch, ``flash_attention.py:644-654``)."""
+    return joint_qkv_dispatch(qkv, qkv[:, :0], heads, q_gamma, k_gamma,
+                              q_gamma, k_gamma, eps=eps)

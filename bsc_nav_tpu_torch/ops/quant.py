@@ -63,11 +63,16 @@ def linear_q8(x: torch.Tensor, p: Mapping[str, torch.Tensor]
 
 
 def linear(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """Dispatching linear: quantized ({"w_q", ...}) or plain ({"w", ...},
-    f32 accumulation, as ``vit._linear``)."""
+    """Dispatching linear: quantized ({"w_q", ...}) or plain ({"w", ...}).
+    A plain leaf computes in the promoted dtype of ``x`` and ``w``, as
+    ``vit.Linear`` does: cuBLAS accumulates a bf16 product in f32 and adds
+    the bias in that accumulator (addmm) before the one rounding to
+    ``x.dtype`` that ``vit._linear``'s f32 einsum and cast make."""
     if "w_q" in p:
         return linear_q8(x, p)
-    y = x.to(torch.float32) @ p["w"].to(torch.float32)
-    if p.get("b") is not None:
-        y = y + p["b"].to(torch.float32)
-    return y.to(x.dtype)
+    ct = torch.promote_types(x.dtype, p["w"].dtype)
+    x2 = x.reshape(-1, x.shape[-1]).to(ct)
+    w = p["w"].to(ct)
+    b = p.get("b")
+    y = torch.addmm(b.to(ct), x2, w) if b is not None else x2 @ w
+    return y.reshape(*x.shape[:-1], -1).to(x.dtype)

@@ -97,7 +97,7 @@ def test_encoders_match_jax(jax_params, name, int8):
     kw = CONFIGS[name]
     jcfg, tcfg = JC.CLIPConfig(**kw), TC.CLIPConfig(**kw)
     params = jax_params[name][int(int8)]
-    model = clip_from_jax_params(params, tcfg)
+    model = clip_from_jax_params(params, tcfg, device="cpu")
     assert model.quantized == ("both" if int8 else "none")
     rng = np.random.default_rng(1)
     imgs = rng.normal(size=(3, jcfg.image_size, jcfg.image_size, 3)
@@ -133,8 +133,10 @@ def test_encode_text_sd3_matches_jax(name):
                  vision_heads=1, image_size=28)
     params = _jax_init(JC.CLIPConfig(**small), seed=3)[0]
     tp = params["text"]
-    tower = clip_from_jax_params(params, TC.CLIPConfig(**small)).text
-    fresh = TC.init_text_params(tcfg, torch.Generator().manual_seed(0))
+    tower = clip_from_jax_params(params, TC.CLIPConfig(**small),
+                                 device="cpu").text
+    fresh = TC.init_text_params(tcfg, torch.Generator().manual_seed(0),
+                                device="cpu")
     assert {k: v.shape for k, v in fresh.state_dict().items()} == {
         k: v.shape for k, v in tower.state_dict().items()}
     rng = np.random.default_rng(2)
@@ -174,9 +176,9 @@ def test_quantize_params_matches_jax(jax_params, tmp_path):
     the same state."""
     params, qparams = jax_params["hd80"]
     cfg = TC.CLIPConfig(**HD80)
-    model = clip_from_jax_params(params, cfg)
+    model = clip_from_jax_params(params, cfg, device="cpu")
     q = TC.quantize_params(model)
-    want = clip_from_jax_params(qparams, cfg).state_dict()
+    want = clip_from_jax_params(qparams, cfg, device="cpu").state_dict()
     got = q.state_dict()
     assert set(got) == set(want)
     for k in want:
@@ -187,8 +189,8 @@ def test_quantize_params_matches_jax(jax_params, tmp_path):
     for tree, name in ((params, "plain"), (qparams, "int8")):
         path = str(tmp_path / f"{name}.npz")
         save_params_npz(_jnp(tree), path)
-        loaded = load_clip_npz(path, cfg).state_dict()
-        ref = clip_from_jax_params(tree, cfg).state_dict()
+        loaded = load_clip_npz(path, cfg, device="cpu").state_dict()
+        ref = clip_from_jax_params(tree, cfg, device="cpu").state_dict()
         for k in ref:
             torch.testing.assert_close(loaded[k], ref[k], rtol=0, atol=0)
 
@@ -202,7 +204,8 @@ def test_clip_matcher_matches_jax(jax_params, quantize):
     jcfg, tcfg = JC.CLIPConfig(**HD80), TC.CLIPConfig(**HD80)
     tok = HashTokenizer(vocab_size=512, context_length=16)
     jm = JMatcher(_jnp(params), jcfg, tok, quantize=quantize)
-    tm = CLIPMatcher(clip_from_jax_params(params, tcfg), tcfg, tok,
+    tm = CLIPMatcher(clip_from_jax_params(params, tcfg, device="cpu"),
+                     tcfg, tok,
                      quantize=quantize)
     rng = np.random.default_rng(4)
     views = list(rng.integers(0, 256, size=(5, 64, 64, 4), dtype=np.uint8))
@@ -220,7 +223,8 @@ def test_clip_matcher_matches_jax(jax_params, quantize):
 
 
 def test_models_stay_on_their_device(jax_params):
-    model = clip_from_jax_params(jax_params["hd80"][0], TC.CLIPConfig(**HD80))
+    model = clip_from_jax_params(jax_params["hd80"][0],
+                                 TC.CLIPConfig(**HD80), device="cpu")
     tok = HashTokenizer(vocab_size=512, context_length=16)
     # no card here: asking for one raises; on a card host the CPU weights
     # do not move there quietly
@@ -243,7 +247,8 @@ def test_clip_patch_detector_matches_jax(jax_params):
     tok = HashTokenizer(vocab_size=512, context_length=16)
     classes, conf = list(HM3D_DETECT_CLASSES), 0.55
     jd = JDetector(_jnp(params), jcfg, tok, classes, conf)
-    td = ClipPatchDetector(clip_from_jax_params(params, tcfg), tcfg, tok,
+    td = ClipPatchDetector(clip_from_jax_params(params, tcfg, device="cpu"),
+                           tcfg, tok,
                            classes, conf)
     np.testing.assert_allclose(td.text_emb, jd.text_emb, atol=FEAT_TOL)
     rng = np.random.default_rng(5)
@@ -275,8 +280,8 @@ def test_clip_slice_never_imports_jax():
     """The matcher, the detector and its long-term feed run without JAX."""
     code = (
         "import sys, numpy as np, torch\n"
-        "from bsc_nav_tpu.config import small_test_config\n"
-        "from bsc_nav_tpu.models.tokenizer import HashTokenizer\n"
+        "from bsc_nav_tpu_torch.config import small_test_config\n"
+        "from bsc_nav_tpu_torch.models.tokenizer import HashTokenizer\n"
         "from bsc_nav_tpu_torch.agents.matchers import CLIPMatcher\n"
         "from bsc_nav_tpu_torch.agents.spatial_memory import "
         "Perception, VoxelTokenMemory\n"
@@ -284,7 +289,8 @@ def test_clip_slice_never_imports_jax():
         "from bsc_nav_tpu_torch.models.detector import ClipPatchDetector\n"
         "cfg = small_test_config()\n"
         f"cc = C.CLIPConfig(**{HD80!r})\n"
-        "clip = C.init_params(cc, torch.Generator().manual_seed(0))\n"
+        "clip = C.init_params(cc, torch.Generator().manual_seed(0), "
+        "device='cpu')\n"
         "tok = HashTokenizer(512, 16)\n"
         "rng = np.random.default_rng(0)\n"
         "views = list(rng.integers(0, 255, (3, 64, 64, 3), np.uint8))\n"
@@ -293,7 +299,7 @@ def test_clip_slice_never_imports_jax():
         "det = ClipPatchDetector(clip, cc, tok, ['bed', 'sofa'], 0.3)\n"
         "vc = vit.ViTConfig(img_size=28, dim=32, depth=1, heads=2)\n"
         "m = VoxelTokenMemory(cfg, None, Perception.create(cfg, vc, "
-        "batch_size=2), detector=det)\n"
+        "batch_size=2, device='cpu'), detector=det)\n"
         "for i in range(3):\n"
         "    m.push_frame({'rgb': rng.integers(0, 255, (64, 64, 3), "
         "np.uint8), 'depth': rng.uniform(0.5, 3, (64, 64)).astype("

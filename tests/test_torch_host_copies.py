@@ -1,0 +1,147 @@
+"""The port stands alone: it imports nothing of the JAX package, its copies
+of the JAX-free host modules behave as the originals, and its entry points
+default to the card.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bsc_nav_tpu import config as jconfig
+from bsc_nav_tpu.agents.matchers import ColorViewScorer as JColorViewScorer
+from bsc_nav_tpu.env.fake import BoxScene as JBoxScene
+from bsc_nav_tpu.env.fake import FakeNavEnv as JFakeNavEnv
+from bsc_nav_tpu.env.pathfinding import AgentState as JAgentState
+from bsc_nav_tpu.env.pathfinding import Quat as JQuat
+from bsc_nav_tpu.models import sentencepiece as jsp
+from bsc_nav_tpu.models import tokenizer as jtok
+from bsc_nav_tpu.models.detector import (
+    ColorPrototypeDetector as JColorDetector)
+from bsc_nav_tpu_torch import config as tconfig
+from bsc_nav_tpu_torch.agents.matchers import ColorViewScorer
+from bsc_nav_tpu_torch.agents.spatial_memory import Perception
+from bsc_nav_tpu_torch.env.fake import BoxScene, FakeNavEnv
+from bsc_nav_tpu_torch.env.pathfinding import AgentState, Quat
+from bsc_nav_tpu_torch.memory.store import init_store
+from bsc_nav_tpu_torch.models import sentencepiece as tsp
+from bsc_nav_tpu_torch.models import tokenizer as ttok
+from bsc_nav_tpu_torch.models import vit as tv
+from bsc_nav_tpu_torch.models.detector import ColorPrototypeDetector
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROTOTYPES = {"bed": (200, 30, 30), "plant": (30, 180, 40),
+              "sofa": (40, 60, 200)}
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of bsc_nav_tpu_torch, imported in a fresh process,
+    loads no jax, jaxlib or bsc_nav_tpu module."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import bsc_nav_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'bsc_nav_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'bsc_nav_tpu'))\n"
+        "print(len(names), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 25 and bad.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("make", ["Config", "small_test_config"])
+def test_config_copy_is_field_for_field(make):
+    a = getattr(jconfig, make)()
+    b = getattr(tconfig, make)()
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert jconfig.HM3D_DETECT_CLASSES == tconfig.HM3D_DETECT_CLASSES
+
+
+def test_tokenizer_copies_give_equal_ids():
+    texts = ["a photo of a bed", "", "Sofa, chair & TV!"]
+    for a, b in ((jtok.HashTokenizer(49408), ttok.HashTokenizer(49408)),
+                 (jtok.default_tokenizer(), ttok.default_tokenizer())):
+        np.testing.assert_array_equal(jtok.tokenize(texts, a),
+                                      ttok.tokenize(texts, b))
+        np.testing.assert_array_equal(
+            jtok.tokenize(texts, a, pad_id=a.eot),
+            ttok.tokenize(texts, b, pad_id=b.eot))
+    pieces = [("<pad>", 0.0, jsp.CONTROL), ("</s>", 0.0, jsp.CONTROL),
+              ("<unk>", 0.0, jsp.UNKNOWN), (jsp.WS, -3.0, jsp.NORMAL),
+              (jsp.WS + "hello", -1.0, jsp.NORMAL), ("lo", -2.5, jsp.NORMAL),
+              (jsp.WS + "hel", -2.5, jsp.NORMAL), ("o", -4.0, jsp.NORMAL)]
+    assert tsp.serialize_model_proto(pieces) == jsp.serialize_model_proto(
+        pieces)
+    a = jsp.SentencePieceUnigram.from_model_bytes(
+        jsp.serialize_model_proto(pieces))
+    b = tsp.SentencePieceUnigram.from_model_bytes(
+        tsp.serialize_model_proto(pieces))
+    for text in ("hello hello", "helo", "xyz hello"):
+        assert a.encode(text) == b.encode(text)
+
+
+def test_fake_env_copy_renders_equal_frames():
+    """One seed, the same actions: equal RGB-D frames and poses."""
+    cfg = tconfig.small_test_config()
+    envs = [(JFakeNavEnv(jconfig.small_test_config(),
+                         scene=JBoxScene.default(), seed=3), JAgentState,
+             JQuat),
+            (FakeNavEnv(cfg, scene=BoxScene.default(), seed=3), AgentState,
+             Quat)]
+    frames = []
+    for env, state, quat in envs:
+        env.reset(init_state=state(np.zeros(3), quat.from_yaw(0.0)),
+                  build_map=True)
+        seq = [env.sims.get_sensor_observations(0)]
+        for action in ("turn_left", "move_forward", "look_down",
+                       "turn_right"):
+            seq.append(env.step(action))
+        frames.append((seq, env.agent_pose_vec()))
+    (ja, jpose), (ta, tpose) = frames
+    for a, b in zip(ja, ta):
+        np.testing.assert_array_equal(a["rgb"], b["rgb"])
+        np.testing.assert_array_equal(a["depth"], b["depth"])
+    np.testing.assert_array_equal(jpose, tpose)
+
+
+def test_detector_and_scorer_copies_agree():
+    env = FakeNavEnv(tconfig.small_test_config(), scene=BoxScene.default(),
+                     seed=0)
+    env.reset(init_state=AgentState(np.zeros(3), Quat.from_yaw(0.0)),
+              build_map=True)
+    views = [env.step("turn_left")["rgb"] for _ in range(12)]
+    a, b = JColorDetector(PROTOTYPES, 0.5), ColorPrototypeDetector(
+        PROTOTYPES, 0.5)
+    for v in views:
+        da, db = a.detect(v), b.detect(v)
+        assert [(d.label, d.confidence, d.xyxy) for d in da] == \
+            [(d.label, d.confidence, d.xyxy) for d in db]
+    sa, sb = JColorViewScorer(PROTOTYPES), ColorViewScorer(PROTOTYPES)
+    np.testing.assert_array_equal(sa.score(views, "a bed"),
+                                  sb.score(views, "a bed"))
+    assert sa.best("sofa", list(PROTOTYPES)) == sb.best("sofa",
+                                                        list(PROTOTYPES))
+
+
+def test_entry_points_default_to_the_card():
+    """No ``device`` means the card: without one, the entry points raise
+    rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    cfg = tconfig.small_test_config()
+    vcfg = tv.ViTConfig(img_size=28, dim=32, depth=1, heads=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Perception.create(cfg, vcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_store(cfg.memory)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tv.init_params(vcfg, torch.Generator())

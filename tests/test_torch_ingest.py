@@ -97,7 +97,7 @@ def test_grid_helpers_match_jax():
 def _ingest_both(cfg, batches, key_seed):
     """Ingest the same frame batches into a JAX and a port store, the
     port with the JAX draws injected."""
-    js, ts = jinit(cfg.memory), tinit(cfg.memory)
+    js, ts = jinit(cfg.memory), tinit(cfg.memory, device="cpu")
     key = jax.random.PRNGKey(key_seed)
     for rgb, depth, poses, tokens in batches:
         key, sub = jax.random.split(key)
@@ -178,7 +178,8 @@ def test_golden_digest():
     rgb, depth, poses, tokens = make_frames(cfg, 2, seed=123)
     pix, repl = ingest_draws(jax.random.PRNGKey(123), cfg, 2)
     state, _ = ting.ingest_frames(
-        tinit(cfg.memory), *tensors(rgb, depth, poses, tokens), None, cfg,
+        tinit(cfg.memory, device="cpu"),
+        *tensors(rgb, depth, poses, tokens), None, cfg,
         pix=torch.from_numpy(pix), repl_idx=torch.from_numpy(repl))
     n = int(state.num_voxels)
     digest = {
@@ -198,7 +199,8 @@ def test_generator_draws_are_seeded():
     runs = []
     for _ in range(2):
         gen = torch.Generator().manual_seed(11)
-        state, _ = ting.ingest_frames(tinit(cfg.memory), *frames, gen, cfg)
+        state, _ = ting.ingest_frames(tinit(cfg.memory, device="cpu"),
+                                      *frames, gen, cfg)
         runs.append(state)
     assert int(runs[0].num_voxels) > 50
     m = cfg.memory
@@ -214,4 +216,4 @@ def test_surprise_policy_not_ported():
     cfg = cfg.replace(memory=dataclasses.replace(cfg.memory,
                                                  replacement="surprise"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinit(cfg.memory)
+        tinit(cfg.memory, device="cpu")

@@ -1,0 +1,151 @@
+"""Kernel K4 ``joint_qkv_attention`` (its plain version on the CPU) and the
+MMDiT attention dispatch against the JAX package.
+
+The JAX kernel runs in Pallas interpret mode, as the JAX package's own
+tests run it on the CPU.  Gammas are drawn per stream and per q/k, so a
+stream or a q/k swap shows.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from bsc_nav_tpu.ops import flash_attention as jfa
+from bsc_nav_tpu_torch.ops import flash_attention as tfa
+
+from torch_parity import bf16_ulp
+
+HEADS, HD = 4, 64
+
+
+def _inputs(B, Sx, Sc, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    D = HEADS * HD
+    x = rng.normal(size=(B, Sx, 3 * D)).astype(np.float32)
+    c = rng.normal(size=(B, Sc, 3 * D)).astype(np.float32)
+    gammas = [rng.uniform(0.2, 2.0, size=HD).astype(np.float32)
+              for _ in range(4)]          # q_x, k_x, q_c, k_c
+    if dtype == "bfloat16":
+        x, c = (np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                for a in (x, c))
+    return x, c, gammas
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else
+                       jnp.float32)
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(np.array(a)).to(
+        torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sx,Sc", [(2, 40, 23), (1, 70, 0), (2, 9, 130)],
+                         ids=["joint", "self", "ctx-longer"])
+def test_plain_version_matches_jax_kernel(B, Sx, Sc, dtype):
+    """f32: both compute in f32, sums in another order: 2e-5 abs.  bf16:
+    both widen the same bf16 inputs, compute in f32 and round once, so
+    they differ by 2e-5 plus one bf16 ulp at the output's magnitude."""
+    x, c, g = _inputs(B, Sx, Sc, seed=Sx + Sc, dtype=dtype)
+    want = np.asarray(jfa.joint_qkv_attention(
+        _jax(x, dtype), _jax(c, dtype), HEADS, *map(jnp.asarray, g),
+        interpret=True).astype(jnp.float32))
+    got = tfa.joint_qkv_attention(_torch(x, dtype), _torch(c, dtype), HEADS,
+                                  *map(torch.from_numpy, g))
+    assert got.shape == (B, Sx + Sc, HEADS * HD)
+    assert got.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                         else torch.float32)
+    got = got.float()
+    tol = 2e-5 + (bf16_ulp(got).numpy() if dtype == "bfloat16" else 0)
+    assert np.all(np.abs(got.numpy() - want) <= tol), \
+        np.abs(got.numpy() - want).max()
+
+
+def test_streams_are_not_interchangeable():
+    """Swapping the two streams' gammas moves the output: the test above
+    would see a kernel that read the wrong stream's gamma."""
+    x, c, g = _inputs(1, 12, 7, seed=1)
+    t = [torch.from_numpy(a) for a in (x, c, *g)]
+    a = tfa.joint_qkv_attention(t[0], t[1], HEADS, *t[2:])
+    b = tfa.joint_qkv_attention(t[0], t[1], HEADS, t[4], t[5], t[2], t[3])
+    assert (a - b).abs().max() > 1e-2
+
+
+@pytest.mark.parametrize("order", ["x-first", "ctx-first"])
+def test_dispatch_matches_jax_composed_path(order):
+    """The port's dispatch (K4's route: x rows first) against the JAX
+    package's CPU route: ``joint_qkv_reference`` (x first) and the MMDiT's
+    composed path, which concatenates ctx rows first
+    (``mmdit.py:236-242``) -- its rows are reordered before comparing.
+    f32, 2e-5 abs."""
+    B, Sx, Sc = 2, 33, 17
+    x, c, g = _inputs(B, Sx, Sc, seed=5)
+    jx, jc = jnp.asarray(x), jnp.asarray(c)
+    jg = [jnp.asarray(a) for a in g]
+    if order == "x-first":
+        want = np.asarray(jfa.joint_qkv_reference(jx, jc, HEADS, *jg))
+    else:
+        def split(qkv, S):
+            r = qkv.reshape(B, S, 3, HEADS, HD)
+            return [r[:, :, i].transpose(0, 2, 1, 3) for i in range(3)]
+
+        def rms(t, gamma):
+            var = jnp.mean(jnp.square(t), axis=-1, keepdims=True)
+            return t * jax.lax.rsqrt(var + 1e-6) * gamma
+
+        qx, kx, vx = split(jx, Sx)
+        qc, kc, vc = split(jc, Sc)
+        att = jfa.attention(
+            jnp.concatenate([rms(qc, jg[2]), rms(qx, jg[0])], axis=2),
+            jnp.concatenate([rms(kc, jg[3]), rms(kx, jg[1])], axis=2),
+            jnp.concatenate([vc, vx], axis=2))
+        att = np.asarray(att.transpose(0, 2, 1, 3).reshape(B, Sc + Sx, -1))
+        want = np.concatenate([att[:, Sc:], att[:, :Sc]], axis=1)
+    got = tfa.joint_qkv_dispatch(torch.from_numpy(x), torch.from_numpy(c),
+                                 HEADS, *map(torch.from_numpy, g)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_composed_reference_matches_jax(dtype):
+    """``joint_qkv_reference`` (the route for qk-norm off or a refused
+    shape) rounds the normalised q/k to the input dtype, as JAX does.
+    f32: 2e-5 abs.  bf16: both also round the softmax probabilities to
+    bf16 before P @ V, and a probability within f32 noise of a rounding
+    boundary takes the neighbouring value on one side (3 of 7,936 outputs
+    here, by up to 3 output ulps): 2e-5 plus four bf16 ulps."""
+    x, c, g = _inputs(1, 20, 11, seed=7, dtype=dtype)
+    want = np.asarray(jfa.joint_qkv_reference(
+        _jax(x, dtype), _jax(c, dtype), HEADS, *map(jnp.asarray, g)
+    ).astype(jnp.float32))
+    got = tfa.joint_qkv_reference(_torch(x, dtype), _torch(c, dtype), HEADS,
+                                  *map(torch.from_numpy, g)).float()
+    tol = 2e-5 + (4 * bf16_ulp(got).numpy() if dtype == "bfloat16" else 0)
+    assert np.all(np.abs(got.numpy() - want) <= tol)
+
+
+def test_self_dispatch_without_qk_norm_matches_jax():
+    """Gammas None: the composed path, plain attention over one stream."""
+    x, _, _ = _inputs(2, 24, 0, seed=9)
+    want = np.asarray(jfa.self_qkv_dispatch(jnp.asarray(x), HEADS, None,
+                                            None))
+    got = tfa.self_qkv_dispatch(torch.from_numpy(x), HEADS, None, None)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("S,heads,hd,qk_norm,want", [
+    (1613, 24, 64, True, True), (1178, 24, 64, True, True),
+    (1024, 24, 64, True, True), (4096, 2, 64, True, True),
+    (4097, 2, 64, True, False), (1613, 24, 64, False, False),
+    (1613, 3, 64, True, False), (1613, 4, 16, True, False)])
+def test_gate_is_the_jax_rule_without_the_tpu_test(S, heads, hd, qk_norm,
+                                                   want):
+    """``flash_attention.py:591-595`` minus ``default_backend() == "tpu"``:
+    qk-norm, head_dim 64, even heads, S <= _MID_MAX_KV."""
+    assert jfa._MID_MAX_KV == tfa._MID_MAX_KV == 4096
+    assert tfa.use_joint_qkv_attention(S, heads, hd, qk_norm) is want
+

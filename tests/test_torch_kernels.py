@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 short_attention_qkv, K2 max_cosine_per_voxel,
-K3 short_attention) against their plain PyTorch versions.
+K3 short_attention, K4 joint_qkv_attention) against their plain PyTorch
+versions.
 
 This file imports no JAX, so the card tests also run where JAX is not
 installed.  On a machine with an NVIDIA GPU and nvcc:
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from bsc_nav_tpu.config import small_test_config
+from bsc_nav_tpu_torch.config import small_test_config
 from bsc_nav_tpu_torch.memory import pipeline as tpipe
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import vit as tv
@@ -65,6 +66,17 @@ def _bhsd(B, H, S, hd, seed):
     return torch.from_numpy(rng.normal(size=(B, H, S, hd)).astype(np.float32))
 
 
+def _joint(B, Sx, Sc, heads, seed):
+    """Two streams' fused qkv (head_dim 64) and four distinct gammas."""
+    rng = np.random.default_rng(seed)
+    D = heads * 64
+    x, c = (torch.from_numpy(rng.normal(size=(B, S, 3 * D)).astype(
+        np.float32)) for S in (Sx, Sc))
+    g = [torch.from_numpy(rng.uniform(0.2, 2.0, size=64).astype(np.float32))
+         for _ in range(4)]
+    return x, c, g
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at the magnitude of each element of x (8 significant
     bits)."""
@@ -92,15 +104,20 @@ def test_cpu_tensors_take_the_plain_versions():
     n3 = tfa.short_attention.launches
     torch.testing.assert_close(tfa.short_attention(q, k, v, causal=True),
                                tfa.short_attention_reference(q, k, v, True))
+    x, c, g = _joint(1, 9, 4, 2, seed=1)
+    n4 = tfa.joint_qkv_attention.launches
+    torch.testing.assert_close(tfa.joint_qkv_attention(x, c, 2, *g),
+                               tfa.joint_qkv_attention_reference(x, c, 2, *g))
     assert tfa.short_attention_qkv.launches == n1
     assert tsim.max_cosine_per_voxel.launches == n2
     assert tfa.short_attention.launches == n3
+    assert tfa.joint_qkv_attention.launches == n4
 
 
 def test_kernel_sources_are_the_build_inputs():
     names = {p.name for p in _build.sources()}
     assert names == {"short_attention_qkv.cu", "max_cosine.cu",
-                     "short_attention.cu"}
+                     "short_attention.cu", "joint_qkv_attention.cu"}
     for p in _build.sources():
         head = pathlib.Path(p).read_text()[:3000]
         assert "Replaces: bsc_nav_tpu/ops/" in head and "Bound on" in head
@@ -169,6 +186,51 @@ def test_k3_matches_plain(cuda, B, H, Sq, Sk, hd, causal, dtype):
     diff = (got.float() - want.float()).abs()
     tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
     assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sx,Sc,heads", [
+    (6, 1024, 589, 24),                 # SD3.5 joint, CLIP + T5-512 context
+    (6, 1024, 154, 24),                 # joint without T5
+    (6, 1024, 0, 24),                   # MMDiT-X self-attention
+    (2, 37, 5, 2), (1, 3, 70, 3), (2, 65, 0, 1)])
+def test_k4_matches_plain(cuda, B, Sx, Sc, heads, dtype):
+    """f32: the same f32 qk-norm and softmax, sums in another order (and
+    rsqrtf against torch.rsqrt): 2e-5 abs on outputs below ~3.  bf16: both
+    widen the same bf16 inputs and round their f32 results once, so 2e-5
+    plus one bf16 ulp at the output's magnitude."""
+    x, c, g = _joint(B, Sx, Sc, heads, seed=Sx + Sc)
+    x, c = x.to(cuda, dtype), c.to(cuda, dtype)
+    g = [t.to(cuda) for t in g]
+    before = tfa.joint_qkv_attention.launches
+    got = tfa.joint_qkv_attention(x, c, heads, *g)
+    assert tfa.joint_qkv_attention.launches == before + 1
+    want = tfa.joint_qkv_attention_reference(x, c, heads, *g)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, Sx + Sc, heads * 64)
+    diff = (got.float() - want.float()).abs()
+    tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+def test_k4_refuses_what_it_does_not_take(cuda):
+    x, c, g = _joint(1, 16, 8, 2, seed=2)
+    x, c = x.to(cuda), c.to(cuda)
+    g = [t.to(cuda) for t in g]
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.joint_qkv_attention(x[:, ::2], c, 2, *g)
+    with pytest.raises(ValueError, match="aligned"):   # offset of 4 bytes
+        tfa.joint_qkv_attention(
+            x, torch.zeros(1 + c.numel(), device=cuda)[1:].view(c.shape), 2,
+            *g)
+    with pytest.raises(ValueError, match="differ"):
+        tfa.joint_qkv_attention(x, c.to(torch.bfloat16), 2, *g)
+    with pytest.raises(ValueError, match="3\\*D"):
+        tfa.joint_qkv_attention(x, c[..., :-3], 2, *g)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        tfa.joint_qkv_attention(x, c, 4, *(t[:32] for t in g))
 
 
 @pytest.mark.cuda
@@ -247,7 +309,8 @@ def test_slice_on_card_matches_cpu(cuda):
     P = H * W // cfg.memory.depth_sample_rate
     pix = rng.integers(0, H * W, size=(B, P))
     repl = rng.integers(0, cfg.memory.cache_size, size=B * P)
-    cpu_model = tv.init_params(vcfg, torch.Generator().manual_seed(0))
+    cpu_model = tv.init_params(vcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
     card_model = tv.ViT(vcfg, device=cuda)
     card_model.load_state_dict(cpu_model.state_dict())
 

@@ -112,7 +112,8 @@ def _memories(cfg, env, detector_pair, batch):
     feed is compared."""
     vcfg = tv.ViTConfig(img_size=28, patch_size=14, dim=32, depth=1,
                         heads=2, num_registers=1)
-    perception = tsm.Perception.create(cfg, vcfg, batch_size=batch)
+    perception = tsm.Perception.create(cfg, vcfg, batch_size=batch,
+                                       device="cpu")
     stub = types.SimpleNamespace(batch_size=batch, vit_params=None,
                                  build_step=lambda carry, *a: (carry, None))
     return (tsm.VoxelTokenMemory(cfg, env, perception,
@@ -169,7 +170,8 @@ def test_clip_patch_detector_feed_matches_jax(spin):
     classes, conf = list(HM3D_DETECT_CLASSES), 0.55
     jdet = JDetector(jax.tree_util.tree_map(jnp.asarray, params), jcfg, tok,
                      classes, conf)
-    tdet = ClipPatchDetector(clip_from_jax_params(params, tcfg), tcfg, tok,
+    tdet = ClipPatchDetector(
+        clip_from_jax_params(params, tcfg, device="cpu"), tcfg, tok,
                              classes, conf)
 
     rgbs = np.stack([obs["rgb"][:, :, :3] for obs, _ in frames])
@@ -195,5 +197,6 @@ def test_device_feed_detectors_are_refused(spin):
     yolo_like = types.SimpleNamespace(detect_batch_instances=None)
     vcfg = tv.ViTConfig(img_size=28, patch_size=14, dim=32, depth=1, heads=2)
     with pytest.raises(NotImplementedError, match="item 10"):
-        tsm.VoxelTokenMemory(cfg, env, tsm.Perception.create(cfg, vcfg),
-                             detector=yolo_like)
+        tsm.VoxelTokenMemory(
+            cfg, env, tsm.Perception.create(cfg, vcfg, device="cpu"),
+            detector=yolo_like)

@@ -1,0 +1,150 @@
+"""The port's MMDiT (``models/mmdit.py``) against the JAX package's: forward
+with a dual-attention block and a trimmed ``context_pre_only`` last block,
+int8 W8A8, and the CFG Euler sampler with the JAX package's noise injected.
+
+The zero-initialised adaLN ``mod``, ``final_mod`` and ``final_out``
+linears are filled with seeded values first (``fill_zero_mods``):
+otherwise attention never reaches the output.  At head_dim 64 and even
+heads the port routes the joint attention to K4 (x rows first) while the
+JAX package on the CPU takes its composed path (ctx rows first), so the
+forward checks hold the two orders against each other.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from bsc_nav_tpu.models import mmdit as JM
+from bsc_nav_tpu_torch.models import mmdit as TM
+from bsc_nav_tpu_torch.models.weights import mmdit_from_jax_params
+from bsc_nav_tpu_torch.ops import flash_attention as tfa
+
+from torch_parity import fill_zero_mods, numpy_tree
+
+# head_dim 64 and 2 heads: the port takes K4's route
+MMDIT_HD64 = JM.MMDiTConfig(input_size=8, patch_size=2, in_channels=4,
+                            dim=128, depth=2, heads=2, context_dim=32,
+                            pooled_dim=16, dual_attention_layers=(0,))
+
+
+def _port_cfg(jcfg):
+    return TM.MMDiTConfig(**dataclasses.asdict(jcfg))
+
+
+def _params(jcfg, pre_only=False, seed=0):
+    p = fill_zero_mods(JM.init_params(jcfg, jax.random.PRNGKey(seed)),
+                       seed + 1)
+    if pre_only:
+        # the last converted SD3 block: a 2-chunk (shift, scale) ctx norm
+        last = p["blocks"][-1]["ctx"]
+        last["mod"] = {"w": last["mod"]["w"][:, :2 * jcfg.dim],
+                       "b": last["mod"]["b"][:2 * jcfg.dim]}
+    return p
+
+
+def _inputs(jcfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    lat = rng.normal(size=(B, jcfg.input_size, jcfg.input_size,
+                           jcfg.in_channels)).astype(np.float32)
+    t = rng.uniform(0.05, 1.0, size=B).astype(np.float32)
+    ctx = rng.normal(size=(B, S, jcfg.context_dim)).astype(np.float32)
+    pooled = rng.normal(size=(B, jcfg.pooled_dim)).astype(np.float32)
+    return lat, t, ctx, pooled
+
+
+def test_configs_match_jax():
+    for name in ("SD35_MEDIUM", "MMDIT_TEST", "MMDIT_TEST_DUAL"):
+        assert (dataclasses.asdict(getattr(TM, name))
+                == dataclasses.asdict(getattr(JM, name))), name
+    assert TM.QUANT_KEYS == JM.QUANT_KEYS
+    assert TM.SD35_MEDIUM.head_dim == 64
+
+
+@pytest.mark.parametrize("case", ["composed-dual", "k4-dual",
+                                  "k4-dual-pre-only", "k4-int8"])
+def test_forward_matches_jax(case):
+    """f32: 2e-4 abs on velocities of magnitude ~3 (the same ops, sums in
+    another order through 2 blocks).  int8: both sides quantize equal
+    weights to equal codes; an activation a few 1e-7 from a rounding
+    boundary may take the neighbouring code on one side, so 2e-3 abs."""
+    jcfg = JM.MMDIT_TEST_DUAL if case == "composed-dual" else MMDIT_HD64
+    jp = _params(jcfg, pre_only=case.endswith("pre-only"))
+    if case == "k4-int8":
+        jp = JM.quantize_params(jp)
+    tp = mmdit_from_jax_params(numpy_tree(jp), _port_cfg(jcfg), device="cpu")
+    lat, t, ctx, pooled = _inputs(jcfg, 2, 5, seed=1)
+    want = np.asarray(JM.forward(jp, *map(jnp.asarray, (lat, t, ctx, pooled)),
+                                 jcfg))
+    got = TM.forward(tp, *map(torch.from_numpy, (lat, t, ctx, pooled)),
+                     _port_cfg(jcfg)).numpy()
+    assert got.shape == lat.shape
+    assert np.abs(want).max() > 0.5          # attention reached the output
+    np.testing.assert_allclose(got, want,
+                               atol=2e-3 if case == "k4-int8" else 2e-4,
+                               rtol=0)
+
+
+def test_route_is_k4_at_head_dim_64(monkeypatch):
+    """At head_dim 64 every joint block calls joint_qkv_attention, and the
+    dual block's self-attention reaches it through self_qkv_dispatch:
+    depth + dual blocks calls per forward."""
+    cfg = _port_cfg(MMDIT_HD64)
+    tp = mmdit_from_jax_params(numpy_tree(_params(MMDIT_HD64)), cfg,
+                               device="cpu")
+    calls = []
+    real = tfa.joint_qkv_attention
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TM, "joint_qkv_attention", counted)
+    monkeypatch.setattr(tfa, "joint_qkv_attention", counted)
+    lat, t, ctx, pooled = _inputs(MMDIT_HD64, 1, 3, seed=2)
+    TM.forward(tp, *map(torch.from_numpy, (lat, t, ctx, pooled)), cfg)
+    assert len(calls) == cfg.depth + len(cfg.dual_attention_layers)
+
+
+def test_sample_matches_jax_with_injected_noise():
+    """CFG Euler sampling, 3 steps at scale 4: the JAX package's draw from
+    its key is handed to the port.  f32 latents within 5e-4 abs (errors of
+    2e-4 per velocity, times the guidance and the step sizes)."""
+    jcfg = MMDIT_HD64
+    jp = _params(jcfg, pre_only=True, seed=3)
+    tp = mmdit_from_jax_params(numpy_tree(jp), _port_cfg(jcfg), device="cpu")
+    _, _, ctx, pooled = _inputs(jcfg, 2, 5, seed=4)
+    _, _, ctx_u, pooled_u = _inputs(jcfg, 2, 5, seed=5)
+    key = jax.random.PRNGKey(7)
+    want = np.asarray(JM.sample(
+        jp, key, jnp.asarray(ctx), jnp.asarray(pooled), jcfg, num_steps=3,
+        guidance_scale=4.0, context_uncond=jnp.asarray(ctx_u),
+        pooled_uncond=jnp.asarray(pooled_u)))
+    noise = np.array(jax.random.normal(
+        key, (2, jcfg.input_size, jcfg.input_size, jcfg.in_channels),
+        jnp.float32))
+    got = TM.sample(tp, torch.from_numpy(ctx), torch.from_numpy(pooled),
+                    _port_cfg(jcfg), num_steps=3, guidance_scale=4.0,
+                    context_uncond=torch.from_numpy(ctx_u),
+                    pooled_uncond=torch.from_numpy(pooled_u),
+                    noise=torch.from_numpy(noise)).numpy()
+    assert np.abs(want - noise * float(JM.shifted_sigmas(3)[0])).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
+
+
+def test_schedule_and_timestep_embedding_match_jax():
+    """torch.linspace and jnp.linspace round their steps differently: the
+    sigmas agree within two f32 ulps of 1 (3e-7).  The embedding's
+    arguments reach 1000 rad, where one f32 ulp of the argument (6e-5)
+    moves a sine by as much: 1e-4 abs."""
+    np.testing.assert_allclose(TM.shifted_sigmas(28).numpy(),
+                               np.asarray(JM.shifted_sigmas(28)),
+                               atol=3e-7, rtol=0)
+    t = np.linspace(0.03, 1.0, 7).astype(np.float32)
+    np.testing.assert_allclose(
+        TM.timestep_embedding(torch.from_numpy(t)).numpy(),
+        np.asarray(JM.timestep_embedding(jnp.asarray(t))), atol=1e-4,
+        rtol=0)

@@ -29,7 +29,8 @@ def stores():
                                key, cfg)
     pix, repl = ingest_draws(key, cfg, 4)
     ts, _ = ting.ingest_frames(
-        tinit(cfg.memory), *tensors(rgb, depth, poses, tokens), None, cfg,
+        tinit(cfg.memory, device="cpu"),
+        *tensors(rgb, depth, poses, tokens), None, cfg,
         pix=torch.from_numpy(pix), repl_idx=torch.from_numpy(repl))
     # make_frames has 4 distinct tokens per frame, so per-voxel scores
     # tie massively; distinct random rows make the top-K well defined

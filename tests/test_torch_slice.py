@@ -136,7 +136,8 @@ def test_voxel_token_memory_finds_the_box(world):
     cfg, env, frames, _, qimg, params = world
     perception = Perception.create(
         cfg, vit_cfg=tv.ViTConfig(**VIT_KW), batch_size=5,
-        vit_params=vit_from_jax_params(params, tv.ViTConfig(**VIT_KW)))
+        vit_params=vit_from_jax_params(params, tv.ViTConfig(**VIT_KW),
+                                       device="cpu"), device="cpu")
     mem = VoxelTokenMemory(cfg, env=env, perception=perception)
     for rgb, depth, pose in frames:
         mem.push_frame({"rgb": rgb, "depth": depth}, pose)
@@ -153,21 +154,22 @@ def test_voxel_token_memory_finds_the_box(world):
                                  curr_grid=pos[0])[1]
     assert len(region) and np.all(
         ((region - pos[0]) ** 2).sum(axis=1) <= 25)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a text prompt needs an imagination (tests/test_torch_textq.py)
+    with pytest.raises(RuntimeError, match="imagination"):
         mem.voxel_localized("a red bed")
 
 
 def test_port_never_imports_jax():
     code = (
         "import sys, numpy as np\n"
-        "from bsc_nav_tpu.config import small_test_config\n"
+        "from bsc_nav_tpu_torch.config import small_test_config\n"
         "from bsc_nav_tpu_torch.agents.spatial_memory import "
         "Perception, VoxelTokenMemory\n"
         "from bsc_nav_tpu_torch.models import vit\n"
         "cfg = small_test_config()\n"
         "vc = vit.ViTConfig(img_size=28, dim=32, depth=1, heads=2)\n"
         "m = VoxelTokenMemory(cfg, None, Perception.create(cfg, vc, "
-        "batch_size=2))\n"
+        "batch_size=2, device='cpu'))\n"
         "rng = np.random.default_rng(0)\n"
         "for i in range(3):\n"
         "    m.push_frame({'rgb': rng.integers(0, 255, (64, 64, 3), "

@@ -73,7 +73,7 @@ def test_forward_features_matches_jax(kw):
         np.float32)
     want = jv.forward_features(jax.tree_util.tree_map(jnp.asarray, p),
                                jnp.asarray(x), jcfg)
-    got = tw.vit_from_jax_params(p, tcfg).forward_features(
+    got = tw.vit_from_jax_params(p, tcfg, device="cpu").forward_features(
         torch.from_numpy(x))
     assert set(got) == set(want)
     for k in want:
@@ -89,7 +89,7 @@ def test_npz_written_by_jax_loads(tmp_path):
     p = jv.init_params(jcfg, jax.random.PRNGKey(3))
     path = str(tmp_path / "vit.npz")
     jw.save_params_npz(p, path)
-    model = tw.load_dinov2_npz(path, tcfg)
+    model = tw.load_dinov2_npz(path, tcfg, device="cpu")
     flat = jw.flatten_params(p)
     sd = model.state_dict()
     assert set(sd) == set(flat)
@@ -100,7 +100,7 @@ def test_npz_written_by_jax_loads(tmp_path):
 def test_init_params_layout_and_scale():
     cfg = tv.ViTConfig(img_size=28, patch_size=14, dim=64, depth=2, heads=4)
     gen = torch.Generator().manual_seed(0)
-    model = tv.init_params(cfg, gen)
+    model = tv.init_params(cfg, gen, device="cpu")
     jp = jw.flatten_params(jv.init_params(
         jv.ViTConfig(img_size=28, patch_size=14, dim=64, depth=2, heads=4),
         jax.random.PRNGKey(0)))

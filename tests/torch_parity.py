@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import torch
 
 from bsc_nav_tpu.memory import ingest as jing
+from bsc_nav_tpu_torch.memory.store import VoxelStoreState
 
 
 def ingest_draws(key, cfg, B):
@@ -74,3 +75,43 @@ def assert_same_topk(pos_a, sc_a, pos_b, sc_b, atol):
         return set(map(tuple, np.asarray(pos)[keep]))
 
     assert above(pos_a, sc_a) == above(pos_b, sc_b)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at the magnitude of each element of x (8 significant
+    bits)."""
+    mag = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def numpy_tree(tree):
+    """A JAX params tree as numpy leaves (writable copies)."""
+    return jax.tree.map(lambda a: np.array(a), tree)
+
+
+def fill_zero_mods(params, seed, std=0.5):
+    """The JAX MMDiT's zero-initialised adaLN ``mod`` linears,
+    ``final_mod`` and ``final_out`` filled with seeded values of std
+    ``std / sqrt(fan_in)``, so attention reaches the output and a parity
+    check of it can fail."""
+    rng = np.random.default_rng(seed)
+
+    def fill(p):
+        fi, fo = p["w"].shape
+        return {"w": jnp.asarray(rng.normal(size=(fi, fo)) * std
+                                 / np.sqrt(fi), p["w"].dtype),
+                "b": jnp.asarray(rng.normal(size=fo) * 0.1, p["b"].dtype)}
+
+    out = dict(params)
+    out["blocks"] = [{n: dict(blk[n], mod=fill(blk[n]["mod"]))
+                      for n in ("x", "ctx")} for blk in params["blocks"]]
+    out["final_mod"] = fill(params["final_mod"])
+    out["final_out"] = fill(params["final_out"])
+    return out
+
+
+def store_from_jax(jstate, device="cpu") -> VoxelStoreState:
+    """A port store holding a JAX store's arrays."""
+    return VoxelStoreState(**{
+        f: torch.from_numpy(np.array(getattr(jstate, f))).to(device)
+        for f in VoxelStoreState.__dataclass_fields__})

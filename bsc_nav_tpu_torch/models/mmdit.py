@@ -13,10 +13,12 @@ converted ``.npz`` loads key for key (``models.weights``).
 
 The joint attention runs through kernel K4 (``ops.flash_attention
 .joint_qkv_attention``) wherever ``use_joint_qkv_attention`` holds, and the
-dual-attention branch through ``self_qkv_dispatch``; otherwise the composed
-path splits heads and calls ``attention`` with ctx rows first, as the JAX
-package does.  The tensor-parallel branch, ``fuse_mods`` and
-``convert_sd3`` are queued in ROADMAP.md.
+dual-attention branch through ``self_qkv_dispatch``; otherwise -- no
+qk-norm (SD3-medium), or a joint sequence past 4096 tokens (SD3.5-medium
+at 1024^2) -- the composed path splits heads and calls ``attention`` with
+ctx rows first, as the JAX package does, which takes K5 ``mid_attention``
+or K6 ``flash_attention`` by shape.  The tensor-parallel branch,
+``fuse_mods`` and ``convert_sd3`` are queued in ROADMAP.md.
 
 Dtypes: activations stay in the compute dtype of the latents passed to
 ``forward``.  The conditioning vector is cast to it, where the JAX

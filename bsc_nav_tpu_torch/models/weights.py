@@ -144,8 +144,15 @@ def _check_depth(tree, n: int, what: str) -> None:
 def mmdit_from_jax_params(params: Any, cfg: MMDiTConfig,
                           dtype=torch.float32, device="cuda") -> dict:
     """The port's MMDiT tree from a JAX ``mmdit.init_params`` /
-    ``convert_sd3`` tree (numpy leaves), quantized or not."""
+    ``convert_sd3`` tree (numpy leaves), quantized or not.  A tree without
+    ``q_norm`` / ``k_norm`` leaves (SD3-medium) needs ``cfg.qk_norm``
+    False, and one with them True."""
     _check_depth(params, cfg.depth, "mmdit")
+    has_norm = {"q_norm" in s for blk in params["blocks"]
+                for s in (blk["x"], blk["ctx"])}
+    if has_norm - {cfg.qk_norm}:
+        raise ValueError(f"mmdit: qk-norm leaves {sorted(has_norm)} in the "
+                         f"tree, the config has qk_norm={cfg.qk_norm}")
     return _tree(params, dtype, resolve_device(device))
 
 

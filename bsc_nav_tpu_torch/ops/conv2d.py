@@ -1,0 +1,82 @@
+"""3x3 stride-1 'SAME' NHWC convolution: kernel K8, its plain version and
+the conv + BatchNorm fold.
+
+Counterpart of ``bsc_nav_tpu/ops/conv2d.py`` ``conv3x3_s1`` / ``fold_bn``,
+which the JAX package keeps as a measured result on the TPU and dispatches
+nowhere (its YOLO stack uses ``lax.conv``).  The port keeps it the same
+way: no model calls ``conv3x3_s1``; ``chip_smoke.py`` holds it against
+its plain version and against cuDNN (``F.conv2d``) on the card.  Unlike
+the TPU kernel it takes any C, CO, H and W, YOLOv8x's widths 160 and 320
+included.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from bsc_nav_tpu_torch.ops import _build
+
+
+def conv3x3_s1_reference(x, w9, bias, act: str = "silu"):
+    """Plain version of K8: what ``_kernel`` computes, in f32 -- the sum over
+    the nine taps of the zero-padded, shifted input times that tap's
+    [C, CO] weights, plus the bias, then x * sigmoid(x) when act is
+    "silu" -- cast back to x's dtype."""
+    B, H, W, C = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))        # W and H by one each side
+    w = w9.float()
+    acc = sum(xp[:, dy:dy + H, dx:dx + W, :] @ w[3 * dy + dx]
+              for dy in range(3) for dx in range(3)) + bias.float()
+    if act == "silu":
+        acc = acc * torch.sigmoid(acc)
+    return acc.to(x.dtype)
+
+
+def conv3x3_s1(x, w9, bias, act: str = "silu"):
+    """x [B, H, W, C]; w9 [9, C, CO] (tap-major HWIO flattened, x's dtype);
+    bias [CO] (BN pre-folded, taken as f32) -> [B, H, W, CO] in x's dtype.
+    act "silu" fuses x * sigmoid(x); anything else applies none, as in the
+    JAX package.
+
+    A CPU tensor takes ``conv3x3_s1_reference``.  A CUDA tensor launches
+    kernel K8 (``csrc/conv3x3_s1.cu``) on the current stream without
+    synchronising, or raises for what it does not take.
+    """
+    B, H, W, C = x.shape
+    if w9.dim() != 3 or w9.shape[:2] != (9, C) or bias.shape != w9.shape[2:]:
+        raise ValueError(f"conv3x3_s1: x {tuple(x.shape)}, w9 "
+                         f"{tuple(w9.shape)}, bias {tuple(bias.shape)} are "
+                         "not [B, H, W, C], [9, C, CO], [CO]")
+    if x.device.type == "cpu":
+        return conv3x3_s1_reference(x, w9, bias, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_s1: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or w9.dtype != x.dtype:
+        raise TypeError(f"conv3x3_s1: x {x.dtype}, w9 {w9.dtype} (kernel "
+                        "takes float32 or bfloat16, both alike)")
+    if not (x.is_contiguous() and w9.is_contiguous()):
+        raise ValueError("conv3x3_s1: x and w9 must be contiguous")
+    CO = w9.shape[2]
+    b = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    out = torch.empty(B, H, W, CO, dtype=x.dtype, device=x.device)
+    rc = _build.kernels().conv3x3_s1_launch(
+        x.data_ptr(), w9.data_ptr(), b.data_ptr(), out.data_ptr(), B, H, W,
+        C, CO, int(act == "silu"), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "conv3x3_s1")
+    conv3x3_s1.launches += 1
+    return out
+
+
+conv3x3_s1.launches = 0
+
+
+def fold_bn(w_hwio, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-3):
+    """Conv + BN -> conv weights [9, C, CO] in w's dtype and an f32 bias
+    [CO] for ``conv3x3_s1`` (``conv2d.py:148-155``)."""
+    s = bn_scale / torch.sqrt(bn_var + eps)
+    w = (w_hwio * s).to(w_hwio.dtype)
+    b = (bn_bias - bn_mean * s).to(torch.float32)
+    k, _, C, CO = w.shape
+    return w.reshape(k * k, C, CO), b

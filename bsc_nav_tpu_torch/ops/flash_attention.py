@@ -1,22 +1,25 @@
-"""Attention for the ViT, CLIP and MMDiT towers: kernels K1, K3 and K4 and
-their plain versions.
+"""Attention for the ViT, CLIP and MMDiT towers: kernels K1, K3, K4, K5 and
+K6 and their plain versions.
 
 Counterpart of ``bsc_nav_tpu/ops/flash_attention.py``, with its dispatch:
 ``attention_from_qkv`` takes the fused-QKV kernel K1
 (``csrc/short_attention_qkv.cu``) only where ``use_fused_qkv_attention``
 holds, as the JAX package does, and otherwise splits heads and calls
-``attention``, which takes K3 ``short_attention`` (``csrc/short_attention.cu``)
-for at most 640 keys.  The MMDiT's joint attention goes through
-``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4 ``joint_qkv_attention``
-(``csrc/joint_qkv_attention.cu``) where ``use_joint_qkv_attention`` holds.
-The other TPU kernels of that module -- ``mid_attention`` (K5) and
-``flash_attention`` (K6) -- are queued in ROADMAP.md; on a CUDA tensor a
-call that would need them raises.
+``attention``, which routes by shape (``attention_route``): K3
+``short_attention`` (``csrc/short_attention.cu``) for at most 640 keys, K5
+``mid_attention`` (``csrc/mid_attention.cu``) for non-causal attention over
+at most 4096 keys, K6 ``flash_attention`` (``csrc/flash_attention.cu``)
+where the f32 logits would pass 4e9 bytes, and the plain composition
+``reference_attention`` otherwise.  K3, K5 and K6 share one device kernel
+(``csrc/attention_tile.cuh``).  The MMDiT's joint attention goes through
+``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4
+``joint_qkv_attention`` (``csrc/joint_qkv_attention.cu``) where
+``use_joint_qkv_attention`` holds.
 
-Layouts follow the JAX package: ``attention``, ``short_attention`` and
-``reference_attention`` take [B, H, S, Dh]; the fused-QKV functions take
-[B, S, 3*D] (q | k | v column groups, heads contiguous inside each group)
-and return [B, S, D].
+Layouts follow the JAX package: ``attention``, ``short_attention``,
+``mid_attention``, ``flash_attention`` and ``reference_attention`` take
+[B, H, S, Dh]; the fused-QKV functions take [B, S, 3*D] (q | k | v column
+groups, heads contiguous inside each group) and return [B, S, D].
 """
 
 from __future__ import annotations
@@ -28,10 +31,15 @@ import torch
 from bsc_nav_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-# flash_attention.py:158-159: the longest key sequence K1 and K3 serve, and
-# the longest joint sequence K4 takes
+# flash_attention.py:158-160, the JAX package's values: the longest key
+# sequence K1 and K3 serve; the longest K5 and K4 take; the logits size
+# past which K6 takes what K5 does not
 _SHORT_MAX_KV = 640
 _MID_MAX_KV = 4096
+_FLASH_MIN_LOGITS_BYTES = 4e9
+# the plain versions of K5 and K6 build [chunk, Sq, Sk] f32 logits at most
+# this large, chunking over B*H (K6's shapes would need 12.6 GB at once)
+_PLAIN_LOGITS_BYTES = 1 << 30
 
 
 def reference_attention(q, k, v, causal: bool = False, scale=None):
@@ -159,6 +167,65 @@ def short_attention_reference(q, k, v, causal: bool = False):
     return ((p @ vf) / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
+def _chunked_reference(q, k, v, causal: bool):
+    """``short_attention_reference`` over chunks of B*H, each building at
+    most ``_PLAIN_LOGITS_BYTES`` of f32 logits."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    per = max(1, int(_PLAIN_LOGITS_BYTES // (4 * Sq * Sk)))
+    qf, kf, vf = (t.reshape(B * H, -1, hd) for t in (q, k, v))
+    out = torch.cat([short_attention_reference(qf[i:i + per], kf[i:i + per],
+                                               vf[i:i + per], causal)
+                     for i in range(0, B * H, per)])
+    return out.reshape(B, H, Sq, hd)
+
+
+def mid_attention_reference(q, k, v):
+    """Plain version of K5: what ``_mid_kernel`` computes, in f32 -- q
+    scaled by 1/sqrt(Dh) before the dot, keys past Sk masked, a
+    max-subtracted exp, P @ V divided by the row sum -- cast back to the
+    input dtype, in chunks of B*H."""
+    return _chunked_reference(q, k, v, False)
+
+
+def flash_attention_reference(q, k, v, causal: bool = False):
+    """Plain version of K6: what ``_flash_kernel``'s online softmax sums to,
+    in f32 -- q scaled by 1/sqrt(Dh), keys past Sk masked, the causal mask
+    q_pos >= k_pos, a max-subtracted exp, P @ V divided by the row sum --
+    cast back to the input dtype, in chunks of B*H."""
+    return _chunked_reference(q, k, v, causal)
+
+
+def _attention_shapes(name: str, q, k, v, causal: bool) -> None:
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    if causal and Sq != Sk:
+        raise ValueError(f"{name}: causal requires Sq == Sk, got {Sq} != "
+                         f"{Sk}")
+    if k.shape != (B, H, Sk, hd) or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+
+
+def _launch_attention(name: str, q, k, v, *flags):
+    """Launch K3, K5 or K6 (``{name}_launch``, one device kernel) on the
+    current stream, after the checks that a CUDA tensor must pass."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    _check_cuda_input(name, q, k, v)
+    B, H, Sq, hd = q.shape
+    if hd % 16 or not 16 <= hd <= 128:
+        raise NotImplementedError(f"{name}: head_dim {hd} (the kernel takes "
+                                  "multiples of 16 up to 128)")
+    out = torch.empty_like(q)
+    rc = getattr(_build.kernels(), f"{name}_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Sq,
+        k.shape[2], hd, *flags, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, name)
+    return out
+
+
 def short_attention(q, k, v, causal: bool = False):
     """One-shot attention [B, H, Sq, Dh] -> [B, H, Sq, Dh]; causal needs
     Sq == Sk.
@@ -167,32 +234,10 @@ def short_attention(q, k, v, causal: bool = False):
     launches kernel K3 (``csrc/short_attention.cu``) on the current stream
     without synchronising, or raises for what it does not take.
     """
-    B, H, Sq, hd = q.shape
-    Sk = k.shape[2]
-    if causal and Sq != Sk:
-        raise ValueError(f"short_attention: causal requires Sq == Sk, got "
-                         f"{Sq} != {Sk}")
-    if k.shape != (B, H, Sk, hd) or v.shape != k.shape:
-        raise ValueError(f"short_attention: shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    _attention_shapes("short_attention", q, k, v, causal)
     if q.device.type == "cpu":
         return short_attention_reference(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"short_attention: unsupported device {q.device}")
-    _check_cuda_input("short_attention", q, k, v)
-    if hd % 16 or not 16 <= hd <= 128:
-        raise NotImplementedError(
-            f"short_attention: head_dim {hd} (K3 takes multiples of 16 up "
-            "to 128)")
-    if B * H > 65535:
-        raise NotImplementedError(f"short_attention: B*H = {B * H} over "
-                                  "the grid's 65535")
-    out = torch.empty_like(q)
-    rc = _build.kernels().short_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Sq,
-        Sk, hd, int(causal), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "short_attention")
+    out = _launch_attention("short_attention", q, k, v, int(causal))
     short_attention.launches += 1
     return out
 
@@ -200,26 +245,80 @@ def short_attention(q, k, v, causal: bool = False):
 short_attention.launches = 0
 
 
+def mid_attention(q, k, v):
+    """Non-causal attention over at most 4096 keys, any Sq: [B, H, Sq, Dh],
+    [B, H, Sk, Dh] x 2 -> [B, H, Sq, Dh] (``flash_attention.py:201-231``).
+
+    A CPU tensor takes ``mid_attention_reference``.  A CUDA tensor launches
+    kernel K5 (``csrc/mid_attention.cu``) on the current stream without
+    synchronising, or raises for what it does not take.
+    """
+    _attention_shapes("mid_attention", q, k, v, False)
+    if k.shape[2] > _MID_MAX_KV:
+        raise ValueError(f"mid_attention: {k.shape[2]} keys (K5 takes at "
+                         f"most {_MID_MAX_KV})")
+    if q.device.type == "cpu":
+        return mid_attention_reference(q, k, v)
+    out = _launch_attention("mid_attention", q, k, v)
+    mid_attention.launches += 1
+    return out
+
+
+mid_attention.launches = 0
+
+
+def flash_attention(q, k, v, causal: bool = False):
+    """Blockwise attention of any length [B, H, Sq, Dh] -> [B, H, Sq, Dh];
+    causal needs Sq == Sk (``flash_attention.py:97-140``).
+
+    A CPU tensor takes ``flash_attention_reference``.  A CUDA tensor
+    launches kernel K6 (``csrc/flash_attention.cu``) on the current stream
+    without synchronising, or raises for what it does not take.
+    """
+    _attention_shapes("flash_attention", q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal)
+    out = _launch_attention("flash_attention", q, k, v, int(causal))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def attention_route(B: int, H: int, Sq: int, Sk: int,
+                    causal: bool = False) -> str:
+    """Which function ``attention`` calls: the JAX package's rule
+    (``flash_attention.py:163-178``) without its TPU test -- "short" (K3)
+    for Sk <= 640, "mid" (K5) for non-causal Sk <= 4096, "flash" (K6) when
+    the f32 logits B*H*Sq*Sk*4 would pass 4e9 bytes, else "reference"."""
+    if Sk <= _SHORT_MAX_KV:
+        return "short"
+    if not causal and Sk <= _MID_MAX_KV:
+        return "mid"
+    if B * H * Sq * Sk * 4 > _FLASH_MIN_LOGITS_BYTES:
+        return "flash"
+    return "reference"
+
+
 def attention(q, k, v, causal: bool = False):
     """Shape-dispatched attention [B, H, Sq, Dh] -> [B, H, Sq, Dh]
-    (``flash_attention.py:163-178``).
-
-    At most 640 keys: K3 ``short_attention`` (its plain version on the
-    CPU).  Longer: on CUDA ``NotImplementedError`` naming K5/K6, which are
-    not ported; on the CPU ``reference_attention``, the JAX package's
-    off-TPU path."""
+    (``flash_attention.py:163-178``), by ``attention_route``.  The route
+    does not depend on the device; the tensor's device decides between a
+    kernel and its plain version."""
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError(
             f"causal attention requires Sq == Sk (kernel masks have no "
             f"length offset); got Sq={q.shape[2]} Sk={k.shape[2]}")
-    if k.shape[2] <= _SHORT_MAX_KV:
+    B, H, Sq, _ = q.shape
+    route = attention_route(B, H, Sq, k.shape[2], causal)
+    if route == "short":
         return short_attention(q, k, v, causal=causal)
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, causal=causal)
-    raise NotImplementedError(
-        f"attention over {k.shape[2]} keys on {q.device} needs a kernel not "
-        "ported yet (K5 mid_attention or K6 flash_attention; see "
-        "ROADMAP.md)")
+    if route == "mid":
+        return mid_attention(q, k, v)
+    if route == "flash":
+        return flash_attention(q, k, v, causal=causal)
+    return reference_attention(q, k, v, causal=causal)
 
 
 def attention_from_qkv(qkv, heads: int, causal: bool = False):

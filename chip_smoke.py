@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's memory spine, CLIP stack and text query once on
+"""Drive the PyTorch port's memory spine, CLIP stack and text queries once on
 one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
@@ -7,15 +7,18 @@ one NVIDIA GPU and check them.
 Phases, one line each (any failed check raises, so the script exits
 non-zero):
 
-  build         compile bsc_nav_tpu_torch/csrc/*.cu with nvcc for sm_90a
-  kernels       K1 short_attention_qkv, K2 max_cosine_per_voxel, K3
-                short_attention and K4 joint_qkv_attention against their
-                plain PyTorch versions on the card, at the main paths'
-                shapes, with both times (CUDA events, median of 20 runs),
-                the bound reckoned from each case's bytes and operations,
-                and one PyTorch call computing the same function where one
-                exists (SDPA for K1 and K3); K1 also at the CLIP vision
-                shape, for comparison with K3
+  build         compile bsc_nav_tpu_torch/csrc/*.cu with nvcc for sm_90a,
+                one nvcc per source, all started together
+  kernels       K1-K8 against their plain PyTorch versions on the card, at
+                the main paths' shapes, with both times (CUDA events, median
+                of 20 runs), the bound reckoned from each case's bytes and
+                operations, and one PyTorch call computing the same
+                function where one exists (SDPA for K1, K3, K5 and K6,
+                F.layer_norm for K7, cuDNN for K8): K5 at SD3-medium's joint
+                attention and DINOv2 at 518^2, K6 at SD3.5-medium's joint
+                attention at 1024^2 and causal, K7 at ViT-L's token grids,
+                K8 at YOLOv8x's C2f shapes (K7 and K8 are dispatched
+                nowhere, as in the JAX package)
   slice f32     the full default Config() -- 680x680 RGB-D, 1000^2 x 200
                 grid, 131,080 slots x 10 tokens x 1024 -- through
                 Perception / VoxelTokenMemory with a random-init DINOv2
@@ -46,23 +49,34 @@ non-zero):
                 512^2, 28 steps, CFG 7.0, inside VoxelTokenMemory(Config())
                 over the 32 frames: voxel_localized("a sofa") twice, then
                 once under torch.profiler; 1,036 K4 launches per query
-  textq int8    the same with the MMDiT token matmuls in W8A8 and T5-XXL
-                quantized on the host (quantize_params_host), the default
-                diffusion_int8=True
+  textq sd3-medium  the same with SD3-medium (no qk-norm, no dual
+                attention): the composed joint attention, 672 K5 launches
+                per query and no K4
+  textq sd35-1024  SD3.5-medium at its published 1024^2 (a 4685-token
+                joint sequence): 672 K6 and 364 K4 (the dual
+                self-attention at 4096 tokens) per query; one timed and
+                one profiled call
+  textq int8    SD3.5-medium at 512^2 with the MMDiT token matmuls in W8A8
+                and T5-XXL quantized on the host (quantize_params_host), the
+                default diffusion_int8=True; one timed and one profiled call
   textq-parity  a small imagination (MMDiT head_dim 64 on K4's route, a
                 dual block, a context_pre_only last block; tiny T5, CLIP
                 towers, VAE and ViT) on the card against the CPU with the
                 same injected noise: velocity, latents, images within 1
-                level, equal top-K
+                level, equal top-K; then two small MMDiTs on the composed
+                route, one without qk-norm (K5) and one past 4096 joint
+                tokens with logits past 4e9 bytes (K6): velocity, latents
 
-The last two lines are a JSON object of the kernels' launch counts, errors
-and times, and {"ok": true, "device": {...}}.  Without CUDA it exits 1 and
-prints no result.  JAX is never imported.
+Each main path runs with the launch counts set to 0 just before it and
+read just after.  The last two lines are a JSON object of the kernels'
+launch counts, errors and times, and {"ok": true, "device": {...}}.
+Without CUDA it exits 1 and prints no result.  JAX is never imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -84,6 +98,9 @@ CLIP_TOL = 1e-4         # unit features and scores, f32 CLIP on card vs CPU
 INT8_TOL, INT8_MIN_COS = 1e-2, 0.9995
 K2_TOL = 2e-5           # abs, beside 1e-5 rel (zero-norm rows / 1e-12)
 K4_TOL = 2e-5           # f32 abs; bf16: 2e-5 plus one bf16 ulp per element
+# K5 and K6 take K3_TOL; K7 f32 abs on unit-scale outputs (bf16: plus one
+# ulp); K8 a fraction of max |out| (bf16: plus one ulp)
+K7_TOL, K8_TOL = 1e-5, 1e-4
 PARITY_TOL = 1e-4       # top-K scores, f32 slice on card vs CPU
 # small imagination, f32 on the card (TF32 off, K4) against the CPU (plain
 # versions): sums in other orders through 2 blocks give velocities within
@@ -121,13 +138,27 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def counts():
-    """Launch counts of (K1, K2, K3, K4)."""
-    from bsc_nav_tpu_torch.ops import flash_attention, similarity
-    return (flash_attention.short_attention_qkv.launches,
-            similarity.max_cosine_per_voxel.launches,
-            flash_attention.short_attention.launches,
-            flash_attention.joint_qkv_attention.launches)
+def wrappers() -> tuple:
+    """The wrappers of K1-K8, each holding its launch count."""
+    from bsc_nav_tpu_torch.ops import conv2d, layernorm, similarity
+    from bsc_nav_tpu_torch.ops import flash_attention as fa
+    return (fa.short_attention_qkv, similarity.max_cosine_per_voxel,
+            fa.short_attention, fa.joint_qkv_attention, fa.mid_attention,
+            fa.flash_attention, layernorm.layer_norm, conv2d.conv3x3_s1)
+
+
+def counts() -> tuple:
+    """Launch counts of (K1, ..., K8)."""
+    return tuple(f.launches for f in wrappers())
+
+
+def launches(**n) -> tuple:
+    """A (K1, ..., K8) count tuple from keywords: launches(K1=24, K2=1)."""
+    return tuple(n.get(f"K{i}", 0) for i in range(1, 9))
+
+
+def fmt(c) -> str:
+    return ", ".join(f"K{i} {n}" for i, n in enumerate(c, 1))
 
 
 def since(before):
@@ -135,11 +166,8 @@ def since(before):
 
 
 def reset_counts() -> None:
-    from bsc_nav_tpu_torch.ops import flash_attention, similarity
-    flash_attention.short_attention_qkv.launches = 0
-    similarity.max_cosine_per_voxel.launches = 0
-    flash_attention.short_attention.launches = 0
-    flash_attention.joint_qkv_attention.launches = 0
+    for f in wrappers():
+        f.launches = 0
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -318,6 +346,9 @@ def phase_kernels(dev, gen):
                       "library_ms": None})
         del qkv, got
     k4_cases(dev, gen, cases)
+    long_attention_cases(dev, gen, cases)
+    layer_norm_cases(dev, gen, cases)
+    conv_cases(dev, gen, cases)
     torch.cuda.empty_cache()
     return cases
 
@@ -387,6 +418,156 @@ def k4_cases(dev, gen, cases):
     torch.cuda.empty_cache()
 
 
+# (kernel, case, B, heads, S, causal); head_dim 64
+LONG_ATTENTION = (("K5", "sd3-medium-512", 6, 24, 1613, False),
+                  ("K5", "dinov2-518", 8, 16, 1374, False),
+                  ("K6", "sd35-medium-1024", 6, 24, 4685, False),
+                  ("K6", "causal", 2, 16, 2048, True))
+
+
+def long_attention_cases(dev, gen, cases):
+    """K5 at SD3-medium's joint attention at 512^2 (B 6 = 3 images x CFG 2,
+    24 heads x 64, S 1024 + 589) and at DINOv2 ViT-L at 518^2 (B 8, 16x64,
+    S 1374); K6 at SD3.5-medium's joint attention at 1024^2 (B 6, 24x64,
+    S 4096 + 589) and causal at B 2, 16x64, S 2048.  The plain versions
+    build their logits in 1 GB chunks of B*H."""
+    from bsc_nav_tpu_torch.ops import flash_attention as fa
+
+    for kernel, case, B, H, S, causal in LONG_ATTENTION:
+        if kernel == "K5":
+            name, fn, plain = ("mid_attention", fa.mid_attention,
+                               fa.mid_attention_reference)
+        else:
+            name = "flash_attention"
+
+            def fn(q, k, v):
+                return fa.flash_attention(q, k, v, causal)
+
+            def plain(q, k, v):
+                return fa.flash_attention_reference(q, k, v, causal)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(B, H, S, 64, generator=gen, device=dev
+                                   ).to(dtype) for _ in range(3))
+            got, want = fn(q, k, v), plain(q, k, v)
+            diff = (got.float() - want.float()).abs()
+            tol = K3_TOL + (bf16_ulp(want) if dtype == torch.bfloat16 else 0)
+            err = diff.max().item()
+            check(bool((diff <= tol).all()),
+                  f"{kernel} {case} {dtype}: err {err}")
+            ms = cuda_ms(lambda: fn(q, k, v))
+            plain_ms = cuda_ms(lambda: plain(q, k, v))
+            lib = sdpa_ms(q, k, v, causal)
+            flops = attn_flops(B, H, S, S, 64, causal)
+            b_ms, b_by = bound(flops, nbytes(q, k, v, got), dtype)
+            log("kernels", f"{kernel} {name} {case} B={B} {H}x64 S={S} "
+                f"causal={causal} {str(dtype)[6:]}: max_abs_err {err:.3g} "
+                f"(tol {K3_TOL}"
+                f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}) "
+                f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain "
+                f"{plain_ms:.4f} ms sdpa {lib:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by})")
+            cases.append({"kernel": kernel, "case": case, "B": B, "heads": H,
+                          "S": S, "head_dim": 64, "causal": causal,
+                          "dtype": str(dtype)[6:], "max_abs_err": err,
+                          "tol": K3_TOL, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": lib})
+            del q, k, v, got, want, diff
+        torch.cuda.empty_cache()
+
+
+def layer_norm_cases(dev, gen, cases):
+    """K7 at ViT-L's token grids [8 | 32, 261, 1024], against its plain
+    version and F.layer_norm (K7 is dispatched nowhere, as in the JAX
+    package)."""
+    import torch.nn.functional as F
+
+    from bsc_nav_tpu_torch.ops import layernorm as ln
+
+    D = 1024
+    g, b = (torch.randn(D, generator=gen, device=dev) for _ in range(2))
+    for B in (8, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(B, 261, D, generator=gen, device=dev) * 3 + 1
+                 ).to(dtype)
+            got = ln.layer_norm(x, g, b)
+            want = ln.layer_norm_reference(x, g, b)
+            diff = (got.float() - want.float()).abs()
+            tol = K7_TOL + (bf16_ulp(want) if dtype == torch.bfloat16 else 0)
+            err = diff.max().item()
+            check(bool((diff <= tol).all()), f"K7 B={B} {dtype}: err {err}")
+            ms = cuda_ms(lambda: ln.layer_norm(x, g, b))
+            plain = cuda_ms(lambda: ln.layer_norm_reference(x, g, b))
+            gd, bd = g.to(dtype), b.to(dtype)
+            lib = cuda_ms(lambda: F.layer_norm(x, (D,), gd, bd, 1e-6))
+            # per element: the two sums, centre, square, scale, affine
+            b_ms, b_by = bound(8.0 * x.numel(), nbytes(x, got, g, b), dtype)
+            log("kernels", f"K7 layer_norm [{B}, 261, {D}] {str(dtype)[6:]}: "
+                f"max_abs_err {err:.3g} (tol {K7_TOL}"
+                f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}) "
+                f"kernel {ms:.4f} ms plain {plain:.4f} ms F.layer_norm "
+                f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by}); dispatched "
+                f"nowhere")
+            cases.append({"kernel": "K7", "B": B, "S": 261, "D": D,
+                          "dtype": str(dtype)[6:], "max_abs_err": err,
+                          "tol": K7_TOL, "ms": ms, "plain_ms": plain,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": lib})
+            del x, got, want, diff
+
+
+# YOLOv8x C2f 3x3 convs (H = W, C -> CO; tools/conv_kernel_bench.py:53-58)
+YOLO_CONVS = ((80, 160, 160), (80, 320, 320), (40, 320, 320),
+              (40, 640, 640), (20, 640, 640))
+
+
+def conv_cases(dev, gen, cases):
+    """K8 at YOLOv8x's C2f shapes, B 8, bf16 and f32, against its plain
+    version and cuDNN (F.conv2d on the channels-last view, bias, SiLU;
+    TF32 off).  K8 is dispatched nowhere, as in the JAX package."""
+    import torch.nn.functional as F
+
+    from bsc_nav_tpu_torch.ops import conv2d
+
+    B = 8
+    for HW, C, CO in YOLO_CONVS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(B, HW, HW, C, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(9, C, CO, generator=gen, device=dev)
+                 / math.sqrt(9 * C)).to(dtype)
+            bias = torch.randn(CO, generator=gen, device=dev)
+            got = conv2d.conv3x3_s1(x, w, bias)
+            want = conv2d.conv3x3_s1_reference(x, w, bias)
+            diff = (got.float() - want.float()).abs()
+            tol = K8_TOL * want.float().abs().max() + (
+                bf16_ulp(want) if dtype == torch.bfloat16 else 0)
+            err = diff.max().item()
+            case = f"{HW}x{HW}x{C}->{CO}"
+            check(bool((diff <= tol).all()), f"K8 {case} {dtype}: err {err}")
+            ms = cuda_ms(lambda: conv2d.conv3x3_s1(x, w, bias))
+            plain = cuda_ms(lambda: conv2d.conv3x3_s1_reference(x, w, bias))
+            xc = x.permute(0, 3, 1, 2)              # NCHW view, NHWC memory
+            wc = w.reshape(3, 3, C, CO).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            bc = bias.to(dtype)
+            lib = cuda_ms(lambda: F.silu(F.conv2d(xc, wc, bc, padding=1)))
+            flops = 2.0 * B * HW * HW * C * CO * 9
+            b_ms, b_by = bound(flops, nbytes(x, w, bias, got), dtype)
+            log("kernels", f"K8 conv3x3_s1 B={B} {case} {str(dtype)[6:]}: "
+                f"max_abs_err {err:.3g} (tol {K8_TOL} of max |out|"
+                f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}) "
+                f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain "
+                f"{plain:.4f} ms cuDNN {lib:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by}); dispatched nowhere")
+            cases.append({"kernel": "K8", "case": case, "B": B, "H": HW,
+                          "W": HW, "C": C, "CO": CO, "dtype": str(dtype)[6:],
+                          "max_abs_err": err, "tol": K8_TOL, "ms": ms,
+                          "plain_ms": plain, "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": lib})
+            del x, w, got, want, diff, xc, wc
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase: slice at the full default config
 # ---------------------------------------------------------------------------
@@ -442,8 +623,8 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
         torch.cuda.synchronize()
         flush_ms.append((time.perf_counter() - t0) * 1e3)
         d = since(before)
-        check(d == (vcfg.depth, 0, 0, 0),
-              f"flush {i}: K1-K4 +{d} (want +{vcfg.depth}, +0, +0, +0)")
+        check(d == launches(K1=vcfg.depth),
+              f"flush {i}: K1-K8 +{d} (want K1 +{vcfg.depth} only)")
     nv = int(mem.state.num_voxels)
     check(nv > 0, "no voxels after 32 frames")
     check(int(mem.state.feat_count[:nv].min()) >= 1, "empty live voxel")
@@ -457,8 +638,8 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
                                   region_radius=radius, curr_grid=best)
         query_ms.append((time.perf_counter() - t0) * 1e3)
         d = since(before)
-        check(d == (vcfg.depth, 1, 0, 0),
-              f"query {i}: K1-K4 +{d} (want +{vcfg.depth}, +1, +0, +0)")
+        check(d == launches(K1=vcfg.depth, K2=1),
+              f"query {i}: K1-K8 +{d} (want K1 +{vcfg.depth}, K2 +1)")
         b, pos, sims = out
         check(len(pos) > 0, f"query {i}: empty top-K")
         check(bool(np.isfinite(sims).all()), f"query {i}: non-finite")
@@ -595,14 +776,14 @@ def phase_clip(dev, cfg, vcfg, world, seed):
             score_ms.append((time.perf_counter() - t0) * 1e3)
         d = since(before)
         # the prompt's text embedding is computed once, then cached
-        check(d == (0, 0, SCORE_REPS * L_v + L_t, 0),
-              f"clip {name} score: K1-K4 +{d}")
+        check(d == launches(K3=SCORE_REPS * L_v + L_t),
+              f"clip {name} score: K1-K8 +{d}")
         before = counts()
         s_img = m.score(views, queries[0][0])
         best = m.best("bed", labels)
         d = since(before)
-        check(d == (0, 0, 2 * L_v + 2 * L_t, 0),
-              f"clip {name} image score + best: K1-K4 +{d}")
+        check(d == launches(K3=2 * L_v + 2 * L_t),
+              f"clip {name} image score + best: K1-K8 +{d}")
         for s in (s_txt, s_img):
             check(s.shape == (N_VIEWS,) and bool(np.isfinite(s).all())
                   and abs(float(s.sum()) - 1) < 1e-4,
@@ -647,9 +828,9 @@ def phase_clip(dev, cfg, vcfg, world, seed):
         torch.cuda.synchronize()
         flush_ms.append((time.perf_counter() - t0) * 1e3)
         d = since(before)
-        check(d == (vcfg.depth, 0, L_v - 1, 0),
-              f"detector flush {i}: K1-K4 +{d} (want +{vcfg.depth}, "
-              f"+0, +{L_v - 1}, +0)")
+        check(d == launches(K1=vcfg.depth, K3=L_v - 1),
+              f"detector flush {i}: K1-K8 +{d} (want K1 +{vcfg.depth}, "
+              f"K3 +{L_v - 1})")
     inst = mem.long_memory_dict
     G, Z = cfg.memory.grid_size, cfg.memory.zmax - cfg.memory.zmin
     check(all(o["label"] in labels and 0 <= o["loc"][0] < G
@@ -885,16 +1066,15 @@ def textq_weights(dev, seed):
     return w
 
 
-def make_imagination(w, t5_params, quantize, seed):
+def make_imagination(w, mcfg, t5_params, quantize, seed):
     from bsc_nav_tpu_torch.models import clip as C
-    from bsc_nav_tpu_torch.models import mmdit as M
     from bsc_nav_tpu_torch.models import t5 as T5
     from bsc_nav_tpu_torch.models import vae as V
     from bsc_nav_tpu_torch.models.imagination import DiffusionImagination
     from bsc_nav_tpu_torch.models.tokenizer import default_tokenizer
 
     return DiffusionImagination(
-        mmdit_params=w["mmdit"], mmdit_cfg=M.SD35_MEDIUM,
+        mmdit_params=w["mmdit"], mmdit_cfg=mcfg,
         vae_params=w["vae"], vae_cfg=V.SD3_VAE,
         clip_l_params=w["clip_l"], clip_l_cfg=C.SD3_CLIP_L,
         clip_g_params=w["clip_g"], clip_g_cfg=C.SD3_CLIP_G,
@@ -906,18 +1086,21 @@ def make_imagination(w, t5_params, quantize, seed):
 def kernel_split(prof) -> tuple:
     """Device time (ms) of the profiled kernels by kind, and the five
     largest kernels (by summed time) among the rest."""
-    split = {"K4 joint_qkv_attention": 0.0, "K1/K3 attention": 0.0,
-             "GEMMs": 0.0, "convolutions (VAE)": 0.0, "rest": 0.0}
+    kinds = (("joint_qkv", "K4 joint_qkv_attention"),
+             ("mid_attention", "K5 mid_attention"),
+             ("flash_attention", "K6 flash_attention"),
+             ("short_attention", "K1/K3 attention"))
+    split = {k: 0.0 for _, k in kinds}
+    split.update({"GEMMs": 0.0, "convolutions (VAE)": 0.0, "rest": 0.0})
     rest = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n, ms = e.name, e.time_range.elapsed_us() / 1e3
         low = n.lower()
-        if "joint_qkv" in n:
-            split["K4 joint_qkv_attention"] += ms
-        elif "short_attention" in n:
-            split["K1/K3 attention"] += ms
+        kind = next((k for tag, k in kinds if tag in n), None)
+        if kind:
+            split[kind] += ms
         elif "conv" in low or "fprop" in low or "dgrad" in low:
             split["convolutions (VAE)"] += ms
         elif any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet")):
@@ -928,20 +1111,24 @@ def kernel_split(prof) -> tuple:
     return split, sorted(rest.items(), key=lambda kv: -kv[1])[:5]
 
 
-def phase_textq(dev, name, cfg, vcfg, world, imagination, seed):
+def phase_textq(dev, name, cfg, vcfg, world, imagination, seed, per_query,
+                n_queries=N_TEXT_QUERIES):
     """VoxelTokenMemory(Config()) over the 32 frames with the imagination;
-    voxel_localized(TEXT_PROMPT) N_TEXT_QUERIES times, then once under the
+    voxel_localized(TEXT_PROMPT) n_queries times, each checked to launch
+    the DINOv2 encode's K1, one K2, the CLIP-L/G towers' K3 and the MMDiT's
+    ``per_query`` launches (e.g. {"K4": 1036}), then once under the
     profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from bsc_nav_tpu_torch.agents.spatial_memory import (
         Perception, VoxelTokenMemory)
     from bsc_nav_tpu_torch.models import clip as C
-    from bsc_nav_tpu_torch.models import mmdit as M
     from bsc_nav_tpu_torch.models import t5 as T5
     from bsc_nav_tpu_torch.models import vit
 
     env, frames, _ = world
+    mcfg = imagination.mmdit_cfg
+    side = 8 * mcfg.input_size                 # the SD3 VAE upsamples x8
     torch.cuda.reset_peak_memory_stats()
     params = vit.init_params(
         vcfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
@@ -954,28 +1141,24 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed):
     torch.cuda.synchronize()
     check(int(mem.state.num_voxels) > 0, f"{name}: no voxels")
 
-    mcfg = M.SD35_MEDIUM
-    k4_per_query = imagination.num_steps * (
-        mcfg.depth + len(mcfg.dual_attention_layers))
     k3_per_query = 2 * (C.SD3_CLIP_L.text_layers + C.SD3_CLIP_G.text_layers)
+    want = launches(K1=vcfg.depth, K2=1, K3=k3_per_query, **per_query)
     query_ms = []
-    for i in range(N_TEXT_QUERIES):
+    for i in range(n_queries):
         before = counts()
         t0 = time.perf_counter()
         best, pos, sims = mem.voxel_localized(TEXT_PROMPT, K=cfg.query.top_k)
         query_ms.append((time.perf_counter() - t0) * 1e3)
         d = since(before)
-        check(d == (vcfg.depth, 1, k3_per_query, k4_per_query),
-              f"{name} query {i}: K1-K4 +{d} (want +{vcfg.depth}, +1, "
-              f"+{k3_per_query}, +{k4_per_query})")
-        check(k4_per_query == 1036, f"{k4_per_query} K4 launches per query")
+        check(d == want, f"{name} query {i}: K1-K8 +{d} (want +{want})")
         check(len(pos) > 0 and bool(np.isfinite(sims).all())
               and bool((np.abs(sims) <= 1 + 1e-5).all())
               and bool((np.diff(sims) <= 0).all()),
               f"{name} query {i}: bad top-K {sims[:5]}")
         imgs = mem.last_imagined
         check(imgs.dtype == torch.uint8
-              and tuple(imgs.shape) == (imagination.num_images, 512, 512, 3),
+              and tuple(imgs.shape) == (imagination.num_images, side, side,
+                                        3),
               f"{name}: images {imgs.dtype} {tuple(imgs.shape)}")
         check(float(imgs.float().std()) > 0, f"{name}: flat images")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -997,11 +1180,11 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed):
     log(name, f"VoxelTokenMemory(Config()) over {N_FRAMES} frames "
         f"({int(mem.state.num_voxels)} voxels): voxel_localized("
         f"{TEXT_PROMPT!r}) ms {[round(t, 1) for t in query_ms]} (host clock, "
-        f"3 images 512^2, 28 steps, CFG {imagination.guidance_scale}, top-"
-        f"{cfg.query.top_k} of {len(pos)}); launches per query K1 "
-        f"{vcfg.depth}, K2 1, K3 {k3_per_query}, K4 {k4_per_query}; images "
-        f"mean {img_stats[0]:.1f} std {img_stats[1]:.1f}; peak device "
-        f"memory {peak:.2f} GB")
+        f"{imagination.num_images} images {side}^2, {imagination.num_steps} "
+        f"steps, CFG {imagination.guidance_scale}, top-{cfg.query.top_k} of "
+        f"{len(pos)}); launches per query {fmt(want)}; images mean "
+        f"{img_stats[0]:.1f} std {img_stats[1]:.1f}; peak device memory "
+        f"{peak:.2f} GB")
     if busy == 0:
         log(name, "torch.profiler saw no device kernels: split not measured")
     else:
@@ -1013,8 +1196,10 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed):
             + f"; T5-XXL encode of the two prompts alone {t5_ms:.1f} ms "
             f"(CUDA events)")
     result = {"query_ms": query_ms, "peak_gb": peak,
-              "k4_per_query": k4_per_query, "k3_per_query": k3_per_query,
-              "profile_ms": split, "profiled_query_ms": profiled_ms,
+              "launches_per_query": dict(zip(
+                  [f"K{i}" for i in range(1, 9)], want)),
+              "image_side": side, "profile_ms": split,
+              "profiled_query_ms": profiled_ms,
               "profile_top_rest": top_rest, "t5_encode_ms": t5_ms,
               "num_voxels": int(mem.state.num_voxels)}
     del mem, perception, params
@@ -1023,8 +1208,14 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed):
 
 
 def phase_textq_all(dev, cfg, vcfg, world, seed):
-    """textq bf16, then textq int8 (MMDiT W8A8, T5 quantized on the host)
-    from the same random weights."""
+    """The text-query paths from one set of random bf16 weights, each with
+    the launch counts set to 0 just before it and read just after:
+    SD3.5-medium at 512^2 in bf16 (K4), SD3-medium at 512^2 (no qk-norm:
+    K5), SD3.5-medium at 1024^2 (a 4685-token joint sequence: K6; the dual
+    self-attention at 4096 tokens: K4), then SD3.5-medium at 512^2 with
+    the MMDiT token matmuls in W8A8 and T5-XXL quantized on the host.
+    Returns (results, {path: K1-K8 counts})."""
+    from bsc_nav_tpu_torch.models import mmdit as M
     from bsc_nav_tpu_torch.models import t5 as T5
     from bsc_nav_tpu_torch.models.weights import t5_from_jax_params
 
@@ -1038,9 +1229,51 @@ def phase_textq_all(dev, cfg, vcfg, world, seed):
         f"{sum(p.numel() for p in w['clip_l'].parameters()) / 1e9:.3f} G, "
         f"CLIP-G {sum(p.numel() for p in w['clip_g'].parameters()) / 1e9:.3f}"
         f" G, VAE decoder {n_params(w['vae']) / 1e9:.3f} G parameters")
+    sd35, steps, paths = M.SD35_MEDIUM, 28, {}
+    per_query = {"K4": steps * (sd35.depth + len(sd35.dual_attention_layers))}
+    check(per_query == {"K4": 1036}, f"SD3.5-medium 512^2: {per_query}")
+    reset_counts()
     out = {"bf16": phase_textq(dev, "textq bf16", cfg, vcfg, world,
-                               make_imagination(w, w["t5"], False, seed),
-                               seed)}
+                               make_imagination(w, sd35, w["t5"], False, seed),
+                               seed, per_query)}
+    paths["textq"] = counts()
+
+    # SD3-medium: the original transformer, no qk-norm, no dual attention
+    sd3 = dataclasses.replace(M.MMDiTConfig(), qk_norm=False)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    w3 = dict(w, mmdit=M.init_params(sd3, gen, torch.bfloat16, dev))
+    fill_zero_mods(w3["mmdit"], gen)
+    log("textq sd3-medium", f"SD3-medium MMDiT (24 x 1536, no qk-norm, no "
+        f"dual attention) {n_params(w3['mmdit']) / 1e9:.3f} G parameters, "
+        f"random bf16; the other towers as above")
+    per_query = {"K5": steps * sd3.depth}
+    check(per_query == {"K5": 672}, f"SD3-medium 512^2: {per_query}")
+    reset_counts()
+    out["sd3-medium"] = phase_textq(
+        dev, "textq sd3-medium", cfg, vcfg, world,
+        make_imagination(w3, sd3, w["t5"], False, seed), seed, per_query)
+    paths["textq-sd3-medium"] = counts()
+    del w3
+    torch.cuda.empty_cache()
+
+    # SD3.5-medium at its published 1024^2: the same weights with a
+    # position embedding for the 64^2 patch grid
+    big = dataclasses.replace(sd35, input_size=128)
+    wb = dict(w, mmdit=dict(w["mmdit"], pos_embed=(torch.randn(
+        (1, big.num_patches, big.dim), generator=gen, device=dev)
+        * 0.01).to(torch.bfloat16)))
+    per_query = {"K4": steps * len(big.dual_attention_layers),
+                 "K6": steps * big.depth}
+    check(per_query == {"K4": 364, "K6": 672},
+          f"SD3.5-medium 1024^2: {per_query}")
+    reset_counts()
+    out["sd35-1024"] = phase_textq(
+        dev, "textq sd35-1024", cfg, vcfg, world,
+        make_imagination(wb, big, w["t5"], False, seed), seed, per_query,
+        n_queries=1)
+    paths["textq-sd35-1024"] = counts()
+    del wb
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     host = tree_map(lambda t: t.float().cpu().numpy(), w.pop("t5"))
@@ -1052,18 +1285,20 @@ def phase_textq_all(dev, cfg, vcfg, world, seed):
     torch.cuda.synchronize()
     log("textq int8", f"T5-XXL to the host {t1 - t0:.1f} s, "
         f"quantize_params_host + upload {time.perf_counter() - t1:.1f} s")
+    reset_counts()
     out["int8"] = phase_textq(dev, "textq int8", cfg, vcfg, world,
-                              make_imagination(w, t5_q, True, seed), seed)
+                              make_imagination(w, sd35, t5_q, True, seed),
+                              seed, {"K4": 1036}, n_queries=1)
+    paths["textq"] = tuple(a + b for a, b in zip(paths["textq"], counts()))
     del w, t5_q
     torch.cuda.empty_cache()
-    return out
+    return out, paths
 
 
 def phase_textq_parity(dev, seed):
     """A small imagination on the card (K4, K3, cuDNN) against the CPU
-    (plain versions), the same weights and injected noise."""
-    import dataclasses
-
+    (plain versions), the same weights and injected noise; then the small
+    MMDiTs of ``composed_route_parity`` (K5, K6)."""
     from bsc_nav_tpu_torch.config import small_test_config
     from bsc_nav_tpu_torch.memory import pipeline
     from bsc_nav_tpu_torch.memory.ingest import points_per_frame
@@ -1153,7 +1388,7 @@ def phase_textq_parity(dev, seed):
                        "imgs": imgs.cpu().numpy().astype(int),
                        "launches": since(before)}
     a, b = out["cpu"], out[str(dev)]
-    check(a["launches"] == (0, 0, 0, 0) and b["launches"][3] > 0
+    check(a["launches"] == launches() and b["launches"][3] > 0
           and b["launches"][2] > 0, f"textq-parity launches {b['launches']}")
     v_err = float(np.abs(a["vel"] - b["vel"]).max())
     l_err = float(np.abs(a["lat"] - b["lat"]).max())
@@ -1174,9 +1409,76 @@ def phase_textq_parity(dev, seed):
         f"velocity err {v_err:.3g} (tol {TEXTQ_V_TOL}), latents after 3 CFG "
         f"steps {l_err:.3g} (tol {TEXTQ_LAT_TOL}), images within {i_err} "
         f"level(s), top-16 equal (score err {s_err:.3g}); card launches "
-        f"K1-K4 {b['launches']}")
+        f"{fmt(b['launches'])}")
     return {"velocity_err": v_err, "latent_err": l_err, "image_levels": i_err,
-            "score_err": s_err, "card_launches": list(b["launches"])}
+            "score_err": s_err, "card_launches": list(b["launches"]),
+            **composed_route_parity(dev, seed)}
+
+
+def composed_route_parity(dev, seed):
+    """Two small MMDiTs on the composed joint-attention route, on the card
+    (kernels) against the CPU (plain versions): without qk-norm at the
+    512^2 latent grid (1024 + 24 joint tokens: K5), and at the 1024^2 grid
+    with 32 heads of 16 (4096 + 8 tokens; at B 2 the f32 logits would be
+    4.3 GB, past 4e9: K6).  A forward at B 2 and 3 CFG steps at B 1 (the
+    same injected noise): velocity and latents."""
+    from bsc_nav_tpu_torch.models import mmdit as M
+
+    out = {}
+    for name, kernel, S_ctx, mcfg in (
+            ("no-qk-norm", "K5", 24, M.MMDiTConfig(
+                input_size=64, patch_size=2, in_channels=4, dim=128, depth=2,
+                heads=2, context_dim=128, pooled_dim=16, qk_norm=False)),
+            ("long", "K6", 8, M.MMDiTConfig(
+                input_size=128, patch_size=2, in_channels=4, dim=512,
+                depth=1, heads=32, context_dim=128, pooled_dim=16))):
+        gen = torch.Generator().manual_seed(seed)
+        cpu = M.init_params(mcfg, gen, device="cpu")
+        fill_zero_mods(cpu, gen)
+        card = tree_map(lambda t: t.to(dev), cpu)
+        rng = np.random.default_rng(seed)
+        n = mcfg.input_size
+        lat, noise = (torch.from_numpy(rng.normal(
+            size=(b, n, n, mcfg.in_channels)).astype(np.float32))
+            for b in (2, 1))
+        t = torch.from_numpy(rng.uniform(0.1, 1, size=2).astype(np.float32))
+        ctx = torch.from_numpy(rng.normal(size=(2, S_ctx, 128)).astype(
+            np.float32))
+        pooled = torch.from_numpy(rng.normal(size=(2, 16)).astype(np.float32))
+        res = {}
+        for d, w in (("cpu", cpu), (dev, card)):
+            before = counts()
+            vel = M.forward(w, lat.to(d), t.to(d), ctx.to(d), pooled.to(d),
+                            mcfg)
+            lat3 = M.sample(w, ctx[:1].to(d), pooled[:1].to(d), mcfg,
+                            num_steps=3, guidance_scale=4.0,
+                            context_uncond=ctx[1:].to(d),
+                            pooled_uncond=pooled[1:].to(d), noise=noise.to(d))
+            res[str(d)] = (vel.cpu().numpy(), lat3.cpu().numpy(),
+                           since(before))
+        (va, la, ca), (vb, lb, cb) = res["cpu"], res[str(dev)]
+        want = launches(**{kernel: 4 * mcfg.depth})   # 1 forward + 3 steps
+        check(ca == launches() and cb == want,
+              f"textq-parity {name}: card launches {fmt(cb)}, want "
+              f"{fmt(want)}")
+        v_err = float(np.abs(va - vb).max())
+        l_err = float(np.abs(la - lb).max())
+        check(float(np.abs(va).max()) > 0.5, f"textq-parity {name}: zero "
+              "velocity")
+        check(v_err <= TEXTQ_V_TOL and l_err <= TEXTQ_LAT_TOL,
+              f"textq-parity {name}: velocity err {v_err}, latents {l_err}")
+        S = mcfg.num_patches + S_ctx
+        log("textq-parity", f"MMDiT {name} ({mcfg.depth} x {mcfg.dim}, "
+            f"{mcfg.heads} heads of {mcfg.head_dim}, qk_norm "
+            f"{mcfg.qk_norm}, {S} joint tokens): velocity err {v_err:.3g} "
+            f"(tol {TEXTQ_V_TOL}), latents after 3 CFG steps {l_err:.3g} "
+            f"(tol {TEXTQ_LAT_TOL}); card launches {kernel} "
+            f"{cb[int(kernel[1]) - 1]}")
+        out[name] = {"joint_tokens": S, "velocity_err": v_err,
+                     "latent_err": l_err, "card_launches": list(cb)}
+        del cpu, card
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1229,35 +1531,36 @@ def main(argv=None) -> int:
     slices = [phase_slice(dev, dt, cfg, vcfg, world, args.seed)
               for dt in (torch.float32, torch.bfloat16)]
     spine = counts()
-    log("slice", f"launches on the memory spine: K1 {spine[0]}, K2 "
-        f"{spine[1]}, K3 {spine[2]}, K4 {spine[3]}")
-    check(spine[0] > 0 and spine[1] > 0 and spine[2] == spine[3] == 0,
-          f"memory spine launches K1-K4 = {spine}")
+    log("slice", f"launches on the memory spine: {fmt(spine)}")
+    check(spine[0] > 0 and spine[1] > 0 and not any(spine[2:]),
+          f"memory spine launches {fmt(spine)}")
     parity_err = phase_parity(dev, args.seed)
 
     reset_counts()
     clip = phase_clip(dev, cfg, vcfg, world, args.seed)
     clip_path = counts()
-    log("clip", f"launches on the CLIP path (DINOv2 ingest included): K1 "
-        f"{clip_path[0]}, K2 {clip_path[1]}, K3 {clip_path[2]}, K4 "
-        f"{clip_path[3]}")
-    check(clip_path[2] > 0 and clip_path[3] == 0,
-          f"CLIP path launches K1-K4 = {clip_path}")
+    log("clip", f"launches on the CLIP path (DINOv2 ingest included): "
+        f"{fmt(clip_path)}")
+    check(clip_path[2] > 0 and not any(clip_path[3:]),
+          f"CLIP path launches {fmt(clip_path)}")
     clip_parity = phase_clip_parity(dev, args.seed)
 
-    reset_counts()
-    textq = phase_textq_all(dev, cfg, vcfg, world, args.seed)
-    textq_path = counts()
-    log("textq", f"launches on the text-query path (bf16 and int8, DINOv2 "
-        f"ingest included): K1 {textq_path[0]}, K2 {textq_path[1]}, K3 "
-        f"{textq_path[2]}, K4 {textq_path[3]}")
-    check(min(textq_path) > 0, f"text-query launches K1-K4 = {textq_path}")
+    textq, textq_paths = phase_textq_all(dev, cfg, vcfg, world, args.seed)
+    for name, c in textq_paths.items():
+        log(name, f"launches on the path (DINOv2 ingest included): {fmt(c)}")
+    # path: the kernels it must have launched; K7 and K8 lie on no path
+    for name, used in (("textq", (0, 1, 2, 3)),
+                       ("textq-sd3-medium", (0, 1, 2, 4)),
+                       ("textq-sd35-1024", (0, 1, 2, 3, 5))):
+        c = textq_paths[name]
+        check(all((c[i] > 0) == (i in used) for i in range(8)),
+              f"{name} launches {fmt(c)}")
     textq_parity = phase_textq_parity(dev, args.seed)
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "bsc_nav_tpu"))
     check(not stray, f"imported {stray[:5]}")
 
-    paths = {"spine": spine, "clip": clip_path, "textq": textq_path}
+    paths = {"spine": spine, "clip": clip_path, **textq_paths}
 
     def main_case(kernel, dtype="float32", **match):
         match = match or {"B": 8}
@@ -1265,7 +1568,7 @@ def main(argv=None) -> int:
                     and c["dtype"] == dtype
                     and all(c.get(k, v) == v for k, v in match.items()))
 
-    def entry(name, source, replaces, i, case):
+    def entry(name, source, replaces, i, case, **extra):
         by_path = {p: n[i] for p, n in paths.items()}
         return {"name": name, "route": "cuda",
                 "source": f"bsc_nav_tpu_torch/csrc/{source}",
@@ -1275,7 +1578,7 @@ def main(argv=None) -> int:
                 "max_abs_err": case["max_abs_err"], "ms": case["ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
-                "library_ms": case["library_ms"],
+                "library_ms": case["library_ms"], **extra,
                 "cases": [c for c in cases if c["kernel"] == case["kernel"]]}
 
     print(json.dumps({"kernels": [
@@ -1289,6 +1592,20 @@ def main(argv=None) -> int:
         entry("joint_qkv_attention", "joint_qkv_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:550", 3,
               main_case("K4", "bfloat16", case="joint")),
+        entry("mid_attention", "mid_attention.cu",
+              "bsc_nav_tpu/ops/flash_attention.py:215", 4,
+              main_case("K5", "bfloat16", case="sd3-medium-512"),
+              also_replaces="tools/mid_attention_exp.py:56"),
+        entry("flash_attention", "flash_attention.cu",
+              "bsc_nav_tpu/ops/flash_attention.py:121", 5,
+              main_case("K6", "bfloat16", case="sd35-medium-1024")),
+        entry("layer_norm", "layer_norm.cu",
+              "bsc_nav_tpu/ops/layernorm.py:47", 6, main_case("K7"),
+              dispatched="nowhere, as in the JAX package"),
+        entry("conv3x3_s1", "conv3x3_s1.cu",
+              "bsc_nav_tpu/ops/conv2d.py:120", 7,
+              main_case("K8", "bfloat16", case="40x40x640->640"),
+              dispatched="nowhere, as in the JAX package"),
     ], "slices": slices, "slice_parity_max_err": parity_err, "clip": clip,
         "clip_parity": clip_parity, "textq": textq,
         "textq_parity": textq_parity}), flush=True)

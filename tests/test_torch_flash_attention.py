@@ -1,0 +1,101 @@
+"""Port parity: K6 ``flash_attention``'s plain version and the port's
+``attention()`` route against bsc_nav_tpu/ops/flash_attention.py.
+
+The JAX kernel runs in Pallas interpret mode, as tests/test_flash_attention.py
+runs it on the CPU.  The route table holds the port's ``attention`` against
+the JAX package's on a TPU (its backend test patched), at every boundary
+of the rule.  The card side is in tests/test_torch_kernels.py.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from bsc_nav_tpu.ops import flash_attention as jfa
+from bsc_nav_tpu_torch.ops import flash_attention as tfa
+
+
+def _bhsd(B, H, S, hd, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(B, H, S, hd)).astype(np.float32)
+
+
+def _bf16_ulp(x):
+    mag = np.maximum(np.abs(x), 2.0 ** -126)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", [
+    (1, 2, 300, 700, 64, False),    # ragged, Sq != Sk, past one 128 block
+    (2, 1, 300, 300, 64, True),     # causal, square, ragged last block
+    (1, 1, 130, 4101, 16, False)])  # past K5's 4096 keys
+def test_flash_attention_plain_matches_pallas_interpret(B, H, Sq, Sk, hd,
+                                                        causal, dtype):
+    """f32: the online softmax over 128-key blocks against one softmax,
+    sums in another order: 1e-5 abs on O(1) outputs.  bf16 (the same bf16
+    inputs on both sides): 1e-5 plus one bf16 ulp at the output's
+    magnitude."""
+    q, k, v = _bhsd(B, H, Sq, hd, 1), _bhsd(B, H, Sk, hd, 2), \
+        _bhsd(B, H, Sk, hd, 3)
+    jd = getattr(jnp, dtype)
+    want = np.asarray(jfa.flash_attention(
+        *(jnp.asarray(a, jd) for a in (q, k, v)), causal=causal,
+        interpret=True).astype(jnp.float32))
+    td = getattr(torch, dtype)
+    got = tfa.flash_attention(*(torch.from_numpy(a).to(td) for a in (q, k, v)),
+                              causal=causal)
+    assert got.dtype == td and got.shape == (B, H, Sq, hd)
+    got = got.float().numpy()
+    tol = 1e-5 + (_bf16_ulp(want) if dtype == "bfloat16" else 0.0)
+    assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
+
+
+def test_causal_needs_square_attention_in_both_packages():
+    q, k = _bhsd(1, 1, 16, 16, 4), _bhsd(1, 1, 24, 16, 5)
+    with pytest.raises(AssertionError, match="Sq == Sk"):
+        jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k),
+                            causal=True, interpret=True)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        tfa.flash_attention(*map(torch.from_numpy, (q, k, k)), causal=True)
+
+
+# (B, H, Sq, Sk, causal) at each edge of the rule: 640 / 641 keys,
+# 4096 / 4097 keys, f32 logits of exactly 4e9 bytes and one row more
+ROUTE_CASES = [
+    (2, 16, 640, 640, False), (2, 16, 641, 641, False),
+    (2, 16, 640, 640, True), (2, 16, 641, 641, True),
+    (6, 24, 1613, 1613, False),             # SD3-medium joint, 512^2
+    (1, 1, 5, 4096, False), (1, 1, 5, 4097, False),
+    (6, 24, 4096, 4096, False), (6, 24, 4685, 4685, False),
+    (8, 25, 1000, 5000, False), (8, 25, 1001, 5000, False),
+    (1, 59, 4096, 4096, True), (1, 60, 4096, 4096, True),
+    (1, 60, 4097, 4097, True), (2, 2, 4101, 4101, False),
+]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,causal", ROUTE_CASES)
+def test_attention_route_matches_jax_rule(monkeypatch, B, H, Sq, Sk, causal):
+    """The port's ``attention`` calls the counterpart of the function the
+    JAX package's would call on a TPU: short / mid / flash, or the plain
+    ``reference_attention`` (the JAX package's composition outside any
+    kernel).  Only shapes are read, so the arguments are shape holders."""
+    called = []
+
+    def record(name):
+        return lambda *a, **kw: called.append(name)
+
+    monkeypatch.setattr(jfa.jax, "default_backend", lambda: "tpu")
+    for name in ("short", "mid", "flash", "reference"):
+        fn = f"{name}_attention"
+        monkeypatch.setattr(jfa, fn, record("jax-" + name))
+        monkeypatch.setattr(tfa, fn, record("port-" + name))
+    q = SimpleNamespace(shape=(B, H, Sq, 64))
+    k = SimpleNamespace(shape=(B, H, Sk, 64))
+    jfa.attention(q, k, k, causal=causal)
+    tfa.attention(q, k, k, causal=causal)
+    route = tfa.attention_route(B, H, Sq, Sk, causal)
+    assert called == ["jax-" + route, "port-" + route]

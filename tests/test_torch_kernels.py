@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 short_attention_qkv, K2 max_cosine_per_voxel,
-K3 short_attention, K4 joint_qkv_attention) against their plain PyTorch
+K3 short_attention, K4 joint_qkv_attention, K5 mid_attention, K6
+flash_attention, K7 layer_norm, K8 conv3x3_s1) against their plain PyTorch
 versions.
 
 This file imports no JAX, so the card tests also run where JAX is not
@@ -24,7 +25,9 @@ from bsc_nav_tpu_torch.memory import pipeline as tpipe
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import vit as tv
 from bsc_nav_tpu_torch.ops import _build
+from bsc_nav_tpu_torch.ops import conv2d as tconv
 from bsc_nav_tpu_torch.ops import flash_attention as tfa
+from bsc_nav_tpu_torch.ops import layernorm as tln
 from bsc_nav_tpu_torch.ops import similarity as tsim
 
 
@@ -108,16 +111,37 @@ def test_cpu_tensors_take_the_plain_versions():
     n4 = tfa.joint_qkv_attention.launches
     torch.testing.assert_close(tfa.joint_qkv_attention(x, c, 2, *g),
                                tfa.joint_qkv_attention_reference(x, c, 2, *g))
+    q, k = _bhsd(1, 2, 5, 16, 8), _bhsd(1, 2, 700, 16, 9)
+    n5, n6 = tfa.mid_attention.launches, tfa.flash_attention.launches
+    torch.testing.assert_close(tfa.mid_attention(q, k, k),
+                               tfa.mid_attention_reference(q, k, k))
+    torch.testing.assert_close(tfa.flash_attention(k, k, k, causal=True),
+                               tfa.flash_attention_reference(k, k, k, True))
+    x = _bhsd(2, 3, 4, 40, 10)
+    n7 = tln.layer_norm.launches
+    torch.testing.assert_close(
+        tln.layer_norm(x, x[0, 0, 0], x[0, 0, 1]),
+        tln.layer_norm_reference(x, x[0, 0, 0], x[0, 0, 1]))
+    w = _bhsd(1, 9, 40, 6, 11)[0]
+    n8 = tconv.conv3x3_s1.launches
+    torch.testing.assert_close(tconv.conv3x3_s1(x, w, w[0, 0]),
+                               tconv.conv3x3_s1_reference(x, w, w[0, 0]))
     assert tfa.short_attention_qkv.launches == n1
     assert tsim.max_cosine_per_voxel.launches == n2
     assert tfa.short_attention.launches == n3
     assert tfa.joint_qkv_attention.launches == n4
+    assert tfa.mid_attention.launches == n5
+    assert tfa.flash_attention.launches == n6
+    assert tln.layer_norm.launches == n7
+    assert tconv.conv3x3_s1.launches == n8
 
 
 def test_kernel_sources_are_the_build_inputs():
     names = {p.name for p in _build.sources()}
     assert names == {"short_attention_qkv.cu", "max_cosine.cu",
-                     "short_attention.cu", "joint_qkv_attention.cu"}
+                     "short_attention.cu", "joint_qkv_attention.cu",
+                     "mid_attention.cu", "flash_attention.cu",
+                     "layer_norm.cu", "conv3x3_s1.cu"}
     for p in _build.sources():
         head = pathlib.Path(p).read_text()[:3000]
         assert "Replaces: bsc_nav_tpu/ops/" in head and "Bound on" in head
@@ -234,10 +258,118 @@ def test_k4_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,B,H,Sq,Sk,hd,causal", [
+    ("mid", 6, 24, 1613, 1613, 64, False),    # SD3-medium joint, 512^2
+    ("mid", 8, 16, 1374, 1374, 64, False),    # DINOv2 ViT-L at 518^2
+    ("mid", 2, 3, 700, 1030, 64, False),      # ragged, Sq != Sk
+    ("mid", 1, 2, 641, 4096, 80, False), ("mid", 2, 1, 5, 2000, 128, False),
+    ("flash", 6, 24, 4685, 4685, 64, False),  # SD3.5-medium joint, 1024^2
+    ("flash", 2, 16, 2048, 2048, 64, True),   # causal, square
+    ("flash", 2, 3, 129, 4097, 128, False),   # ragged, Sq != Sk
+    ("flash", 1, 2, 300, 300, 16, True),
+    ("flash", 70000, 1, 8, 8, 16, False)])    # B*H past a grid dim's 65535
+def test_k5_k6_match_plain(cuda, name, B, H, Sq, Sk, hd, causal, dtype):
+    """K5 mid_attention and K6 flash_attention, as K3: f32 2e-5 abs; bf16
+    2e-5 plus one bf16 ulp at the output's magnitude."""
+    fn = getattr(tfa, f"{name}_attention")
+    plain = getattr(tfa, f"{name}_attention_reference")
+    flags = (causal,) if name == "flash" else ()
+    q = _bhsd(B, H, Sq, hd, 12).to(cuda, dtype)
+    k, v = (_bhsd(B, H, Sk, hd, s).to(cuda, dtype) for s in (13, 14))
+    before = fn.launches
+    got = fn(q, k, v, *flags)
+    assert fn.launches == before + 1
+    want = plain(q, k, v, *flags)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, Sq, hd)
+    diff = (got.float() - want.float()).abs()
+    tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+def test_long_attention_routes_to_k5_and_k6(cuda):
+    """SD3-medium's composed joint attention reaches K5, SD3.5-medium's at
+    1024^2 reaches K6, and a causal sequence past 640 keys with small
+    logits takes the plain composition (no kernel), as in the JAX
+    package."""
+    n5, n6 = tfa.mid_attention.launches, tfa.flash_attention.launches
+    a = torch.zeros(6, 24, 1613, 64, device=cuda, dtype=torch.bfloat16)
+    tfa.attention(a, a, a)
+    assert (tfa.mid_attention.launches, tfa.flash_attention.launches) == (
+        n5 + 1, n6)
+    b = torch.zeros(6, 24, 4685, 64, device=cuda, dtype=torch.bfloat16)
+    tfa.attention(b, b, b)
+    assert (tfa.mid_attention.launches, tfa.flash_attention.launches) == (
+        n5 + 1, n6 + 1)
+    c = torch.zeros(1, 2, 700, 64, device=cuda)
+    torch.testing.assert_close(tfa.attention(c, c, c, causal=True),
+                               tfa.reference_attention(c, c, c, causal=True))
+    assert (tfa.mid_attention.launches, tfa.flash_attention.launches) == (
+        n5 + 1, n6 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 261, 1024), (32, 261, 1024),
+                                   (2, 77, 1280), (5, 100), (2, 7, 37)])
+def test_k7_matches_plain(cuda, shape, dtype):
+    """Rows of mean 1 and std 3, unit-scale affine parameters.  f32: the
+    same two-pass statistics summed in another order, 1e-5 abs on outputs
+    of a few units.  bf16: 1e-5 plus one bf16 ulp at the output's
+    magnitude."""
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy((rng.normal(size=shape) * 3 + 1).astype(
+        np.float32)).to(cuda, dtype)
+    g, b = (torch.from_numpy(rng.normal(size=shape[-1]).astype(np.float32)
+                             ).to(cuda) for _ in range(2))
+    before = tln.layer_norm.launches
+    got = tln.layer_norm(x, g, b)
+    assert tln.layer_norm.launches == before + 1
+    want = tln.layer_norm_reference(x, g, b)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,CO,act", [
+    (1, 80, 80, 160, 160, "silu"),      # YOLOv8x C2f widths
+    (2, 40, 40, 320, 320, "silu"),
+    (1, 20, 20, 640, 640, "silu"),
+    (2, 7, 9, 20, 36, "none"), (1, 5, 3, 3, 70, "silu")])
+def test_k8_matches_plain(cuda, B, H, W, C, CO, act, dtype):
+    """Weights N(0, 1/(9C)), so outputs are O(1).  f32: the same products
+    summed in another order, 1e-4 of max |out|.  bf16: that plus one bf16
+    ulp at the output's magnitude."""
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(
+        np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((rng.normal(size=(9, C, CO)) / np.sqrt(9 * C)
+                          ).astype(np.float32)).to(cuda, dtype)
+    bias = torch.from_numpy(rng.normal(size=CO).astype(np.float32)).to(cuda)
+    before = tconv.conv3x3_s1.launches
+    got = tconv.conv3x3_s1(x, w, bias, act)
+    assert tconv.conv3x3_s1.launches == before + 1
+    want = tconv.conv3x3_s1_reference(x, w, bias, act)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, W, CO)
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-4 * want.float().abs().max() + (
+        0 if dtype == torch.float32 else bf16_ulp(want))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
 def test_clip_attention_routes_to_k3(cuda):
     """hd 80 and causal inputs reach K3 and not K1; ViT-L's shape reaches
-    K1; more than 640 keys raises naming K5/K6."""
+    K1; past 640 keys a non-causal call reaches K5 (DINOv2 at 518^2)."""
     n1, n3 = tfa.short_attention_qkv.launches, tfa.short_attention.launches
+    n5 = tfa.mid_attention.launches
     tfa.attention_from_qkv(torch.zeros(2, 257, 3 * 16 * 80, device=cuda), 16)
     tfa.attention_from_qkv(torch.zeros(2, 77, 3 * 16 * 64, device=cuda), 16,
                            causal=True)
@@ -245,18 +377,26 @@ def test_clip_attention_routes_to_k3(cuda):
     assert tfa.short_attention_qkv.launches == n1
     tfa.attention_from_qkv(torch.zeros(2, 261, 3 * 16 * 64, device=cuda), 16)
     assert tfa.short_attention_qkv.launches == n1 + 1
-    with pytest.raises(NotImplementedError, match="K5.*K6"):
-        tfa.attention_from_qkv(torch.zeros(1, 641, 3 * 2 * 64, device=cuda),
-                               2)
+    out = tfa.attention_from_qkv(
+        torch.zeros(1, 1374, 3 * 16 * 64, device=cuda), 16)
+    assert tfa.mid_attention.launches == n5 + 1
+    assert out.shape == (1, 1374, 16 * 64)
 
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
     qkv = torch.zeros(1, 8, 3 * 2 * 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tfa.attention_from_qkv(torch.zeros(1, 700, 3 * 2 * 64, device=cuda),
-                               heads=2, causal=True)
     q = torch.zeros(2, 2, 40, 64, device=cuda)
+    with pytest.raises(ValueError, match="at most 4096"):
+        big = torch.zeros(1, 1, 4097, 64, device=cuda)
+        tfa.mid_attention(q[:1, :1], big, big)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        tfa.flash_attention(q, q[:, :, :20].contiguous(),
+                            q[:, :, :20].contiguous(), causal=True)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        tfa.flash_attention(*(torch.zeros(1, 1, 8, 40, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.mid_attention(q, q.transpose(0, 1), q)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.short_attention(q[:, :, ::2], q, q)
     with pytest.raises(ValueError, match="contiguous"):

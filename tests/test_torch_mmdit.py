@@ -7,7 +7,10 @@ linears are filled with seeded values first (``fill_zero_mods``):
 otherwise attention never reaches the output.  At head_dim 64 and even
 heads the port routes the joint attention to K4 (x rows first) while the
 JAX package on the CPU takes its composed path (ctx rows first), so the
-forward checks hold the two orders against each other.
+forward checks hold the two orders against each other.  Without qk-norm
+(SD3-medium) and past 4096 joint tokens (SD3.5-medium at 1024^2) both
+packages take the composed path, where the port's ``attention`` routes to
+K5 or K6 by shape (their plain versions on the CPU).
 """
 
 import dataclasses
@@ -20,7 +23,9 @@ import torch
 
 from bsc_nav_tpu.models import mmdit as JM
 from bsc_nav_tpu_torch.models import mmdit as TM
-from bsc_nav_tpu_torch.models.weights import mmdit_from_jax_params
+from bsc_nav_tpu.models.weights import save_params_npz
+from bsc_nav_tpu_torch.models.weights import (load_sd35_medium_npz,
+                                              mmdit_from_jax_params)
 from bsc_nav_tpu_torch.ops import flash_attention as tfa
 
 from torch_parity import fill_zero_mods, numpy_tree
@@ -29,6 +34,15 @@ from torch_parity import fill_zero_mods, numpy_tree
 MMDIT_HD64 = JM.MMDiTConfig(input_size=8, patch_size=2, in_channels=4,
                             dim=128, depth=2, heads=2, context_dim=32,
                             pooled_dim=16, dual_attention_layers=(0,))
+# SD3-medium's shape cut to size: no qk-norm, no dual attention, and the
+# 512^2 latent grid, so the joint sequence (1024 + 5) passes 640 keys: K5
+MMDIT_NO_QKNORM = JM.MMDiTConfig(input_size=64, patch_size=2, in_channels=4,
+                                 dim=128, depth=2, heads=2, context_dim=32,
+                                 pooled_dim=16, qk_norm=False)
+# SD3.5-medium's 1024^2 latent grid: 4096 + 5 joint tokens, past K5 and K4
+MMDIT_LONG = JM.MMDiTConfig(input_size=128, patch_size=2, in_channels=4,
+                            dim=32, depth=1, heads=2, context_dim=32,
+                            pooled_dim=16)
 
 
 def _port_cfg(jcfg):
@@ -148,3 +162,94 @@ def test_schedule_and_timestep_embedding_match_jax():
         TM.timestep_embedding(torch.from_numpy(t)).numpy(),
         np.asarray(JM.timestep_embedding(jnp.asarray(t))), atol=1e-4,
         rtol=0)
+
+
+def _counted(monkeypatch, name):
+    """Count the calls of ``tfa.<name>`` (the MMDiT reaches it through
+    ``attention``)."""
+    calls = []
+    real = getattr(tfa, name)
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tfa, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("jcfg,route", [
+    (MMDIT_NO_QKNORM, "mid_attention"),
+    (MMDIT_LONG, "reference_attention"),
+    (MMDIT_LONG, "flash_attention")])
+def test_composed_forward_matches_jax(monkeypatch, jcfg, route):
+    """The composed joint attention (ctx rows first) without qk-norm at
+    1029 tokens (K5's route) and with qk-norm at 4101 tokens: there the
+    logits of B 2 x 2 heads are 0.27 GB, under K6's 4e9, so the port takes
+    the plain composition as the JAX package does; with that threshold at 0
+    the same forward goes through K6's route.  f32: 2e-4 abs, as above."""
+    if route == "flash_attention":
+        monkeypatch.setattr(tfa, "_FLASH_MIN_LOGITS_BYTES", 0)
+    calls = _counted(monkeypatch, route)
+    jp = _params(jcfg, seed=4)
+    tp = mmdit_from_jax_params(numpy_tree(jp), _port_cfg(jcfg), device="cpu")
+    lat, t, ctx, pooled = _inputs(jcfg, 2, 5, seed=6)
+    want = np.asarray(JM.forward(jp, *map(jnp.asarray, (lat, t, ctx, pooled)),
+                                 jcfg))
+    got = TM.forward(tp, *map(torch.from_numpy, (lat, t, ctx, pooled)),
+                     _port_cfg(jcfg)).numpy()
+    assert len(calls) == jcfg.depth
+    assert np.abs(want).max() > 0.5
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+
+
+def test_sample_without_qk_norm_matches_jax():
+    """SD3-medium's route (K5) through 3 CFG steps at scale 4, the JAX
+    package's noise injected: 5e-4 abs, as above."""
+    jcfg = MMDIT_NO_QKNORM
+    jp = _params(jcfg, seed=7)
+    tp = mmdit_from_jax_params(numpy_tree(jp), _port_cfg(jcfg), device="cpu")
+    _, _, ctx, pooled = _inputs(jcfg, 1, 5, seed=8)
+    _, _, ctx_u, pooled_u = _inputs(jcfg, 1, 5, seed=9)
+    key = jax.random.PRNGKey(10)
+    want = np.asarray(JM.sample(
+        jp, key, jnp.asarray(ctx), jnp.asarray(pooled), jcfg, num_steps=3,
+        guidance_scale=4.0, context_uncond=jnp.asarray(ctx_u),
+        pooled_uncond=jnp.asarray(pooled_u)))
+    noise = np.array(jax.random.normal(
+        key, (1, jcfg.input_size, jcfg.input_size, jcfg.in_channels),
+        jnp.float32))
+    got = TM.sample(tp, torch.from_numpy(ctx), torch.from_numpy(pooled),
+                    _port_cfg(jcfg), num_steps=3, guidance_scale=4.0,
+                    context_uncond=torch.from_numpy(ctx_u),
+                    pooled_uncond=torch.from_numpy(pooled_u),
+                    noise=torch.from_numpy(noise)).numpy()
+    assert np.abs(want - noise * float(JM.shifted_sigmas(3)[0])).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
+
+
+def test_weights_without_qk_norm_carry_over(tmp_path):
+    """A qk_norm=False tree (no q_norm / k_norm leaves) loads from the JAX
+    tree and from its .npz, leaf for leaf; a config that disagrees with
+    the tree about qk-norm raises."""
+    jcfg = dataclasses.replace(MMDIT_NO_QKNORM, input_size=8)
+    jp = _params(jcfg, seed=11)
+    assert "q_norm" not in jp["blocks"][0]["x"]
+    tcfg = _port_cfg(jcfg)
+    path = str(tmp_path / "sd3_medium.npz")
+    save_params_npz(jp, path)
+    for tp in (mmdit_from_jax_params(numpy_tree(jp), tcfg, device="cpu"),
+               load_sd35_medium_npz(path, tcfg, device="cpu")):
+        assert set(tp["blocks"][1]["ctx"]) == set(jp["blocks"][1]["ctx"])
+        np.testing.assert_array_equal(
+            tp["blocks"][1]["x"]["qkv"]["w"].numpy(),
+            np.asarray(jp["blocks"][1]["x"]["qkv"]["w"]))
+    with pytest.raises(ValueError, match="qk_norm=True"):
+        mmdit_from_jax_params(numpy_tree(jp),
+                              dataclasses.replace(tcfg, qk_norm=True),
+                              device="cpu")
+    with pytest.raises(ValueError, match="qk_norm=False"):
+        mmdit_from_jax_params(numpy_tree(_params(MMDIT_HD64)),
+                              dataclasses.replace(_port_cfg(MMDIT_HD64),
+                                                  qk_norm=False),
+                              device="cpu")

@@ -10,30 +10,48 @@
 //
 // Bound on the H100: arithmetic.  The 1024^2 joint call is
 // 4*B*H*S^2*hd = 809 GFLOP against 86 MB of bf16 q, k, v and out --
-// ~9,400 flops per byte -- and this kernel runs them on the CUDA cores in
-// f32 (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s bf16).
+// ~9,400 flops per byte: 0.82 ms at the tensor cores' 989 TFLOP/s in
+// bf16, 12.1 ms at the CUDA cores' 67 TFLOP/s in f32.
 //
 // Design: the TPU kernel runs a (B*H, Sq/bq) grid of programs that each
 // carry an online softmax over K/V blocks of at most 128 keys, padded to
-// the block size.  Here the shared tile kernel of attention_tile.cuh does
-// the same with 64-key tiles in shared memory and 8 query rows per warp
-// (64 per block), masks the ragged last q and key tiles instead of padding,
-// runs the causal mask tile by tile (a block stops at its last row's tile,
-// and the longest rows are scheduled first), and decodes (batch*head,
-// q tile) from a one-dimensional grid, so B*H is not bound by the 65,535
-// limit of a second grid dimension.
+// the block size.  Here both dtypes keep that online softmax over 64-key
+// tiles, mask the ragged last q and key tiles instead of padding, run the
+// causal mask tile by tile (a block stops at its last row's tile, and the
+// longest rows are scheduled first), and decode (batch*head, q tile) from a
+// one-dimensional grid, so B*H is not bound by the 65,535 limit of a second
+// grid dimension.  The launcher chooses by dtype alone:
+// - bf16 runs the tensor-core tile of attention_mma.cuh (wgmma with f32
+//   accumulators, two warpgroups of 64 query rows, K/V staged by cp.async
+//   in a ring, the softmax in registers while the previous tile's P.V runs
+//   on the tensor cores); it rounds P to bf16 before P.V, as the JAX
+//   package's reference does on a TPU.  Its bound is then the tensor
+//   cores and the softmax's exponentials together (see the header).
+// - f32 keeps the CUDA-core tile of attention_tile.cuh (8 query rows per
+//   warp), shared with K3 and K5: on the tensor cores f32 would mean TF32,
+//   whose 10-bit mantissa breaks the exact-f32 parity the f32 paths are
+//   held to.
+#include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
 namespace {
-struct flash_attention {};   // names the kernel in a profile
+struct flash_attention {};   // names the kernels in a profile
 }  // namespace
 
-// q [BH, Sq, hd], k and v [BH, Sk, hd] -> out [BH, Sq, hd], as
-// launch_attention; causal needs Sq == Sk.
+// q [BH, Sq, hd], k and v [BH, Sk, hd] -> out [BH, Sq, hd], contiguous and
+// 16-byte aligned, f32 (or bf16 when is_bf16); hd % 16 == 0 and hd <= 128;
+// causal needs Sq == Sk.  Returns the first CUDA error, or 0.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BH,
                                       int Sq, int Sk, int hd, int causal,
                                       int is_bf16, void* stream) {
-  return launch_attention<flash_attention, 8>(q, k, v, out, BH, Sq, Sk, hd,
-                                              causal, is_bf16, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (BH <= 0 || Sq <= 0 || Sk <= 0 || hd <= 0 || hd % 16 || hd > 128 ||
+      (causal && Sq != Sk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16)
+    return tc::launch_attention_mma<flash_attention>(q, k, v, out, BH, Sq, Sk,
+                                                     hd, causal, s);
+  return launch_hd<flash_attention, float, 8>(q, k, v, out, BH, Sq, Sk, hd,
+                                              causal, s);
 }

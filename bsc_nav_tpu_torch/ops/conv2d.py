@@ -7,7 +7,8 @@ nowhere (its YOLO stack uses ``lax.conv``).  The port keeps it the same
 way: no model calls ``conv3x3_s1``; ``chip_smoke.py`` holds it against
 its plain version and against cuDNN (``F.conv2d``) on the card.  Unlike
 the TPU kernel it takes any C, CO, H and W, YOLOv8x's widths 160 and 320
-included.
+included.  bf16 runs on the tensor cores, f32 on the CUDA cores (exact
+f32, no TF32).
 """
 
 from __future__ import annotations
@@ -57,6 +58,9 @@ def conv3x3_s1(x, w9, bias, act: str = "silu"):
                         "takes float32 or bfloat16, both alike)")
     if not (x.is_contiguous() and w9.is_contiguous()):
         raise ValueError("conv3x3_s1: x and w9 must be contiguous")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w9.data_ptr() % 16):
+        raise ValueError("conv3x3_s1: bf16 x and w9 must be 16-byte aligned "
+                         "(the tensor-core kernel copies 16-byte runs)")
     CO = w9.shape[2]
     b = bias.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty(B, H, W, CO, dtype=x.dtype, device=x.device)

@@ -10,9 +10,11 @@ holds, as the JAX package does, and otherwise splits heads and calls
 ``mid_attention`` (``csrc/mid_attention.cu``) for non-causal attention over
 at most 4096 keys, K6 ``flash_attention`` (``csrc/flash_attention.cu``)
 where the f32 logits would pass 4e9 bytes, and the plain composition
-``reference_attention`` otherwise.  K3, K5 and K6 share one device kernel
-(``csrc/attention_tile.cuh``).  The MMDiT's joint attention goes through
-``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4
+``reference_attention`` otherwise.  K3 and K5, and K6 in f32, share one
+CUDA-core device kernel (``csrc/attention_tile.cuh``); K6 in bf16 runs a
+tensor-core tile of its own (``csrc/attention_mma.cuh``), held to its
+plain version by ``flash_attention_bf16_tolerance``.  The MMDiT's joint
+attention goes through ``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4
 ``joint_qkv_attention`` (``csrc/joint_qkv_attention.cu``) where
 ``use_joint_qkv_attention`` holds.
 
@@ -194,6 +196,23 @@ def flash_attention_reference(q, k, v, causal: bool = False):
     q_pos >= k_pos, a max-subtracted exp, P @ V divided by the row sum --
     cast back to the input dtype, in chunks of B*H."""
     return _chunked_reference(q, k, v, causal)
+
+
+def flash_attention_bf16_tolerance(q, k, v, want, causal: bool = False):
+    """Elementwise bound on |K6 - want| for bf16 inputs, want being
+    ``flash_attention_reference(q, k, v, causal)``.
+
+    The tensor-core K6 rounds each p <= 1 to bf16 before P @ V (as the JAX
+    package's ``reference_attention`` casts ``probs.astype(v.dtype)``), a
+    relative error of at most 2^-9, while the plain version keeps P in f32.
+    So |out - plain| <= 2^-9 * sum_j p_j |v_j| / l, plus one bf16 ulp of
+    the output and the f32 reordering (2e-5); sum_j p_j |v_j| / l is the
+    plain version on |v|.  The bound takes 2^-8 (a factor 2 of margin)."""
+    mag = want.float().abs().clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    spread = flash_attention_reference(q.float(), k.float(), v.float().abs(),
+                                       causal)
+    return 2e-5 + ulp + 2.0 ** -8 * spread
 
 
 def _attention_shapes(name: str, q, k, v, causal: bool) -> None:

@@ -54,6 +54,81 @@ def test_flash_attention_plain_matches_pallas_interpret(B, H, Sq, Sk, hd,
     assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
 
 
+def _tensor_core_k6(q, k, v, causal, drop_tile=None):
+    """The bf16 K6's arithmetic order (csrc/attention_mma.cuh) in plain torch
+    on the bf16 inputs: 64-key tiles, f32 scores scaled by 1/sqrt(hd) after
+    the dot, an online softmax with the running max, each p rounded to bf16
+    against that max before P @ V, the row sum of the unrounded p, and
+    acc / l rounded to bf16.  ``drop_tile`` skips one key tile."""
+    qf, kf, vf = (torch.from_numpy(a).to(torch.bfloat16).float()
+                  for a in (q, k, v))
+    Sq, Sk = qf.shape[2], kf.shape[2]
+    scale = float(np.float32(1.0 / np.sqrt(qf.shape[3])))
+    m = torch.full(qf.shape[:3], -torch.inf)
+    l = torch.zeros(qf.shape[:3])
+    acc = torch.zeros_like(qf)
+    rows = torch.arange(Sq)[:, None]
+    for t, k0 in enumerate(range(0, Sk, 64)):
+        if t == drop_tile:
+            continue
+        s = qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2) * scale
+        if causal:
+            keys = torch.arange(k0, min(Sk, k0 + 64))[None, :]
+            s = s.masked_fill(keys > rows, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + (p.to(torch.bfloat16).float()
+                                       @ vf[:, :, k0:k0 + 64])
+        m = m_new
+    return (acc / l[..., None]).to(torch.bfloat16).float()
+
+
+# ragged Sq and Sk, causal, past one 64-key tile and past 4096 keys
+EMULATION_CASES = [(1, 2, 300, 700, 64, False), (2, 1, 300, 300, 64, True),
+                   (1, 1, 130, 4101, 16, False), (1, 2, 77, 200, 16, False),
+                   (1, 2, 150, 150, 16, True)]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", EMULATION_CASES)
+def test_bf16_tolerance_holds_the_tensor_core_order(B, H, Sq, Sk, hd, causal):
+    """``flash_attention_bf16_tolerance`` (2e-5 + one bf16 ulp + 2^-8 x
+    the plain version on |v|) holds the tensor-core K6's arithmetic, P
+    rounded to bf16, against both the port's plain version and the JAX
+    package's Pallas kernel in interpret mode, on the same bf16 inputs."""
+    q, k, v = _bhsd(B, H, Sq, hd, 6), _bhsd(B, H, Sk, hd, 7), \
+        _bhsd(B, H, Sk, hd, 8)
+    got = _tensor_core_k6(q, k, v, causal)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    port = tfa.flash_attention_reference(tq, tk, tv, causal).float()
+    pallas = torch.from_numpy(np.array(jfa.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), causal=causal,
+        interpret=True).astype(jnp.float32)))
+    for want in (port, pallas):
+        tol = tfa.flash_attention_bf16_tolerance(tq, tk, tv, want, causal)
+        diff = (got - want).abs()
+        assert bool((diff <= tol).all()), (diff - tol).max().item()
+        # rounding P is seen: the emulation is not the plain version
+        assert diff.max().item() > 0
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", [EMULATION_CASES[0],
+                                                 EMULATION_CASES[1]])
+def test_bf16_tolerance_catches_a_lost_key_tile(B, H, Sq, Sk, hd, causal):
+    """The bound stays tight enough that the same arithmetic with one
+    64-key tile (keys 64-127) left out fails it."""
+    q, k, v = _bhsd(B, H, Sq, hd, 6), _bhsd(B, H, Sk, hd, 7), \
+        _bhsd(B, H, Sk, hd, 8)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    want = tfa.flash_attention_reference(tq, tk, tv, causal).float()
+    tol = tfa.flash_attention_bf16_tolerance(tq, tk, tv, want, causal)
+    assert bool(((_tensor_core_k6(q, k, v, causal) - want).abs()
+                 <= tol).all())
+    lost = _tensor_core_k6(q, k, v, causal, drop_tile=1)
+    assert not bool(((lost - want).abs() <= tol).all())
+
+
 def test_causal_needs_square_attention_in_both_packages():
     q, k = _bhsd(1, 1, 16, 16, 4), _bhsd(1, 1, 24, 16, 5)
     with pytest.raises(AssertionError, match="Sq == Sk"):

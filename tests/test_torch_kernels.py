@@ -270,8 +270,10 @@ def test_k4_refuses_what_it_does_not_take(cuda):
     ("flash", 1, 2, 300, 300, 16, True),
     ("flash", 70000, 1, 8, 8, 16, False)])    # B*H past a grid dim's 65535
 def test_k5_k6_match_plain(cuda, name, B, H, Sq, Sk, hd, causal, dtype):
-    """K5 mid_attention and K6 flash_attention, as K3: f32 2e-5 abs; bf16
-    2e-5 plus one bf16 ulp at the output's magnitude."""
+    """K5 mid_attention and K6 flash_attention.  f32, and K5 in bf16, as
+    K3: 2e-5 abs, in bf16 plus one bf16 ulp at the output's magnitude.
+    K6 in bf16 rounds P to bf16 on the tensor cores:
+    ``flash_attention_bf16_tolerance``."""
     fn = getattr(tfa, f"{name}_attention")
     plain = getattr(tfa, f"{name}_attention_reference")
     flags = (causal,) if name == "flash" else ()
@@ -284,7 +286,39 @@ def test_k5_k6_match_plain(cuda, name, B, H, Sq, Sk, hd, causal, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, H, Sq, hd)
     diff = (got.float() - want.float()).abs()
-    tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    if name == "flash" and dtype == torch.bfloat16:
+        tol = tfa.flash_attention_bf16_tolerance(q, k, v, want, causal)
+    else:
+        tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", [
+    (2, 3, 1, 1, 64, False), (1, 2, 1, 300, 64, False),    # Sq = 1
+    (2, 2, 100, 65, 32, False),         # one key past a 64-key tile
+    (1, 2, 70, 4097, 64, False),        # ... and past 4096
+    (2, 2, 300, 300, 64, True),         # causal, ragged last tile
+    (1, 4, 2048, 2048, 128, True),      # causal, hd 128 (a 3-stage ring)
+    (1, 2, 333, 333, 16, True), (2, 3, 200, 129, 32, False),
+    (1, 2, 77, 190, 48, False), (2, 1, 129, 513, 80, False),
+    (1, 2, 150, 150, 96, True), (1, 1, 64, 64, 112, False),
+    (1, 3, 130, 260, 128, False),
+    (70000, 1, 8, 8, 64, False)])       # B*H past a grid dim's 65535
+def test_k6_bf16_tensor_core_tile_edges(cuda, B, H, Sq, Sk, hd, causal):
+    """The edges of K6's bf16 tile (ragged Sq and Sk on both sides of a
+    tile, the causal diagonal, every head_dim the wrapper takes, a large
+    1-D grid) within ``flash_attention_bf16_tolerance``."""
+    q = _bhsd(B, H, Sq, hd, 15).to(cuda, torch.bfloat16)
+    k, v = (_bhsd(B, H, Sk, hd, s).to(cuda, torch.bfloat16) for s in (16, 17))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal)
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.flash_attention_reference(q, k, v, causal)
+    tol = tfa.flash_attention_bf16_tolerance(q, k, v, want, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, Sq, hd)
+    diff = (got.float() - want.float()).abs()
     assert bool((diff <= tol).all()), diff.max().item()
 
 
@@ -362,6 +396,48 @@ def test_k8_matches_plain(cuda, B, H, W, C, CO, act, dtype):
     tol = 1e-4 * want.float().abs().max() + (
         0 if dtype == torch.float32 else bf16_ulp(want))
     assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["silu", "none"])
+@pytest.mark.parametrize("B,H,W,C,CO", [
+    (1, 7, 9, 160, 160),     # 63 pixels: less than one 128-pixel tile
+    (1, 13, 11, 320, 320),   # 143: one tile and a ragged one
+    (1, 6, 5, 640, 640),
+    (2, 7, 9, 20, 36),       # C 20: 8-byte copies; CO 36: an N tail
+    (1, 5, 3, 3, 70),        # C 3: element loads; CO 70
+    (1, 10, 10, 160, 70),    # gcd 10: 4-byte copies
+    (2, 9, 1, 160, 36),      # W 1
+    (1, 1, 17, 20, 70),      # H 1
+    (3, 1, 1, 3, 160)])      # H = W = 1
+def test_k8_bf16_tensor_core_edges(cuda, B, H, W, C, CO, act):
+    """The edges of K8's bf16 implicit GEMM (M and N tails, each copy
+    width, one-pixel images): as ``test_k8_matches_plain``, 1e-4 of max
+    |out| plus one bf16 ulp (bf16 products are exact in f32; only the
+    order of the sums differs)."""
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.normal(size=(B, H, W, C)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(9, C, CO)) / np.sqrt(9 * C)
+                          ).astype(np.float32)).to(cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=CO).astype(np.float32)).to(cuda)
+    before = tconv.conv3x3_s1.launches
+    got = tconv.conv3x3_s1(x, w, bias, act)
+    assert tconv.conv3x3_s1.launches == before + 1
+    want = tconv.conv3x3_s1_reference(x, w, bias, act)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, W, CO)
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-4 * want.float().abs().max() + bf16_ulp(want)
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+def test_k8_refuses_misaligned_bf16(cuda):
+    x = torch.zeros(1 + 2 * 4 * 4 * 8, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(9, 8, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):   # offset of 2 bytes
+        tconv.conv3x3_s1(x[1:].view(2, 4, 4, 8), w, torch.zeros(8))
 
 
 @pytest.mark.cuda

@@ -9,12 +9,14 @@ localized against the store.  A host detector (``detect``) runs inline
 per frame; one with ``detect_batch`` (``ClipPatchDetector``) runs once per
 flush.  A text prompt goes through the imagination (``DiffusionImagination``:
 SD3.5-medium with CLIP-L/G and T5 conditioning) and the text-query steps
-of ``memory.pipeline``, the imagined images staying on the device.
+of ``memory.pipeline``, the imagined images staying on the device; an
+imagination that is a plain callable (no ``imagine_core``) renders images
+on the host, which then take the image query, as in the JAX package.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: a
-detector's device feed (``detect_batch_instances``, YOLO-World),
-segmented stores, batched queries and persistence -- each is a later item
-of ROADMAP.md Queue 1.
+Not ported yet, and raising ``NotImplementedError`` when asked for, each
+an item of ROADMAP.md Queue 1: a detector's device feed
+(``detect_batch_instances``, YOLO-World; item 2), batched queries (item
+3), persistence (item 4) and segmented stores (item 6).
 """
 
 from __future__ import annotations
@@ -106,9 +108,9 @@ class VoxelTokenMemory:
                  text_query_split: Optional[bool] = None):
         if hasattr(detector, "detect_batch_instances"):
             raise _not_ported("a detector's device feed "
-                              "(detect_batch_instances, YOLO-World)", "10")
+                              "(detect_batch_instances, YOLO-World)", "2")
         if segmented:
-            raise _not_ported("the segmented store", "11")
+            raise _not_ported("the segmented store", "6")
         self.cfg = cfg
         self.Env = env
         self.perception = perception
@@ -282,10 +284,16 @@ class VoxelTokenMemory:
                               curr_grid=None):
         """Queue a text query on the device without waiting: returns a
         zero-argument function giving ``voxel_localized``'s result, or None
-        for a prompt that is not text or a memory without imagination.
-        Kernels run on the CUDA stream while the host goes on; the
-        function's copy to the host waits for them."""
-        if not isinstance(prompt, str) or self.imagination is None:
+        for a prompt that is not text or an imagination without
+        ``imagine_core`` (none, or a plain callable: ``voxel_localized``
+        renders its images through ``imaginary``), as JAX
+        ``spatial_memory.py:375-380``.  Kernels run on the CUDA stream
+        while the host goes on; the function's copy to the host waits for
+        them."""
+        # the JAX gate also refuses a segmented store of several segments;
+        # the port has none yet (ROADMAP.md Queue 1 item 6)
+        if not (isinstance(prompt, str)
+                and hasattr(self.imagination, "imagine_core")):
             return None
         self.flush()
         im = self.imagination
@@ -317,15 +325,17 @@ class VoxelTokenMemory:
                         region_radius: float = np.inf, curr_grid=None):
         """A text prompt, or image prompt(s) [H, W, 3] or [N, H, W, 3] ->
         (best_pos [1, 3], top_k_positions [<=K, 3], top_k_similarity
-        [<=K])."""
+        [<=K]).  A text prompt takes ``voxel_localized_async``; where that
+        returns None, ``imaginary`` renders the images (raising without an
+        imagination), which take the image query (JAX
+        ``spatial_memory.py:424-437``)."""
+        self.flush()
         if isinstance(prompt, str):
             finish = self.voxel_localized_async(prompt, K, region_radius,
                                                 curr_grid)
-            if finish is None:
-                raise RuntimeError("no imagination model configured (text "
-                                   "queries need one)")
-            return finish()
-        self.flush()
+            if finish is not None:
+                return finish()
+            prompt = self.imaginary(prompt)
         arr = np.asarray(prompt)
         imgs = (arr[None] if arr.ndim == 3 else arr)[:, :, :, :3]
         imgs = torch.from_numpy(np.ascontiguousarray(
@@ -337,11 +347,11 @@ class VoxelTokenMemory:
 
     def voxel_localized_batch(self, prompts, K: int = 100,
                               region_radii=None, curr_grid=None):
-        raise _not_ported("batched queries (localize_batch)", "6")
+        raise _not_ported("batched queries (localize_batch)", "3")
 
     def save(self, path: Optional[str] = None) -> None:
-        raise _not_ported("memory persistence (save)", "9")
+        raise _not_ported("memory persistence (save)", "4")
 
     def load_memory(self, init_state=None, build_map: bool = False,
                     path: Optional[str] = None) -> None:
-        raise _not_ported("memory persistence (load_memory)", "9")
+        raise _not_ported("memory persistence (load_memory)", "4")

@@ -1,9 +1,12 @@
-// K6's bf16 attention tile on the tensor cores: softmax attention over
-// separate q, k, v buffers [BH, S, hd] with an optional square causal mask,
-// written to [BH, Sq, hd].  K3 and K5 keep the CUDA-core tile of
-// attention_tile.cuh, and so does K6 in f32: on the tensor cores f32 would
-// mean TF32, whose 10-bit mantissa breaks the exact-f32 parity the f32
-// paths are held to.
+// The bf16 attention tile on the tensor cores, shared by K3
+// short_attention, K5 mid_attention and K6 flash_attention: softmax
+// attention over separate q, k, v buffers [BH, S, hd] with an optional
+// square causal mask, written to [BH, Sq, hd].  Each of those sources
+// names its kernels with a tag type (attention_wgmma_kernel<mid_attention,
+// 64> in a profile); the names here have internal linkage, so every
+// source holds its own copy.  Their f32 paths keep the CUDA-core tile of
+// attention_tile.cuh: on the tensor cores f32 would mean TF32, whose
+// 10-bit mantissa breaks the exact-f32 parity the f32 paths are held to.
 //
 // Bound on the H100: the tensor cores, and beside them the exponentials.
 // A bf16 joint call at SD3.5-medium's 1024^2 is 809 GFLOP against 86 MB

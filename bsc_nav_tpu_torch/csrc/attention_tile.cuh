@@ -1,10 +1,13 @@
-// The attention kernel shared by K3 short_attention, K5 mid_attention and
-// K6 flash_attention: softmax attention over separate q, k, v buffers
-// [BH, S, hd] with an optional square causal mask, written to [BH, Sq, hd].
-// Each of those sources includes this header, names its kernel with a tag
-// type (so a profiler tells the three apart) and exports its own launch
-// symbol; the header's names have internal linkage, so every source holds
-// its own copy of the kernels it instantiates.
+// The f32 attention kernel shared by K3 short_attention, K5 mid_attention
+// and K6 flash_attention: softmax attention over separate f32 q, k, v
+// buffers [BH, S, hd] with an optional square causal mask, written to
+// [BH, Sq, hd].  Their bf16 paths run the tensor-core tile of
+// attention_mma.cuh instead; in f32 the tensor cores would mean TF32,
+// whose 10-bit mantissa breaks the exact-f32 parity the f32 paths are held
+// to.  Each of those sources includes this header, names its kernel with a
+// tag type (so a profiler tells the three apart) and exports its own
+// launch symbol; the header's names have internal linkage, so every source
+// holds its own copy of the kernels it instantiates.
 //
 // Design: the TPU kernels hold K/V in VMEM -- the whole sequence (K3, K5)
 // or blocks of 128 keys (K6) -- and run a one-shot or a blockwise online
@@ -21,13 +24,11 @@
 // TPU kernels do.  Lane j owns keys j and j+32 of a tile for the scores and
 // dims j, j+32, j+64, j+96 of a row for the output, so hd 80 runs 3 output
 // slots with lanes 16-31 idle in the last one.  Rows are read as 16-byte
-// f32 (8-byte bf16) vectors: hd % 16 == 0 keeps every row start aligned.
-// K/V tile rows are padded to hd + 4 floats, which keeps the lanes' 16-byte
-// reads free of bank conflicts at hd 64 and 80.  All arithmetic is f32 on
-// the CUDA cores; inputs and outputs are f32 or bf16.
+// vectors: hd % 16 == 0 keeps every row start aligned.  K/V tile rows are
+// padded to hd + 4 floats, which keeps the lanes' 16-byte reads free of
+// bank conflicts at hd 64 and 80.  All arithmetic is f32 on the CUDA cores.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -54,21 +55,6 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
   float acc = a.x * b.x;
   acc = fmaf(a.y, b.y, acc);
@@ -89,10 +75,12 @@ size_t attention_smem_bytes(int hd) {
 
 // Tag names the kernel; NI = ceil(hd / 32): output dims each lane owns;
 // ROWS: query rows per warp.
-template <typename Tag, typename T, int NI, int ROWS>
+template <typename Tag, int NI, int ROWS>
 __global__ void __launch_bounds__(kWarps * 32)
-    attention_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ out,
+    attention_tile_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          float* __restrict__ out,
                           int Sq, int Sk, int hd, int causal, float scale,
                           int n_qtiles) {
   constexpr int kQTile = kWarps * ROWS;
@@ -111,9 +99,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (causal) qt = n_qtiles - 1 - qt;  // the longest key ranges first
   const int qb = qt * kQTile;          // first query row of the block
   const int q0 = qb + warp * ROWS;     // first query row of the warp
-  const T* qbase = q + bh * Sq * hd;
-  const T* kbase = k + bh * Sk * hd;
-  const T* vbase = v + bh * Sk * hd;
+  const float* qbase = q + bh * Sq * hd;
+  const float* kbase = k + bh * Sk * hd;
+  const float* vbase = v + bh * Sk * hd;
   const int hd4 = hd / 4;
 
   float* Qw = Qs + warp * ROWS * hd;
@@ -224,22 +212,22 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = 0; r < ROWS; ++r) {
     const int qi = q0 + r;
     if (qi >= Sq) continue;
-    T* dst = out + (bh * Sq + qi) * hd;
+    float* dst = out + (bh * Sq + qi) * hd;
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int d = lane + 32 * i;
-      if (d < hd) store1(dst + d, acc[r][i] / l[r]);
+      if (d < hd) dst[d] = acc[r][i] / l[r];
     }
   }
 }
 
-template <typename Tag, typename T, int NI, int ROWS>
+template <typename Tag, int NI, int ROWS>
 int launch_tile(const void* q, const void* k, const void* v, void* out,
                 int BH, int Sq, int Sk, int hd, int causal,
                 cudaStream_t stream) {
   constexpr int kQTile = kWarps * ROWS;
   const size_t smem = attention_smem_bytes<ROWS>(hd);
-  auto kernel = attention_tile_kernel<Tag, T, NI, ROWS>;
+  auto kernel = attention_tile_kernel<Tag, NI, ROWS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -250,43 +238,38 @@ int launch_tile(const void* q, const void* k, const void* v, void* out,
   // the scale rounded once from double, as JAX rounds its Python float
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   kernel<<<static_cast<unsigned>(blocks), kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, hd, causal,
-      scale, n_qtiles);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, hd,
+      causal, scale, n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tag, typename T, int ROWS>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int BH,
-              int Sq, int Sk, int hd, int causal, cudaStream_t stream) {
-  switch ((hd + 31) / 32) {
-    case 1: return launch_tile<Tag, T, 1, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
-                                           causal, stream);
-    case 2: return launch_tile<Tag, T, 2, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
-                                           causal, stream);
-    case 3: return launch_tile<Tag, T, 3, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
-                                           causal, stream);
-    case 4: return launch_tile<Tag, T, 4, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
-                                           causal, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// the launchers' argument check, shared by K3, K5 and K6 in both dtypes:
+// positive sizes, hd a multiple of 16 up to 128, causal only when square
+inline bool attention_args_ok(int BH, int Sq, int Sk, int hd, int causal) {
+  return BH > 0 && Sq > 0 && Sk > 0 && hd > 0 && hd % 16 == 0 && hd <= 128 &&
+         (!causal || Sq == Sk);
 }
 
-// q [BH, Sq, hd], k and v [BH, Sk, hd] -> out [BH, Sq, hd], all contiguous
-// and 16-byte aligned, f32 (or bf16 when is_bf16).  hd % 16 == 0 and
-// hd <= 128; causal needs Sq == Sk.  Returns the first CUDA error, or 0.
+// f32 q [BH, Sq, hd], k and v [BH, Sk, hd] -> out [BH, Sq, hd], all
+// contiguous and 16-byte aligned, ROWS query rows per warp; the arguments
+// pass attention_args_ok (the caller checks).  Returns the first CUDA
+// error, or 0.
 template <typename Tag, int ROWS>
 int launch_attention(const void* q, const void* k, const void* v, void* out,
-                     int BH, int Sq, int Sk, int hd, int causal, int is_bf16,
-                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || Sq <= 0 || Sk <= 0 || hd <= 0 || hd % 16 || hd > 128 ||
-      (causal && Sq != Sk))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16)
-    return launch_hd<Tag, __nv_bfloat16, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
-                                          causal, s);
-  return launch_hd<Tag, float, ROWS>(q, k, v, out, BH, Sq, Sk, hd, causal, s);
+                     int BH, int Sq, int Sk, int hd, int causal,
+                     cudaStream_t s) {
+  switch ((hd + 31) / 32) {
+    case 1: return launch_tile<Tag, 1, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
+                                             causal, s);
+    case 2: return launch_tile<Tag, 2, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
+                                             causal, s);
+    case 3: return launch_tile<Tag, 3, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
+                                             causal, s);
+    case 4: return launch_tile<Tag, 4, ROWS>(q, k, v, out, BH, Sq, Sk, hd,
+                                             causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

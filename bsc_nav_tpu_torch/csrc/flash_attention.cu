@@ -30,7 +30,7 @@
 // - f32 keeps the CUDA-core tile of attention_tile.cuh (8 query rows per
 //   warp), shared with K3 and K5: on the tensor cores f32 would mean TF32,
 //   whose 10-bit mantissa breaks the exact-f32 parity the f32 paths are
-//   held to.
+//   held to.  K3 and K5 run the same two tiles by dtype.
 #include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
@@ -46,12 +46,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Sq, int Sk, int hd, int causal,
                                       int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH <= 0 || Sq <= 0 || Sk <= 0 || hd <= 0 || hd % 16 || hd > 128 ||
-      (causal && Sq != Sk))
+  if (!attention_args_ok(BH, Sq, Sk, hd, causal))
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     return tc::launch_attention_mma<flash_attention>(q, k, v, out, BH, Sq, Sk,
                                                      hd, causal, s);
-  return launch_hd<flash_attention, float, 8>(q, k, v, out, BH, Sq, Sk, hd,
+  return launch_attention<flash_attention, 8>(q, k, v, out, BH, Sq, Sk, hd,
                                               causal, s);
 }

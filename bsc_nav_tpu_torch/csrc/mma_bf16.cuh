@@ -1,8 +1,10 @@
-// Tensor-core building blocks of the bf16 kernels of K6 (attention_mma.cuh)
+// Tensor-core building blocks of the bf16 kernels of K3, K5 and K6
+// (attention_mma.cuh)
 // and K8 (conv3x3_s1.cu): asynchronous global -> shared copies that
 // zero-fill what lies outside a tensor, ldmatrix fragment loads, the
 // warp-level bf16 product mma.sync m16n8k16 (K8), the warpgroup product
-// wgmma with its shared-memory descriptors and fences (K6), all with f32
+// wgmma with its shared-memory descriptors and fences (K3, K5, K6), all
+// with f32
 // accumulators, and the MUFU exp2.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4):

@@ -69,7 +69,7 @@ def ingest_frames(
     if mem.replacement != "dist":
         raise NotImplementedError(
             f"replacement={mem.replacement!r}: the surprise policy is queued "
-            "in ROADMAP.md (Queue 1 item 11)")
+            "in ROADMAP.md (Queue 1 item 6)")
     dev = state.feats.device
     B, H, W = depth.shape
     Gs, Hc = mem.grid_size, mem.num_height_cells

@@ -6,7 +6,7 @@ Counterpart of the host half of ``bsc_nav_tpu/memory/longterm.py``
 ``bsc_nav_tpu.geometry``, which imports JAX, so the functions are
 re-implemented here on the port's numpy ``camera_intrinsics``.  The device
 feed (``instances_device``, ``integrate_device_scan``) waits for
-YOLO-World (ROADMAP.md Queue 1 item 10).
+YOLO-World (ROADMAP.md Queue 1 item 2).
 """
 
 from __future__ import annotations

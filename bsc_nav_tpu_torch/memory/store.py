@@ -75,11 +75,11 @@ def init_store(cfg: MemoryConfig, store_dtype=torch.float32,
     if store_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"store dtype {store_dtype}: the int8 store is queued in "
-            "ROADMAP.md; float32 and bfloat16 are ported")
+            "ROADMAP.md (Queue 1 item 4); float32 and bfloat16 are ported")
     if cfg.replacement != "dist":
         raise NotImplementedError(
             f"replacement={cfg.replacement!r}: the surprise policy is "
-            "queued in ROADMAP.md (Queue 1 item 11)")
+            "queued in ROADMAP.md (Queue 1 item 6)")
     dev = resolve_device(device)
     K, D = cfg.cache_size, cfg.token_dim
     G, H = cfg.grid_size, cfg.num_height_cells

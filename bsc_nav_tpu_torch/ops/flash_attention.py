@@ -10,10 +10,11 @@ holds, as the JAX package does, and otherwise splits heads and calls
 ``mid_attention`` (``csrc/mid_attention.cu``) for non-causal attention over
 at most 4096 keys, K6 ``flash_attention`` (``csrc/flash_attention.cu``)
 where the f32 logits would pass 4e9 bytes, and the plain composition
-``reference_attention`` otherwise.  K3 and K5, and K6 in f32, share one
-CUDA-core device kernel (``csrc/attention_tile.cuh``); K6 in bf16 runs a
-tensor-core tile of its own (``csrc/attention_mma.cuh``), held to its
-plain version by ``flash_attention_bf16_tolerance``.  The MMDiT's joint
+``reference_attention`` otherwise.  K3, K5 and K6 share two device
+kernels, chosen by dtype: f32 runs a CUDA-core tile
+(``csrc/attention_tile.cuh``), bf16 a tensor-core tile
+(``csrc/attention_mma.cuh``) that rounds P to bf16 and is held to the
+plain versions by ``flash_attention_bf16_tolerance``.  The MMDiT's joint
 attention goes through ``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4
 ``joint_qkv_attention`` (``csrc/joint_qkv_attention.cu``) where
 ``use_joint_qkv_attention`` holds.
@@ -199,12 +200,15 @@ def flash_attention_reference(q, k, v, causal: bool = False):
 
 
 def flash_attention_bf16_tolerance(q, k, v, want, causal: bool = False):
-    """Elementwise bound on |K6 - want| for bf16 inputs, want being
-    ``flash_attention_reference(q, k, v, causal)``.
+    """Elementwise bound on |out - want| for K3 ``short_attention``, K5
+    ``mid_attention`` and K6 ``flash_attention`` on bf16 inputs, want being
+    ``flash_attention_reference(q, k, v, causal)`` (which equals
+    ``short_attention_reference`` and ``mid_attention_reference`` in f32).
 
-    The tensor-core K6 rounds each p <= 1 to bf16 before P @ V (as the JAX
-    package's ``reference_attention`` casts ``probs.astype(v.dtype)``), a
-    relative error of at most 2^-9, while the plain version keeps P in f32.
+    Their tensor-core tile rounds each p <= 1 to bf16 before P @ V (as the
+    JAX package's ``reference_attention`` casts ``probs.astype(v.dtype)``),
+    a relative error of at most 2^-9, while the plain versions, and the
+    Pallas K3 and K5, keep P in f32.
     So |out - plain| <= 2^-9 * sum_j p_j |v_j| / l, plus one bf16 ulp of
     the output and the f32 reordering (2e-5); sum_j p_j |v_j| / l is the
     plain version on |v|.  The bound takes 2^-8 (a factor 2 of margin)."""

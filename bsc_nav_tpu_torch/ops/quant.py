@@ -15,7 +15,7 @@ sums.  The activation scale divides (``xf / xs``), as the JAX source
 writes it.
 
 ``conv_q8`` and ``quantize_conv_weight`` wait for YOLO-World (ROADMAP.md
-Queue 1 item 10).
+Queue 1 item 2).
 """
 
 from __future__ import annotations

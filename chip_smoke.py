@@ -14,11 +14,12 @@ non-zero):
                 of 20 runs), the bound reckoned from each case's bytes and
                 operations, and one PyTorch call computing the same
                 function where one exists (SDPA for K1, K3, K5 and K6,
-                F.layer_norm for K7, cuDNN for K8), and for K4-K6 and K8
-                the TFLOP/s reached (K5, K6 and K8 also the bound over the
-                kernel's time): K5 at SD3-medium's joint
-                attention and DINOv2 at 518^2, K6 at SD3.5-medium's joint
-                attention at 1024^2 and causal, K7 at ViT-L's token grids,
+                F.layer_norm for K7, cuDNN for K8), and for K3-K6 and K8
+                the TFLOP/s reached (K3, K5, K6 and K8 also the bound over
+                the kernel's time): K3 at the CLIP towers' shapes, K5 at
+                SD3-medium's joint attention and DINOv2 at 518^2, K6 at
+                SD3.5-medium's joint attention at 1024^2 and causal, K7 at
+                ViT-L's token grids,
                 K8 at YOLOv8x's C2f shapes (K7 and K8 are dispatched
                 nowhere, as in the JAX package)
   slice f32     the full default Config() -- 680x680 RGB-D, 1000^2 x 200
@@ -53,7 +54,9 @@ non-zero):
                 once under torch.profiler; 1,036 K4 launches per query
   textq sd3-medium  the same with SD3-medium (no qk-norm, no dual
                 attention): the composed joint attention, 672 K5 launches
-                per query and no K4
+                per query and no K4; each text query prints its host-clock
+                times and its attention kernels' share of the profiled
+                device time
   textq sd35-1024  SD3.5-medium at its published 1024^2 (a 4685-token
                 joint sequence): 672 K6 and 364 K4 (the dual
                 self-attention at 4096 tokens) per query; one timed and
@@ -92,7 +95,7 @@ import torch
 N_FRAMES, BATCH, N_QUERIES, QUERY_IMAGES = 32, 8, 3, 3
 N_VIEWS, SCORE_REPS = 12, 4     # a 360-degree turn at 30 degrees a step
 K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-K3_TOL = 2e-5           # f32 abs; bf16: 2e-5 plus one bf16 ulp per element
+K3_TOL = 2e-5           # f32 abs (K3, K5, K6); bf16: see BF16_ATTN_TOL
 CLIP_TOL = 1e-4         # unit features and scores, f32 CLIP on card vs CPU
 # int8 towers, card vs CPU: an activation within ~1e-6 of a rounding
 # boundary may take the neighbouring code on one side; one flip moves a
@@ -100,9 +103,10 @@ CLIP_TOL = 1e-4         # unit features and scores, f32 CLIP on card vs CPU
 INT8_TOL, INT8_MIN_COS = 1e-2, 0.9995
 K2_TOL = 2e-5           # abs, beside 1e-5 rel (zero-norm rows / 1e-12)
 K4_TOL = 2e-5           # f32 abs; bf16: 2e-5 plus one bf16 ulp per element
-# K5 and K6 take K3_TOL (K6 in bf16: flash_attention_bf16_tolerance, as P
-# is rounded to bf16 on the tensor cores); K7 f32 abs on unit-scale outputs
-# (bf16: plus one ulp); K8 a fraction of max |out| (bf16: plus one ulp)
+# K3, K5 and K6 in bf16 round P to bf16 on the tensor cores: they take
+# flash_attention_bf16_tolerance; K7 f32 abs on unit-scale outputs (bf16:
+# plus one ulp); K8 a fraction of max |out| (bf16: plus one ulp)
+BF16_ATTN_TOL = "2e-5 + 1 bf16 ulp + 2^-8 x plain on |v|"
 K7_TOL, K8_TOL = 1e-5, 1e-4
 PARITY_TOL = 1e-4       # top-K scores, f32 slice on card vs CPU
 # small imagination, f32 on the card (TF32 off, K4) against the CPU (plain
@@ -139,6 +143,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Device time of one fn() in ms without the host's share: n calls
+    captured in one CUDA graph, its replay timed as cuda_ms times it, over
+    n.  cuda_ms's one event pair per call also counts the host's Python
+    and launch work between the events, which a short kernel does not
+    hide."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    ms = cuda_ms(g.replay, reps=reps, warmup=1) / n
+    del g
+    return ms
 
 
 def wrappers() -> tuple:
@@ -215,6 +236,8 @@ def sdpa_ms(q, k, v, causal=False) -> float:
 # ---------------------------------------------------------------------------
 
 def phase_kernels(dev, gen):
+    import torch.nn.functional as F
+
     from bsc_nav_tpu_torch.ops import flash_attention as fa
     from bsc_nav_tpu_torch.ops import similarity as sim
 
@@ -299,29 +322,42 @@ def phase_kernels(dev, gen):
                                 ).to(dtype) for _ in range(2))
             got = fa.short_attention(q, k, v, causal)
             want = fa.short_attention_reference(q, k, v, causal)
+            if dtype == torch.bfloat16:
+                tol = fa.flash_attention_bf16_tolerance(q, k, v, want, causal)
+                tol_s = BF16_ATTN_TOL
+            else:
+                tol, tol_s = K3_TOL, f"{K3_TOL}"
             diff = (got.float() - want.float()).abs()
-            tol = K3_TOL + (bf16_ulp(want) if dtype == torch.bfloat16 else 0)
             err = diff.max().item()
             check(bool((diff <= tol).all()), f"K3 {case} {dtype}: err {err}")
             ms = cuda_ms(lambda: fa.short_attention(q, k, v, causal))
             plain = cuda_ms(
                 lambda: fa.short_attention_reference(q, k, v, causal))
             lib = sdpa_ms(q, k, v, causal)
-            b_ms, b_by = bound(attn_flops(B, H, Sq, Sk, hd, causal),
-                               nbytes(q, k, v, got), dtype)
+            # the same calls replayed from a CUDA graph: device time alone
+            dev_ms = graph_ms(lambda: fa.short_attention(q, k, v, causal))
+            lib_dev = graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal))
+            flops = attn_flops(B, H, Sq, Sk, hd, causal)
+            b_ms, b_by = bound(flops, nbytes(q, k, v, got), dtype)
             log("kernels", f"K3 short_attention {case} B={B} {H}x{hd} "
                 f"Sq={Sq} Sk={Sk} causal={causal} {str(dtype)[6:]}: "
-                f"max_abs_err {err:.3g} (tol {K3_TOL}"
-                f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}) "
-                f"kernel {ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms "
-                f"bound {b_ms:.4f} ms ({b_by})")
+                f"max_abs_err {err:.3g} (tol {tol_s}) kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
+                f"bound) plain {plain:.4f} ms sdpa {lib:.4f} ms bound "
+                f"{b_ms:.4f} ms ({b_by}); replayed from a CUDA graph: kernel "
+                f"{dev_ms:.4f} ms ({b_ms / dev_ms:.3f} of the bound), sdpa "
+                f"{lib_dev:.4f} ms")
             cases.append({"kernel": "K3", "case": case, "B": B, "heads": H,
                           "Sq": Sq, "Sk": Sk, "head_dim": hd,
                           "causal": causal, "dtype": str(dtype)[6:],
-                          "max_abs_err": err, "tol": K3_TOL, "ms": ms,
+                          "max_abs_err": err, "tol": tol_s, "ms": ms,
                           "plain_ms": plain, "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": lib})
-            del q, k, v, got, want, diff
+                          "bound_by": b_by, "library_ms": lib,
+                          "tflops": flops / ms / 1e9,
+                          "bound_share": b_ms / ms, "graph_ms": dev_ms,
+                          "library_graph_ms": lib_dev})
+            del q, k, v, got, want, diff, tol
 
     # K1 at the CLIP vision shape, from a fused qkv: the JAX dispatch sends
     # this shape to K3 (head_dim 80), K1 is timed beside it for comparison
@@ -455,12 +491,9 @@ def long_attention_cases(dev, gen, cases):
             diff = (got.float() - want.float()).abs()
             if dtype == torch.float32:
                 tol, tol_s = K3_TOL, f"{K3_TOL}"
-            elif kernel == "K6":   # P rounded to bf16 on the tensor cores
+            else:   # P rounded to bf16 on the tensor cores
                 tol = fa.flash_attention_bf16_tolerance(q, k, v, want, causal)
-                tol_s = "2e-5 + 1 bf16 ulp + 2^-8 x plain on |v|"
-            else:
-                tol = K3_TOL + bf16_ulp(want)
-                tol_s = f"{K3_TOL} + 1 bf16 ulp"
+                tol_s = BF16_ATTN_TOL
             err = diff.max().item()
             check(bool((diff <= tol).all()),
                   f"{kernel} {case} {dtype}: err {err}")
@@ -1190,6 +1223,9 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed, per_query,
         profiled_ms = (time.perf_counter() - t0) * 1e3
     split, top_rest = kernel_split(prof)
     busy = sum(split.values())
+    # each attention kernel's share of the profiled device time
+    shares = {k: v / busy for k, v in split.items()
+              if k.startswith("K") and v > 0 and busy > 0}
     log(name, f"VoxelTokenMemory(Config()) over {N_FRAMES} frames "
         f"({int(mem.state.num_voxels)} voxels): voxel_localized("
         f"{TEXT_PROMPT!r}) ms {[round(t, 1) for t in query_ms]} (host clock, "
@@ -1204,7 +1240,9 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed, per_query,
         log(name, "profiled query, device time by kind (ms): "
             + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
             + f"; kernels busy {busy:.1f} of {profiled_ms:.1f} ms host clock "
-            f"(idle share {1 - busy / profiled_ms:.3f}); largest of the rest: "
+            f"(idle share {1 - busy / profiled_ms:.3f}); share of the device "
+            f"time: " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+            + "; largest of the rest: "
             + ", ".join(f"{k} {v:.1f}" for k, v in top_rest)
             + f"; T5-XXL encode of the two prompts alone {t5_ms:.1f} ms "
             f"(CUDA events)")
@@ -1212,7 +1250,7 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed, per_query,
               "launches_per_query": dict(zip(
                   [f"K{i}" for i in range(1, 9)], want)),
               "image_side": side, "profile_ms": split,
-              "profiled_query_ms": profiled_ms,
+              "profiled_query_ms": profiled_ms, "device_share": shares,
               "profile_top_rest": top_rest, "t5_encode_ms": t5_ms,
               "num_voxels": int(mem.state.num_voxels)}
     del mem, perception, params
@@ -1581,6 +1619,11 @@ def main(argv=None) -> int:
                     and c["dtype"] == dtype
                     and all(c.get(k, v) == v for k, v in match.items()))
 
+    # K3, K5 and K6 run one of two shared tiles by dtype
+    tiles = {"tiles": {
+        "bfloat16": "bsc_nav_tpu_torch/csrc/attention_mma.cuh",
+        "float32": "bsc_nav_tpu_torch/csrc/attention_tile.cuh"}}
+
     def entry(name, source, replaces, i, case, **extra):
         by_path = {p: n[i] for p, n in paths.items()}
         return {"name": name, "route": "cuda",
@@ -1601,17 +1644,18 @@ def main(argv=None) -> int:
               "bsc_nav_tpu/ops/similarity.py:56", 1, main_case("K2")),
         entry("short_attention", "short_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:364", 2,
-              main_case("K3", case="vision")),
+              main_case("K3", case="vision"), **tiles),
         entry("joint_qkv_attention", "joint_qkv_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:550", 3,
               main_case("K4", "bfloat16", case="joint")),
         entry("mid_attention", "mid_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:215", 4,
               main_case("K5", "bfloat16", case="sd3-medium-512"),
-              also_replaces="tools/mid_attention_exp.py:56"),
+              also_replaces="tools/mid_attention_exp.py:56", **tiles),
         entry("flash_attention", "flash_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:121", 5,
-              main_case("K6", "bfloat16", case="sd35-medium-1024")),
+              main_case("K6", "bfloat16", case="sd35-medium-1024"),
+              **tiles),
         entry("layer_norm", "layer_norm.cu",
               "bsc_nav_tpu/ops/layernorm.py:47", 6, main_case("K7"),
               dispatched="nowhere, as in the JAX package"),

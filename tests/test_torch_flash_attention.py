@@ -1,8 +1,9 @@
-"""Port parity: K6 ``flash_attention``'s plain version and the port's
+"""Port parity: K6 ``flash_attention``'s plain version, the bf16 bound of
+the tensor-core tile that K3, K5 and K6 share, and the port's
 ``attention()`` route against bsc_nav_tpu/ops/flash_attention.py.
 
-The JAX kernel runs in Pallas interpret mode, as tests/test_flash_attention.py
-runs it on the CPU.  The route table holds the port's ``attention`` against
+The JAX kernels run in Pallas interpret mode, as tests/test_flash_attention.py
+runs them on the CPU.  The route table holds the port's ``attention`` against
 the JAX package's on a TPU (its backend test patched), at every boundary
 of the rule.  The card side is in tests/test_torch_kernels.py.
 """
@@ -54,9 +55,11 @@ def test_flash_attention_plain_matches_pallas_interpret(B, H, Sq, Sk, hd,
     assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
 
 
-def _tensor_core_k6(q, k, v, causal, drop_tile=None):
-    """The bf16 K6's arithmetic order (csrc/attention_mma.cuh) in plain torch
-    on the bf16 inputs: 64-key tiles, f32 scores scaled by 1/sqrt(hd) after
+def _tensor_core_tile(q, k, v, causal, drop_tile=None):
+    """The arithmetic order of the bf16 tile of K3, K5 and K6
+    (csrc/attention_mma.cuh) in plain torch on the bf16 inputs, ragged Sq
+    and Sk and the square causal mask included: 64-key tiles, f32 scores
+    scaled by 1/sqrt(hd) after
     the dot, an online softmax with the running max, each p rounded to bf16
     against that max before P @ V, the row sum of the unrounded p, and
     acc / l rounded to bf16.  ``drop_tile`` skips one key tile."""
@@ -99,7 +102,7 @@ def test_bf16_tolerance_holds_the_tensor_core_order(B, H, Sq, Sk, hd, causal):
     package's Pallas kernel in interpret mode, on the same bf16 inputs."""
     q, k, v = _bhsd(B, H, Sq, hd, 6), _bhsd(B, H, Sk, hd, 7), \
         _bhsd(B, H, Sk, hd, 8)
-    got = _tensor_core_k6(q, k, v, causal)
+    got = _tensor_core_tile(q, k, v, causal)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     port = tfa.flash_attention_reference(tq, tk, tv, causal).float()
     pallas = torch.from_numpy(np.array(jfa.flash_attention(
@@ -113,8 +116,45 @@ def test_bf16_tolerance_holds_the_tensor_core_order(B, H, Sq, Sk, hd, causal):
         assert diff.max().item() > 0
 
 
-@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", [EMULATION_CASES[0],
-                                                 EMULATION_CASES[1]])
+# K3 and K5 on the same tile, at their main paths' shapes, small in B*H:
+# MetaCLIP's vision tower (hd 80, S 257), the causal text towers (hd 64,
+# S 77), K3's ragged case and a ragged K5 case
+K3_K5_CASES = [("short", 1, 2, 257, 257, 80, False),
+               ("short", 1, 2, 77, 77, 64, True),
+               ("short", 1, 2, 50, 203, 80, False),
+               ("mid", 1, 2, 700, 1030, 64, False)]
+
+
+@pytest.mark.parametrize("name,B,H,Sq,Sk,hd,causal", K3_K5_CASES)
+def test_bf16_tolerance_holds_the_tile_for_k3_and_k5(name, B, H, Sq, Sk, hd,
+                                                     causal):
+    """K3 and K5 in bf16 run K6's tile, so ``flash_attention_bf16_tolerance``
+    holds its arithmetic against the port's plain ``short_attention`` /
+    ``mid_attention`` and against the JAX package's Pallas kernels in
+    interpret mode, which keep P in f32: the rounding of P to bf16 is a
+    deliberate divergence, bounded by the same function."""
+    q, k, v = _bhsd(B, H, Sq, hd, 9), _bhsd(B, H, Sk, hd, 10), \
+        _bhsd(B, H, Sk, hd, 11)
+    got = _tensor_core_tile(q, k, v, causal)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    if name == "short":
+        port = tfa.short_attention_reference(tq, tk, tv, causal)
+        pallas = jfa.short_attention(jq, jk, jv, causal=causal, interpret=True)
+    else:
+        port = tfa.mid_attention_reference(tq, tk, tv)
+        pallas = jfa.mid_attention(jq, jk, jv, interpret=True)
+    pallas = torch.from_numpy(np.array(pallas.astype(jnp.float32)))
+    for want in (port.float(), pallas):
+        tol = tfa.flash_attention_bf16_tolerance(tq, tk, tv, want, causal)
+        diff = (got - want).abs()
+        assert bool((diff <= tol).all()), (diff - tol).max().item()
+        assert diff.max().item() > 0
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", [
+    EMULATION_CASES[0], EMULATION_CASES[1],
+    K3_K5_CASES[0][1:]])                # K3's vision shape, 5 key tiles
 def test_bf16_tolerance_catches_a_lost_key_tile(B, H, Sq, Sk, hd, causal):
     """The bound stays tight enough that the same arithmetic with one
     64-key tile (keys 64-127) left out fails it."""
@@ -123,9 +163,9 @@ def test_bf16_tolerance_catches_a_lost_key_tile(B, H, Sq, Sk, hd, causal):
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     want = tfa.flash_attention_reference(tq, tk, tv, causal).float()
     tol = tfa.flash_attention_bf16_tolerance(tq, tk, tv, want, causal)
-    assert bool(((_tensor_core_k6(q, k, v, causal) - want).abs()
+    assert bool(((_tensor_core_tile(q, k, v, causal) - want).abs()
                  <= tol).all())
-    lost = _tensor_core_k6(q, k, v, causal, drop_tile=1)
+    lost = _tensor_core_tile(q, k, v, causal, drop_tile=1)
     assert not bool(((lost - want).abs() <= tol).all())
 
 

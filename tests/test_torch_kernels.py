@@ -196,9 +196,8 @@ def test_k2_matches_plain(cuda, V1, K, D, dtype):
     (2, 3, 50, 203, 80, False),         # ragged, Sq != Sk
     (1, 2, 130, 130, 128, True), (2, 5, 9, 9, 16, False)])
 def test_k3_matches_plain(cuda, B, H, Sq, Sk, hd, causal, dtype):
-    """f32: sums in another order, 2e-5 abs.  bf16: each side rounds its
-    f32 result (within that 2e-5) to bf16 once, so they differ by at most
-    2e-5 plus one bf16 ulp at the output's magnitude."""
+    """f32: sums in another order, 2e-5 abs.  bf16 rounds P to bf16 on
+    the tensor cores: ``flash_attention_bf16_tolerance``."""
     q = _bhsd(B, H, Sq, hd, 5).to(cuda, dtype)
     k, v = (_bhsd(B, H, Sk, hd, s).to(cuda, dtype) for s in (6, 7))
     before = tfa.short_attention.launches
@@ -208,7 +207,37 @@ def test_k3_matches_plain(cuda, B, H, Sq, Sk, hd, causal, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, H, Sq, hd)
     diff = (got.float() - want.float()).abs()
-    tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    tol = (2e-5 if dtype == torch.float32 else
+           tfa.flash_attention_bf16_tolerance(q, k, v, want, causal))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+# K3's edges on the bf16 tile: Sq 1; a second q tile with one or one and a
+# half warpgroups live (Sq 65, 129); causal S 77 and 130 at hd 64 and 128;
+# K3's longest key range, 640
+K3_EDGES = [(2, 3, 1, 1, 64, False), (1, 2, 1, 257, 80, False),
+            (2, 2, 65, 65, 80, False), (2, 2, 129, 129, 64, False),
+            (1, 3, 65, 200, 48, False), (2, 4, 77, 77, 64, True),
+            (2, 4, 77, 77, 128, True), (1, 2, 130, 130, 64, True),
+            (1, 2, 130, 130, 128, True), (1, 3, 100, 640, 64, False),
+            (1, 2, 640, 640, 80, False), (2, 1, 640, 640, 16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", K3_EDGES)
+def test_k3_bf16_tensor_core_tile_edges(cuda, B, H, Sq, Sk, hd, causal):
+    """K3 in bf16 through its wrapper at the tile's edges, within
+    ``flash_attention_bf16_tolerance``."""
+    q = _bhsd(B, H, Sq, hd, 21).to(cuda, torch.bfloat16)
+    k, v = (_bhsd(B, H, Sk, hd, s).to(cuda, torch.bfloat16) for s in (22, 23))
+    before = tfa.short_attention.launches
+    got = tfa.short_attention(q, k, v, causal)
+    assert tfa.short_attention.launches == before + 1
+    want = tfa.short_attention_reference(q, k, v, causal)
+    tol = tfa.flash_attention_bf16_tolerance(q, k, v, want, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, Sq, hd)
+    diff = (got.float() - want.float()).abs()
     assert bool((diff <= tol).all()), diff.max().item()
 
 
@@ -270,9 +299,8 @@ def test_k4_refuses_what_it_does_not_take(cuda):
     ("flash", 1, 2, 300, 300, 16, True),
     ("flash", 70000, 1, 8, 8, 16, False)])    # B*H past a grid dim's 65535
 def test_k5_k6_match_plain(cuda, name, B, H, Sq, Sk, hd, causal, dtype):
-    """K5 mid_attention and K6 flash_attention.  f32, and K5 in bf16, as
-    K3: 2e-5 abs, in bf16 plus one bf16 ulp at the output's magnitude.
-    K6 in bf16 rounds P to bf16 on the tensor cores:
+    """K5 mid_attention and K6 flash_attention.  f32 as K3: 2e-5 abs.
+    bf16 rounds P to bf16 on the tensor cores:
     ``flash_attention_bf16_tolerance``."""
     fn = getattr(tfa, f"{name}_attention")
     plain = getattr(tfa, f"{name}_attention_reference")
@@ -286,10 +314,8 @@ def test_k5_k6_match_plain(cuda, name, B, H, Sq, Sk, hd, causal, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, H, Sq, hd)
     diff = (got.float() - want.float()).abs()
-    if name == "flash" and dtype == torch.bfloat16:
-        tol = tfa.flash_attention_bf16_tolerance(q, k, v, want, causal)
-    else:
-        tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    tol = (2e-5 if dtype == torch.float32 else
+           tfa.flash_attention_bf16_tolerance(q, k, v, want, causal))
     assert bool((diff <= tol).all()), diff.max().item()
 
 

@@ -1,12 +1,23 @@
-// The bf16 attention tile on the tensor cores, shared by K3
-// short_attention, K5 mid_attention and K6 flash_attention: softmax
-// attention over separate q, k, v buffers [BH, S, hd] with an optional
-// square causal mask, written to [BH, Sq, hd].  Each of those sources
-// names its kernels with a tag type (attention_wgmma_kernel<mid_attention,
-// 64> in a profile); the names here have internal linkage, so every
-// source holds its own copy.  Their f32 paths keep the CUDA-core tile of
-// attention_tile.cuh: on the tensor cores f32 would mean TF32, whose
-// 10-bit mantissa breaks the exact-f32 parity the f32 paths are held to.
+// The bf16 attention tile on the tensor cores, shared by K1
+// short_attention_qkv, K3 short_attention, K4 joint_qkv_attention, K5
+// mid_attention and K6 flash_attention: non-causal or square-causal
+// softmax attention, with one addressing policy per way the callers lay
+// out their rows (a template parameter of the kernel):
+//   Contiguous  separate q, k, v [BH, S, hd] -> out [BH, Sq, hd] (K3, K5,
+//               K6)
+//   FusedQKV    q, k and v read straight from the fused projection
+//               [B, S, 3D] (row stride 3D, columns h*hd, D + h*hd,
+//               2D + h*hd) -> out [B, S, D] (K1)
+//   JointQKV    the same from two streams' projections, rows r < Sx from
+//               qkv_x and the rest from qkv_c, with the per-stream RMS
+//               qk-norm applied to each Q and K tile in shared memory ->
+//               out [B, Sx + Sc, D] (K4)
+// Each source names its kernels with a tag type
+// (attention_wgmma_kernel<mid_attention, 64, ...> in a profile); the names
+// here have internal linkage, so every source holds its own copy.  The
+// f32 paths keep their CUDA-core kernels (attention_tile.cuh for K3, K5
+// and K6): on the tensor cores f32 would mean TF32, whose 10-bit mantissa
+// breaks the exact-f32 parity the f32 paths are held to.
 //
 // Bound on the H100: the tensor cores, and beside them the exponentials.
 // A bf16 joint call at SD3.5-medium's 1024^2 is 809 GFLOP against 86 MB
@@ -23,7 +34,9 @@
 // (4 stages at hd <= 64, else 3) that all 256 threads fill by cp.async,
 // up to two tiles ahead of the one in use; key rows past Sk and query rows past
 // Sq are zero-filled in shared memory, never padded in device memory, and
-// keys past Sk score -inf.  Per tile t a warpgroup issues
+// keys past Sk score -inf.  The policy only maps a row index to a row
+// pointer, so a tile may straddle K4's two streams.  Per tile t a
+// warpgroup issues
 //   S_t = Q K_t^T         wgmma m64n64k16, Q and K K-major from shared
 //                         memory, f32 accumulators in registers
 //   O += P_{t-1} V_{t-1}  wgmma m64n{hd}k16, P from registers (the f32
@@ -36,7 +49,7 @@
 // that is exact only when sqrt(hd) is a power of two) -- while P_{t-1}
 // V_{t-1} is still on the tensor cores.  P never touches shared memory.
 // The row sum keeps the unrounded p, so the output differs from the plain
-// version by at most 2^-9 of the plain version over |v|
+// version by at most 2^-8 of the plain version over |v|
 // (flash_attention_bf16_tolerance).  hd 64 keeps its tiles row-major with
 // the 128-byte swizzle (wgmma's B128 mode); other head_dims, whose rows are
 // no multiple of 128 bytes, use 8x8 core matrices without swizzle, which
@@ -45,6 +58,21 @@
 // tile holding its last row, a warpgroup stops at the tile past its rows,
 // only the tiles that cross its diagonal (or Sk) are masked, and the
 // longest q tiles are scheduled first.
+//
+// K4's qk-norm: cp.async cannot transform what it copies, so Q and each K
+// tile land raw and are normalised in place -- x * rsqrt(mean(x^2) + eps)
+// * gamma of the row's stream in f32, rounded to bf16 -- by the very
+// threads that copied them: a row's eight 16-byte chunks are copied by
+// eight consecutive lanes, which may read their own cp.async writes after
+// cp.async.wait_group, sum the squares by three shuffles and write the
+// chunks back.  So the barrier that already publishes each landed tile to
+// wgmma publishes it normalised, and no barrier is added; the softmax /
+// P.V overlap is untouched.  Q is normalised once in the prologue, each K
+// tile once as it lands; V is used raw.  The gammas (q_x, k_x, q_c, k_c)
+// sit in shared memory behind the ring.  Rounding q-hat and k-hat to bf16
+// (as the JAX package's composed joint_qkv_reference does) is the order of
+// joint_qkv_attention_bf16_reference, which holds K4 by
+// joint_qkv_attention_bf16_tolerance.
 #pragma once
 
 #include <math.h>
@@ -68,11 +96,102 @@ struct WgCfg {
       sizeof(bf16) * (kQRows * HD + STAGES * 2 * TILE);
 };
 
-// rows [rows, HD] of src (row r0 first; rows past n zero-filled) into dst
-// as 8x8 core matrices: element (r, c) at ((r/8) * HD/8 + c/8) * 64 +
-// (r%8) * 8 + c%8; consecutive threads fill consecutive 16-byte rows
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_core(bf16* dst, const bf16* src, int r0,
+// ---------------------------------------------------------------------------
+// addressing policies: which row of device memory holds row r of a
+// (batch*head)'s q, k, v or output
+// ---------------------------------------------------------------------------
+
+// rows of one stream: row r at p + r * stride
+struct Rows {
+  const bf16* p;
+  int64_t stride;
+  __device__ __forceinline__ const bf16* row(int r) const {
+    return p + r * stride;
+  }
+};
+
+// rows of two streams, as K4 reads its joint sequence: rows r < split
+// from x, the rest from c
+struct TwoRows {
+  const bf16* x;
+  const bf16* c;
+  int64_t stride;
+  int split;
+  __device__ __forceinline__ const bf16* row(int r) const {
+    return r < split ? x + r * stride : c + (r - split) * stride;
+  }
+};
+
+// one (batch*head)'s rows; output row r at out + r * out_stride
+template <typename R>
+struct View {
+  R q, k, v;
+  bf16* out;
+  int64_t out_stride;
+};
+
+// K3, K5, K6: separate q [BH, Sq, HD], k and v [BH, Sk, HD] -> out
+// [BH, Sq, HD]
+template <int HD>
+struct Contiguous {
+  static constexpr bool kNorm = false;
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  int Sq, Sk;
+  __device__ __forceinline__ View<Rows> view(int64_t bh) const {
+    return {{q + bh * Sq * HD, HD}, {k + bh * Sk * HD, HD},
+            {v + bh * Sk * HD, HD}, out + bh * Sq * HD, HD};
+  }
+};
+
+// K1: the fused projection [B, S, 3D] (q | k | v column groups, heads
+// contiguous in each) -> out [B, S, D]; bh = b * heads + h
+template <int HD>
+struct FusedQKV {
+  static constexpr bool kNorm = false;
+  const bf16* qkv;
+  bf16* out;
+  int S, heads;
+  __device__ __forceinline__ View<Rows> view(int64_t bh) const {
+    const int64_t b = bh / heads, h = bh - b * heads;
+    const int64_t D = static_cast<int64_t>(heads) * HD;
+    const bf16* base = qkv + b * S * 3 * D + h * HD;
+    return {{base, 3 * D}, {base + D, 3 * D}, {base + 2 * D, 3 * D},
+            out + b * S * D + h * HD, D};
+  }
+};
+
+// K4: two streams' fused projections qkv_x [B, Sx, 3D] and qkv_c
+// [B, Sc, 3D] (head_dim 64) -> out [B, Sx + Sc, D], x rows first, with
+// the per-stream RMS qk-norm; gammas f32 [4, 64] (q_x, k_x, q_c, k_c).
+// c is never read when Sc == 0 (the launcher then passes x for it).
+template <int HD>
+struct JointQKV {
+  static constexpr bool kNorm = true;
+  const bf16* x;
+  const bf16* c;
+  bf16* out;
+  const float* gammas;
+  int Sx, Sc, heads;
+  float eps;
+  __device__ __forceinline__ View<TwoRows> view(int64_t bh) const {
+    const int64_t b = bh / heads, h = bh - b * heads;
+    const int64_t D = static_cast<int64_t>(heads) * HD;
+    const bf16* xb = x + b * Sx * 3 * D + h * HD;
+    const bf16* cb = c + b * Sc * 3 * D + h * HD;
+    return {{xb, cb, 3 * D, Sx}, {xb + D, cb + D, 3 * D, Sx},
+            {xb + 2 * D, cb + 2 * D, 3 * D, Sx},
+            out + b * (Sx + Sc) * D + h * HD, D};
+  }
+};
+
+// rows [rows, HD] (row r0 first; rows past n zero-filled) into dst as 8x8
+// core matrices: element (r, c) at ((r/8) * HD/8 + c/8) * 64 + (r%8) * 8 +
+// c%8; consecutive threads fill consecutive 16-byte rows
+template <int HD, int ROWS, typename R>
+__device__ __forceinline__ void load_core(bf16* dst, const R& src, int r0,
                                           int n, int tid) {
   constexpr int CH = HD / 8;
   for (int i = tid; i < ROWS * CH; i += kThreads) {
@@ -80,22 +199,64 @@ __device__ __forceinline__ void load_core(bf16* dst, const bf16* src, int r0,
     const int r = 8 * rg + r8;
     const bool ok = r0 + r < n;
     cp_async<16>(dst + (rg * CH + c) * 64 + 8 * r8,
-                 src + static_cast<int64_t>(ok ? r0 + r : 0) * HD + 8 * c,
-                 ok);
+                 src.row(ok ? r0 + r : 0) + 8 * c, ok);
   }
 }
 
 // hd 64: rows [rows, 64] row-major with the 128-byte swizzle (16-byte
-// chunk c of row r at chunk c ^ (r % 8)), the layout of wgmma's B128 mode
-template <int ROWS>
-__device__ __forceinline__ void load_sw128(bf16* dst, const bf16* src,
-                                           int r0, int n, int tid) {
+// chunk c of row r at chunk c ^ (r % 8)), the layout of wgmma's B128 mode;
+// thread tid copies chunk tid % 8 of rows tid / 8, tid / 8 + 32, ...
+template <int ROWS, typename R>
+__device__ __forceinline__ void load_sw128(bf16* dst, const R& src, int r0,
+                                           int n, int tid) {
   for (int i = tid; i < ROWS * 8; i += kThreads) {
     const int r = i >> 3, c = i & 7;
     const bool ok = r0 + r < n;
     cp_async<16>(dst + 64 * r + 8 * (c ^ (r & 7)),
-                 src + static_cast<int64_t>(ok ? r0 + r : 0) * 64 + 8 * c,
-                 ok);
+                 src.row(ok ? r0 + r : 0) + 8 * c, ok);
+  }
+}
+
+// K4's qk-norm on a tile that load_sw128 filled: the chunks this thread
+// copied (it must have waited for them), each row x -> x * rsqrt(mean(x^2)
+// + eps) * gamma in f32, rounded to bf16 in place; gamma is g_lo for rows
+// r0 + r < split, else g_hi, indexed by the unswizzled dim.  The eight
+// lanes that copied a row's chunks sum its squares by shuffles.  A
+// zero-filled row stays zero.
+template <int ROWS>
+__device__ __forceinline__ void rms_norm_sw128(bf16* tile, int r0, int split,
+                                               const float* g_lo,
+                                               const float* g_hi, float eps,
+                                               int tid) {
+  static_assert(ROWS * 8 % kThreads == 0, "every lane takes every pass");
+#pragma unroll
+  for (int j = 0; j < ROWS * 8 / kThreads; ++j) {
+    const int i = tid + j * kThreads;
+    const int r = i >> 3, c = i & 7;
+    uint4* p = reinterpret_cast<uint4*>(tile + 64 * r + 8 * (c ^ (r & 7)));
+    uint4 u = *p;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + e));
+      x[2 * e] = f.x;
+      x[2 * e + 1] = f.y;
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ss = fmaf(x[e], x[e], ss);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 4);
+    const float inv = rsqrtf(ss * (1.f / 64) + eps);
+    const float* g = (r0 + r < split ? g_lo : g_hi) + 8 * c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = pack_bf16(x[2 * e] * inv * g[2 * e],
+                       x[2 * e + 1] * inv * g[2 * e + 1]);
+    *p = u;
   }
 }
 
@@ -110,13 +271,10 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
 // issues S_t = Q K_t^T and O += P_{t-1} V_{t-1} together, so the softmax
 // of tile t runs on the CUDA cores while P_{t-1} V_{t-1} runs on the
 // tensor cores
-template <typename Tag, int HD>
+template <typename Tag, int HD, typename Src>
 __global__ void __launch_bounds__(kThreads)
-    attention_wgmma_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out,
-                           int Sq, int Sk, int causal, float scale_log2,
-                           int n_qtiles) {
+    attention_wgmma_kernel(const Src src, int Sq, int Sk, int causal,
+                           float scale_log2, int n_qtiles) {
   using Cfg = WgCfg<HD>;
   constexpr int STAGES = Cfg::STAGES, AHEAD = Cfg::AHEAD, TILE = Cfg::TILE;
   constexpr int CH = HD / 8;
@@ -124,9 +282,13 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int ON = HD / 8;      // n8 chunks of the output
 
   constexpr bool SW = HD == 64;   // 128-byte swizzle
+  static_assert(SW || !Src::kNorm, "the qk-norm reads swizzled rows");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [kQRows x HD] cores
   bf16* KVs = Qs + kQRows * HD;                    // [STAGES][K|V][TILE]
+  // the qk-norm's gammas [4][HD] behind the ring: q_x, k_x, q_c, k_c
+  [[maybe_unused]] float* Gs =
+      reinterpret_cast<float*>(KVs + STAGES * 2 * TILE);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -140,13 +302,16 @@ __global__ void __launch_bounds__(kThreads)
   const int qb = qt * kQRows;
   const int q0 = qb + 64 * wg;          // first query row of the warpgroup
   const int r0 = q0 + 16 * w4 + g;      // this thread's rows: r0, r0 + 8
-  const bf16* kg = k + bh * Sk * HD;
-  const bf16* vg = v + bh * Sk * HD;
+  const auto rows = src.view(bh);
 
+  if constexpr (Src::kNorm) {
+    for (int i = tid; i < 4 * HD; i += kThreads) Gs[i] = src.gammas[i];
+    __syncthreads();
+  }
   if constexpr (SW)
-    load_sw128<kQRows>(Qs, q + bh * Sq * HD, qb, Sq, tid);
+    load_sw128<kQRows>(Qs, rows.q, qb, Sq, tid);
   else
-    load_core<HD, kQRows>(Qs, q + bh * Sq * HD, qb, Sq, tid);
+    load_core<HD, kQRows>(Qs, rows.q, qb, Sq, tid);
   cp_async_commit();
   // causal: no row of this block sees a key past its last row
   const int k_end = causal ? min(Sk, qb + kQRows) : Sk;
@@ -158,17 +323,22 @@ __global__ void __launch_bounds__(kThreads)
   auto load_kv = [&](int tile) {
     bf16* Ks = KVs + (tile % STAGES) * 2 * TILE;
     if constexpr (SW) {
-      load_sw128<kKeys>(Ks, kg, tile * kKeys, Sk, tid);
-      load_sw128<kKeys>(Ks + TILE, vg, tile * kKeys, Sk, tid);
+      load_sw128<kKeys>(Ks, rows.k, tile * kKeys, Sk, tid);
+      load_sw128<kKeys>(Ks + TILE, rows.v, tile * kKeys, Sk, tid);
     } else {
-      load_core<HD, kKeys>(Ks, kg, tile * kKeys, Sk, tid);
-      load_core<HD, kKeys>(Ks + TILE, vg, tile * kKeys, Sk, tid);
+      load_core<HD, kKeys>(Ks, rows.k, tile * kKeys, Sk, tid);
+      load_core<HD, kKeys>(Ks + TILE, rows.v, tile * kKeys, Sk, tid);
     }
   };
 #pragma unroll
   for (int s = 0; s < AHEAD; ++s) {
     if (s < n_tiles) load_kv(s);
     cp_async_commit();   // empty groups keep the count uniform
+  }
+  if constexpr (Src::kNorm) {   // the Q tile has landed (for this thread)
+    cp_async_wait<AHEAD>();
+    rms_norm_sw128<kQRows>(Qs, qb, rows.q.split, Gs, Gs + 2 * HD, src.eps,
+                           tid);
   }
 
   const bf16* Qw = Qs + 64 * HD * wg;
@@ -182,6 +352,12 @@ __global__ void __launch_bounds__(kThreads)
   // iteration t computes S_t (t < n_live) and P_{t-1} V_{t-1} (t > 0)
   for (int t = 0; t <= n_tiles; ++t) {
     cp_async_wait<AHEAD - 1>();   // tile t has landed (for this thread)
+    if constexpr (Src::kNorm) {   // ... and K_t is normalised by its copiers
+      if (t < n_tiles)
+        rms_norm_sw128<kKeys>(KVs + (t % STAGES) * 2 * TILE, t * kKeys,
+                              rows.k.split, Gs + HD, Gs + 3 * HD, src.eps,
+                              tid);
+    }
     fence_proxy_async();          // ... and is visible to wgmma
     __syncthreads();              // ... for all; tile t-2 is free
     if (t + AHEAD < n_tiles) load_kv(t + AHEAD);
@@ -292,7 +468,7 @@ __global__ void __launch_bounds__(kThreads)
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int row = r0 + 8 * h;
     if (row >= Sq) continue;
-    bf16* dst = out + (bh * Sq + row) * HD + 2 * t4;
+    bf16* dst = rows.out + row * rows.out_stride + 2 * t4;
 #pragma unroll
     for (int n = 0; n < ON; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
@@ -301,13 +477,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Tag, int HD>
-int launch_tc_hd(const void* q, const void* k, const void* v, void* out,
-                 int BH, int Sq, int Sk, int causal, cudaStream_t stream) {
-  auto kernel = attention_wgmma_kernel<Tag, HD>;
+template <typename Tag, int HD, typename Src>
+int launch_tc(const Src& src, int BH, int Sq, int Sk, int causal,
+              cudaStream_t stream) {
+  auto kernel = attention_wgmma_kernel<Tag, HD, Src>;
+  constexpr size_t smem =
+      WgCfg<HD>::SMEM + (Src::kNorm ? sizeof(float) * 4 * HD : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(WgCfg<HD>::SMEM));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (Sq + kQRows - 1) / kQRows;
   const int64_t blocks = static_cast<int64_t>(n_qtiles) * BH;
@@ -315,12 +493,34 @@ int launch_tc_hd(const void* q, const void* k, const void* v, void* out,
   // 1/sqrt(hd) rounded once from double, as JAX rounds its Python float,
   // then folded with log2(e) for exp2
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  kernel<<<static_cast<unsigned>(blocks), kThreads, WgCfg<HD>::SMEM,
-           stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, causal,
-      scale * 1.4426950408889634f, n_qtiles);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      src, Sq, Sk, causal, scale * 1.4426950408889634f, n_qtiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the launch of policy Src<hd>{args...} for hd a multiple of 16 up to 128
+template <typename Tag, template <int> class Src, typename... Args>
+int launch_by_hd(int hd, int BH, int Sq, int Sk, int causal, cudaStream_t s,
+                 Args... args) {
+  switch (hd) {
+    case 16:
+      return launch_tc<Tag, 16>(Src<16>{args...}, BH, Sq, Sk, causal, s);
+    case 32:
+      return launch_tc<Tag, 32>(Src<32>{args...}, BH, Sq, Sk, causal, s);
+    case 48:
+      return launch_tc<Tag, 48>(Src<48>{args...}, BH, Sq, Sk, causal, s);
+    case 64:
+      return launch_tc<Tag, 64>(Src<64>{args...}, BH, Sq, Sk, causal, s);
+    case 80:
+      return launch_tc<Tag, 80>(Src<80>{args...}, BH, Sq, Sk, causal, s);
+    case 96:
+      return launch_tc<Tag, 96>(Src<96>{args...}, BH, Sq, Sk, causal, s);
+    case 112:
+      return launch_tc<Tag, 112>(Src<112>{args...}, BH, Sq, Sk, causal, s);
+    case 128:
+      return launch_tc<Tag, 128>(Src<128>{args...}, BH, Sq, Sk, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // bf16 q [BH, Sq, hd], k and v [BH, Sk, hd] -> out [BH, Sq, hd], all
@@ -331,25 +531,39 @@ template <typename Tag>
 int launch_attention_mma(const void* q, const void* k, const void* v,
                          void* out, int BH, int Sq, int Sk, int hd,
                          int causal, cudaStream_t s) {
-  switch (hd) {
-    case 16:
-      return launch_tc_hd<Tag, 16>(q, k, v, out, BH, Sq, Sk, causal, s);
-    case 32:
-      return launch_tc_hd<Tag, 32>(q, k, v, out, BH, Sq, Sk, causal, s);
-    case 48:
-      return launch_tc_hd<Tag, 48>(q, k, v, out, BH, Sq, Sk, causal, s);
-    case 64:
-      return launch_tc_hd<Tag, 64>(q, k, v, out, BH, Sq, Sk, causal, s);
-    case 80:
-      return launch_tc_hd<Tag, 80>(q, k, v, out, BH, Sq, Sk, causal, s);
-    case 96:
-      return launch_tc_hd<Tag, 96>(q, k, v, out, BH, Sq, Sk, causal, s);
-    case 112:
-      return launch_tc_hd<Tag, 112>(q, k, v, out, BH, Sq, Sk, causal, s);
-    case 128:
-      return launch_tc_hd<Tag, 128>(q, k, v, out, BH, Sq, Sk, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_by_hd<Tag, Contiguous>(
+      hd, BH, Sq, Sk, causal, s, static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), Sq, Sk);
+}
+
+// bf16 qkv [B, S, 3 * heads * hd] -> out [B, S, heads * hd], both
+// contiguous and 16-byte aligned, B, S and heads positive; hd a multiple
+// of 16 up to 128; never causal (the caller checks).  Returns the first
+// CUDA error, or 0.
+template <typename Tag>
+int launch_fused_qkv_mma(const void* qkv, void* out, int B, int S, int heads,
+                         int hd, cudaStream_t s) {
+  return launch_by_hd<Tag, FusedQKV>(
+      hd, B * heads, S, S, 0, s, static_cast<const bf16*>(qkv),
+      static_cast<bf16*>(out), S, heads);
+}
+
+// bf16 qkv_x [B, Sx, 3 * heads * 64] and qkv_c [B, Sc, 3 * heads * 64]
+// (NULL when Sc == 0), gammas f32 [4, 64] (q_x, k_x, q_c, k_c) -> out
+// [B, Sx + Sc, heads * 64], x rows first, all contiguous and 16-byte
+// aligned, B and heads positive, Sx + Sc positive (the caller checks).
+// Returns the first CUDA error, or 0.
+template <typename Tag>
+int launch_joint_qkv_mma(const void* qkv_x, const void* qkv_c,
+                         const void* gammas, void* out, int B, int Sx,
+                         int Sc, int heads, float eps, cudaStream_t s) {
+  const bf16* x = static_cast<const bf16*>(qkv_x);
+  const JointQKV<64> src{x, Sc > 0 ? static_cast<const bf16*>(qkv_c) : x,
+                         static_cast<bf16*>(out),
+                         static_cast<const float*>(gammas), Sx, Sc, heads,
+                         eps};
+  return launch_tc<Tag, 64>(src, B * heads, Sx + Sc, Sx + Sc, 0, s);
 }
 
 }  // namespace tc

@@ -12,34 +12,52 @@
 //
 // Bound on the H100: arithmetic.  SD3.5-medium at 512^2 with CFG over 3
 // images (B 6, 24 heads x 64, S = 1024 + 77 + 512 = 1613) is
-// 4*B*H*S^2*64 = 95.9 GFLOP per launch against ~119 MB of qkv and output
-// in bf16 -- ~800 flops per byte, far above the ridge -- and this kernel
-// runs them on the CUDA cores in f32 (67 TFLOP/s peak), not on the tensor
-// cores (989 TFLOP/s bf16).  A tensor-core version is a later step.
+// 4*B*H*S^2*64 = 95.9 GFLOP per launch against ~119 MB of bf16 qkv and
+// output (the fused rows carry q, k and v) -- ~800 flops per byte, far
+// above the card's ~295 -- so 0.097 ms at the tensor cores' 989 TFLOP/s
+// in bf16, 1.43 ms at the CUDA cores' 67 TFLOP/s in f32; the
+// self-attention at 1024^2 (S 4096) is 618 GFLOP, 0.63 ms in bf16.
 //
 // Design: the TPU kernel concatenates both streams (one HBM copy), pads S
 // to its q tile and keeps all of K and V resident in VMEM for a head pair.
 // Here nothing is concatenated: a row index r < Sx reads qkv_x, a larger
-// one qkv_c, so the two streams are read through two pointers.  Each block
-// owns one (batch, head) and 32 query rows (8 warps x 4 rows) and streams
-// K/V through shared memory in tiles of 64 keys with an online softmax (a
-// block may hold 227 KB; K/V for S = 1613 in f32 is 826 KB).  The
-// qk-norm costs no extra pass over device memory: 16 lanes load one row's
-// 64 dims (a 16-byte vector each), reduce its sum of squares with four
-// shuffles, and scale it by rsqrt(mean + eps) and the gamma of the row's
-// stream before it lands in shared memory; q is also scaled by 1/8.  The
-// normalised q and k stay f32.  Keys >= Sx + Sc in the last tile are
-// masked (zero rows, p = 0).  Scores: lane j owns keys j and j+32 of a
-// tile; output: lane j owns dims j and j+32 of each of its warp's 4 rows.
-// All accumulation is f32; inputs and outputs are f32 or bf16.  K/V tile
-// rows are padded to 68 floats, which keeps the lanes' 16-byte reads free
-// of bank conflicts.
-#include <cuda_bf16.h>
+// one qkv_c, so the two streams are read through two pointers, and a tile
+// may straddle them (at 512^2 the q tile of rows 1024-1151 does).  The
+// launcher chooses by dtype alone:
+// - bf16 runs the tensor-core tile of attention_mma.cuh with its JointQKV
+//   policy: two warpgroups x 64 query rows per block, 64-key K/V tiles in
+//   a cp.async ring with the 128-byte swizzle, S = QK^T and P.V on wgmma.
+//   Q and each K tile land raw in shared memory and are normalised there
+//   in f32 by the threads that copied them, then rounded to bf16 before
+//   the tensor cores read them; the scale 1/8 is applied to the f32
+//   scores, as the tile does for every caller.  Rounding q-hat, k-hat and
+//   P to bf16 is what the JAX package's composed joint_qkv_reference does
+//   (the Pallas kernel keeps them f32), so it is held to the plain version
+//   of that order, joint_qkv_attention_bf16_reference, by
+//   joint_qkv_attention_bf16_tolerance.  S 1613 gives 13 q tiles, 1,872
+//   blocks at B 6 x 24 heads; the 1-D grid takes any B*heads.
+// - f32 keeps the CUDA-core kernel below (TF32 would break the exact-f32
+//   parity): each block owns one (batch, head) and 32 query rows (8 warps
+//   x 4 rows) and streams K/V through shared memory in tiles of 64 keys
+//   with an online softmax (K/V for S = 1613 in f32 is 826 KB, over a
+//   block's 227 KB).  The qk-norm costs no extra pass over device memory:
+//   16 lanes load one row's 64 dims (a 16-byte vector each), reduce its
+//   sum of squares with four shuffles, and scale it by rsqrt(mean + eps)
+//   and the gamma of the row's stream before it lands in shared memory; q
+//   is also scaled by 1/8.  Keys >= Sx + Sc in the last tile are masked
+//   (zero rows, p = 0).  Scores: lane j owns keys j and j+32 of a tile;
+//   output: lane j owns dims j and j+32 of each of its warp's 4 rows.  K/V
+//   tile rows are padded to 68 floats, which keeps the lanes' 16-byte
+//   reads free of bank conflicts.  Its 2-D grid takes B*heads <= 65535.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
+
+struct joint_qkv_attention {};   // names the bf16 kernel in a profile
 
 constexpr int kHd = 64;                 // head_dim
 constexpr int kVec = kHd / 4;           // 16-byte vectors per f32 row
@@ -73,21 +91,6 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
   float acc = a.x * b.x;
   acc = fmaf(a.y, b.y, acc);
@@ -111,10 +114,10 @@ __device__ __forceinline__ float4 rms_scale(float4 x, float sum_sq, float eps,
 }
 
 // row r of batch b of the joint sequence: x stream first, then ctx
-template <typename T>
-__device__ __forceinline__ const T* joint_row(const T* x, const T* c,
-                                              int64_t b, int r, int Sx,
-                                              int Sc, int64_t row_len) {
+__device__ __forceinline__ const float* joint_row(const float* x,
+                                                  const float* c, int64_t b,
+                                                  int r, int Sx, int Sc,
+                                                  int64_t row_len) {
   return r < Sx ? x + (b * Sx + r) * row_len
                 : c + (b * Sc + (r - Sx)) * row_len;
 }
@@ -123,10 +126,11 @@ constexpr size_t kSmemBytes =
     sizeof(float) * (2 * kKeys * kLd + kQTile * kHd + kQTile * kKeys +
                      4 * kHd);
 
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-    joint_qkv_kernel(const T* __restrict__ qkv_x, const T* __restrict__ qkv_c,
-                     const float* __restrict__ gammas, T* __restrict__ out,
+    joint_qkv_kernel(const float* __restrict__ qkv_x,
+                     const float* __restrict__ qkv_c,
+                     const float* __restrict__ gammas,
+                     float* __restrict__ out,
                      int Sx, int Sc, int heads, float eps, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -184,7 +188,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int kj = k0 + j;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (kj < S) {
-        const T* row = joint_row(qkv_x, qkv_c, b, kj, Sx, Sc, row_len);
+        const float* row = joint_row(qkv_x, qkv_c, b, kj, Sx, Sc, row_len);
         kx = load4(row + kcol + 4 * c);
         vx = load4(row + vcol + 4 * c);
       }
@@ -256,17 +260,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = 0; r < kRows; ++r) {
     const int qi = q0 + r;
     if (qi >= S) continue;
-    T* dst = out + (b * S + qi) * D + h * kHd;
-    store1(dst + lane, acc[r][0] / l[r]);
-    store1(dst + lane + 32, acc[r][1] / l[r]);
+    float* dst = out + (b * S + qi) * D + h * kHd;
+    dst[lane] = acc[r][0] / l[r];
+    dst[lane + 32] = acc[r][1] / l[r];
   }
 }
 
-template <typename T>
 int launch(const void* qkv_x, const void* qkv_c, const void* gammas,
            void* out, int B, int Sx, int Sc, int heads, float eps,
            cudaStream_t stream) {
-  auto kernel = joint_qkv_kernel<T>;
+  auto kernel = joint_qkv_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kSmemBytes));
@@ -274,9 +277,9 @@ int launch(const void* qkv_x, const void* qkv_c, const void* gammas,
   const dim3 grid((Sx + Sc + kQTile - 1) / kQTile, B * heads);
   const float scale = 0.125f;  // 1 / sqrt(64), exact
   kernel<<<grid, kWarps * 32, kSmemBytes, stream>>>(
-      static_cast<const T*>(qkv_x), static_cast<const T*>(qkv_c),
-      static_cast<const float*>(gammas), static_cast<T*>(out), Sx, Sc, heads,
-      eps, scale);
+      static_cast<const float*>(qkv_x), static_cast<const float*>(qkv_c),
+      static_cast<const float*>(gammas), static_cast<float*>(out), Sx, Sc,
+      heads, eps, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,9 +287,9 @@ int launch(const void* qkv_x, const void* qkv_c, const void* gammas,
 
 // qkv_x [B, Sx, 3*heads*64], qkv_c [B, Sc, 3*heads*64] (NULL when Sc == 0),
 // gammas f32 [4, 64] (q_x, k_x, q_c, k_c) -> out [B, Sx + Sc, heads*64];
-// all contiguous and 16-byte aligned, f32 (or bf16 when is_bf16).
-// B*heads <= 65535.  Launches on `stream`; returns the first CUDA error,
-// or 0.
+// all contiguous and 16-byte aligned, f32 (or bf16 when is_bf16).  f32
+// takes B*heads <= 65535.  Launches on `stream`; returns the first CUDA
+// error, or 0.
 extern "C" int joint_qkv_attention_launch(const void* qkv_x,
                                           const void* qkv_c,
                                           const void* gammas, void* out,
@@ -295,10 +298,12 @@ extern "C" int joint_qkv_attention_launch(const void* qkv_x,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sx < 0 || Sc < 0 || Sx + Sc <= 0 || heads <= 0 ||
-      static_cast<int64_t>(B) * heads > 65535 || (Sc > 0 && !qkv_c))
+      (Sc > 0 && !qkv_c))
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
-    return launch<__nv_bfloat16>(qkv_x, qkv_c, gammas, out, B, Sx, Sc, heads,
-                                 eps, s);
-  return launch<float>(qkv_x, qkv_c, gammas, out, B, Sx, Sc, heads, eps, s);
+    return tc::launch_joint_qkv_mma<joint_qkv_attention>(
+        qkv_x, qkv_c, gammas, out, B, Sx, Sc, heads, eps, s);
+  if (static_cast<int64_t>(B) * heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(qkv_x, qkv_c, gammas, out, B, Sx, Sc, heads, eps, s);
 }

@@ -6,30 +6,44 @@
 // (`_qkv_kernel_3in`), dispatched by `attention_from_qkv` in every ViT
 // layer.
 //
-// Bound on the H100: arithmetic.  At the ViT-L shapes (S = 261, 16 heads
-// x 64) one layer at B = 8 is 4*B*H*S^2*hd = 2.2 GFLOP against 8.7 MB of
-// qkv read once -- ~250 flops per byte, and this kernel runs them on the
-// CUDA cores in f32 (67 TFLOP/s peak), not on the tensor cores.
+// Bound on the H100: at the ViT-L shapes (S = 261, 16 heads x 64) one
+// layer at B = 8 is 4*B*H*S^2*hd = 2.2 GFLOP against 12.8 MB of bf16 qkv
+// read once and 4.3 MB written -- ~130 flops per byte, under the card's
+// ~295 in bf16, so the bytes bound it (0.0051 ms at 3.35 TB/s against
+// 0.0023 ms on the tensor cores); in f32 on the CUDA cores (67 TFLOP/s)
+// the operations do (0.033 ms).
 //
-// Design: the TPU kernel keeps all of K and V resident; a block here
-// cannot (f32 K+V at S = 640, hd 64 is 327 KB, over the 227 KB a block
-// may use).  Instead each block owns one (batch, head) and 32 query rows
-// (8 warps x 4 rows) and streams K/V through shared memory in tiles of 64
-// keys with an online softmax, so S is unbounded.  Heads are read by
-// column offset h*hd, D + h*hd, 2D + h*hd with row stride 3D: no
-// transposes and no separate q/k/v buffers, which is what the TPU kernel
-// saves too.  Each warp keeps its 4 query rows (pre-scaled by 1/sqrt(hd))
-// in shared memory and reuses every K/V element it loads across the 4
-// rows.  Scores: lane j owns keys j and j+32 of the tile.  Output: lane j
-// owns dims j, j+32, ... of each row.  All accumulation is f32; inputs
-// and outputs are f32 or bf16.  K/V tile rows are padded to hd+4 floats,
-// which keeps the lanes' 16-byte row reads free of bank conflicts.
-#include <cuda_bf16.h>
+// Design: the TPU kernel keeps all of K and V of a head pair resident and
+// reads the three column groups of the same array.  Here, by dtype:
+// - bf16 runs the tensor-core tile of attention_mma.cuh with its FusedQKV
+//   policy: the tile's cp.async loads take a row pointer, and q, k and v
+//   rows of (batch, head) sit at column offsets h*hd, D + h*hd and
+//   2D + h*hd of rows with a stride of 3D, so the tile reads them in
+//   place -- no transpose, no separate q/k/v buffers -- and writes its
+//   rows of [B, S, D] at column h*hd.  Two warpgroups x 64 query rows per
+//   block, 64-key tiles, the 128-byte swizzle at hd 64 (ViT-L), 8x8 core
+//   matrices at the other head_dims; P is rounded to bf16 before P.V, so
+//   it is held to its plain version by flash_attention_bf16_tolerance on
+//   the split heads.  S 261 gives 3 q tiles, 384 blocks at B 8 x 16 heads.
+// - f32 keeps the CUDA-core kernel below (TF32 would break the exact-f32
+//   parity): each block owns one (batch, head) and 32 query rows (8 warps
+//   x 4 rows) and streams K/V through shared memory in tiles of 64 keys
+//   with an online softmax, so S is unbounded.  Heads are read by column
+//   offset with row stride 3D, as in the tile.  Each warp keeps its 4
+//   query rows (pre-scaled by 1/sqrt(hd)) in shared memory and reuses
+//   every K/V element it loads across the 4 rows.  Scores: lane j owns
+//   keys j and j+32 of the tile.  Output: lane j owns dims j, j+32, ... of
+//   each row.  K/V tile rows are padded to hd+4 floats, which keeps the
+//   lanes' 16-byte row reads free of bank conflicts.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
+
+struct short_attention_qkv {};   // names the bf16 kernels in a profile
 
 constexpr int kWarps = 8;               // warps per block
 constexpr int kRows = 4;                // query rows per warp
@@ -53,21 +67,6 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float dot4(const float4 a, const float4 b) {
   float acc = a.x * b.x;
   acc = fmaf(a.y, b.y, acc);
@@ -86,9 +85,10 @@ size_t smem_bytes(int hd) {
 }
 
 // NI = ceil(hd / 32): output dims each lane owns.
-template <typename T, int NI>
+template <int NI>
 __global__ void __launch_bounds__(kWarps * 32)
-    short_attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+    short_attention_qkv_kernel(const float* __restrict__ qkv,
+                               float* __restrict__ out,
                                int S, int D, int hd, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * kQTile + warp * kRows;
   const int64_t row_stride = 3LL * D;
-  const T* base = qkv + static_cast<int64_t>(b) * S * row_stride +
+  const float* base = qkv + static_cast<int64_t>(b) * S * row_stride +
                   static_cast<int64_t>(h) * hd;
   const int hd4 = hd / 4;
 
@@ -138,7 +138,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int j = i / hd4, c = i - (i / hd4) * hd4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (k0 + j < S) {
-        const T* src = base + (k0 + j) * row_stride + 4 * c;
+        const float* src = base + (k0 + j) * row_stride + 4 * c;
         kv = load4(src + D);
         vv = load4(src + 2 * D);
       }
@@ -206,53 +206,57 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = 0; r < kRows; ++r) {
     const int qi = q0 + r;
     if (qi >= S) continue;
-    T* dst = out + (static_cast<int64_t>(b) * S + qi) * D +
+    float* dst = out + (static_cast<int64_t>(b) * S + qi) * D +
              static_cast<int64_t>(h) * hd;
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int d = lane + 32 * i;
-      if (d < hd) store1(dst + d, acc[r][i] / l[r]);
+      if (d < hd) dst[d] = acc[r][i] / l[r];
     }
   }
 }
 
-template <typename T, int NI>
+template <int NI>
 int launch(const void* qkv, void* out, int B, int S, int heads, int hd,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
-  auto kernel = short_attention_qkv_kernel<T, NI>;
+  auto kernel = short_attention_qkv_kernel<NI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kQTile - 1) / kQTile, heads, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), S, heads * hd, hd,
+      static_cast<const float*>(qkv), static_cast<float*>(out), S,
+      heads * hd, hd,
       1.0f / sqrtf(static_cast<float>(hd)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_hd(const void* qkv, void* out, int B, int S, int heads, int hd,
               cudaStream_t stream) {
   switch ((hd + 31) / 32) {
-    case 1: return launch<T, 1>(qkv, out, B, S, heads, hd, stream);
-    case 2: return launch<T, 2>(qkv, out, B, S, heads, hd, stream);
-    case 3: return launch<T, 3>(qkv, out, B, S, heads, hd, stream);
-    case 4: return launch<T, 4>(qkv, out, B, S, heads, hd, stream);
+    case 1: return launch<1>(qkv, out, B, S, heads, hd, stream);
+    case 2: return launch<2>(qkv, out, B, S, heads, hd, stream);
+    case 3: return launch<3>(qkv, out, B, S, heads, hd, stream);
+    case 4: return launch<4>(qkv, out, B, S, heads, hd, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// qkv [B, S, 3*heads*hd] -> out [B, S, heads*hd], both contiguous, f32
-// (or bf16 when is_bf16).  hd % 16 == 0 and hd <= 128.  Launches on
-// `stream`; returns the first CUDA error, or 0.
+// qkv [B, S, 3*heads*hd] -> out [B, S, heads*hd], both contiguous and
+// 16-byte aligned, f32 (or bf16 when is_bf16).  hd % 16 == 0 and
+// hd <= 128.  Launches on `stream`; returns the first CUDA error, or 0.
 extern "C" int short_attention_qkv_launch(const void* qkv, void* out, int B,
                                           int S, int heads, int hd,
                                           int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_hd<__nv_bfloat16>(qkv, out, B, S, heads, hd, s);
-  return launch_hd<float>(qkv, out, B, S, heads, hd, s);
+  if (B <= 0 || S <= 0 || heads <= 0 || hd <= 0 || hd % 16 || hd > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16)
+    return tc::launch_fused_qkv_mma<short_attention_qkv>(qkv, out, B, S,
+                                                         heads, hd, s);
+  return launch_hd(qkv, out, B, S, heads, hd, s);
 }

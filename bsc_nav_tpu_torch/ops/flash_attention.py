@@ -17,7 +17,13 @@ kernels, chosen by dtype: f32 runs a CUDA-core tile
 plain versions by ``flash_attention_bf16_tolerance``.  The MMDiT's joint
 attention goes through ``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4
 ``joint_qkv_attention`` (``csrc/joint_qkv_attention.cu``) where
-``use_joint_qkv_attention`` holds.
+``use_joint_qkv_attention`` holds.  K1 and K4 run the same tensor-core
+tile in bf16, reading q, k and v in place from the fused [B, S, 3*D] rows
+(K4 from two streams, with its qk-norm applied in shared memory); they
+are held to ``short_attention_qkv_bf16_tolerance`` and, against K4's
+bf16 order ``joint_qkv_attention_bf16_reference`` (q-hat and k-hat
+rounded to bf16), ``joint_qkv_attention_bf16_tolerance``.  Every f32 path keeps its
+CUDA-core kernel.
 
 Layouts follow the JAX package: ``attention``, ``short_attention``,
 ``mid_attention``, ``flash_attention`` and ``reference_attention`` take
@@ -103,8 +109,10 @@ def short_attention_qkv(qkv, heads: int):
     """Fused-QKV attention [B, S, 3*D] -> [B, S, D].
 
     A CPU tensor takes ``short_attention_qkv_reference``.  A CUDA tensor
-    launches kernel K1 (``csrc/short_attention_qkv.cu``) on the current
-    stream without synchronising, or raises for what it does not take.
+    launches kernel K1 (``csrc/short_attention_qkv.cu``: bf16 on the
+    tensor-core tile, within ``short_attention_qkv_bf16_tolerance``; f32 on
+    the CUDA cores) on the current stream without synchronising, or raises
+    for what it does not take.
     """
     if qkv.device.type == "cpu":
         return short_attention_qkv_reference(qkv, heads)
@@ -199,6 +207,17 @@ def flash_attention_reference(q, k, v, causal: bool = False):
     return _chunked_reference(q, k, v, causal)
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp at the magnitude of each element of x."""
+    mag = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+# bf16's unit roundoff: rounding to nearest moves a value by at most this
+# fraction of itself (8 significant bits)
+_BF16_U = 2.0 ** -8
+
+
 def flash_attention_bf16_tolerance(q, k, v, want, causal: bool = False):
     """Elementwise bound on |out - want| for K3 ``short_attention``, K5
     ``mid_attention`` and K6 ``flash_attention`` on bf16 inputs, want being
@@ -207,16 +226,29 @@ def flash_attention_bf16_tolerance(q, k, v, want, causal: bool = False):
 
     Their tensor-core tile rounds each p <= 1 to bf16 before P @ V (as the
     JAX package's ``reference_attention`` casts ``probs.astype(v.dtype)``),
-    a relative error of at most 2^-9, while the plain versions, and the
-    Pallas K3 and K5, keep P in f32.
-    So |out - plain| <= 2^-9 * sum_j p_j |v_j| / l, plus one bf16 ulp of
+    a relative error of at most u = 2^-8 (bf16's unit roundoff), while the
+    plain versions, and the Pallas K3 and K5, keep P in f32.
+    So |out - plain| <= 2^-8 * sum_j p_j |v_j| / l, plus one bf16 ulp of
     the output and the f32 reordering (2e-5); sum_j p_j |v_j| / l is the
-    plain version on |v|.  The bound takes 2^-8 (a factor 2 of margin)."""
-    mag = want.float().abs().clamp(min=2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    plain version on |v|.  The bound is that worst case, every p rounded
+    by the most in the same direction as its v."""
     spread = flash_attention_reference(q.float(), k.float(), v.float().abs(),
                                        causal)
-    return 2e-5 + ulp + 2.0 ** -8 * spread
+    return 2e-5 + _bf16_ulp(want) + _BF16_U * spread
+
+
+def short_attention_qkv_bf16_tolerance(qkv, heads: int, want):
+    """Elementwise bound on |out - want| for K1 ``short_attention_qkv`` on
+    bf16 inputs [B, S, 3*D], want being
+    ``short_attention_qkv_reference(qkv, heads)`` [B, S, D].  K1's bf16
+    path runs the tile of K3, K5 and K6 on the same rows, so this is
+    ``flash_attention_bf16_tolerance`` on the split heads."""
+    B, S, threeD = qkv.shape
+    D = threeD // 3
+    q, k, v = _split_heads(qkv, heads)
+    tol = flash_attention_bf16_tolerance(
+        q, k, v, want.reshape(B, S, heads, D // heads).transpose(1, 2))
+    return tol.transpose(1, 2).reshape(B, S, D)
 
 
 def _attention_shapes(name: str, q, k, v, causal: bool) -> None:
@@ -380,6 +412,22 @@ def _stream_gammas(g_x, g_c, Sx: int, Sc: int, hd: int) -> torch.Tensor:
     return torch.cat([g_x.float().expand(Sx, hd), g_c.float().expand(Sc, hd)])
 
 
+def joint_normalised_qkv(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
+                         q_gamma_c, k_gamma_c, eps: float = 1e-6):
+    """K4's q-hat, k-hat and v in f32, [B, H, Sx+Sc, hd] over the [x | ctx]
+    rows: each q and k row RMS-normalised over its head dims (eps inside
+    the rsqrt) and multiplied by the gamma of its stream; q not scaled."""
+    Sx, Sc = qkv_x.shape[1], qkv_c.shape[1]
+    q, k, v = _split_heads(torch.cat([qkv_x, qkv_c], dim=1).float(), heads)
+    hd = q.shape[-1]
+
+    def rms(t, g):
+        return t * torch.rsqrt(t.square().mean(-1, keepdim=True) + eps) * g
+
+    return (rms(q, _stream_gammas(q_gamma_x, q_gamma_c, Sx, Sc, hd)),
+            rms(k, _stream_gammas(k_gamma_x, k_gamma_c, Sx, Sc, hd)), v)
+
+
 def joint_qkv_attention_reference(qkv_x, qkv_c, heads: int, q_gamma_x,
                                   k_gamma_x, q_gamma_c, k_gamma_c,
                                   eps: float = 1e-6):
@@ -394,15 +442,9 @@ def joint_qkv_attention_reference(qkv_x, qkv_c, heads: int, q_gamma_x,
     B, Sx, threeD = qkv_x.shape
     Sc = qkv_c.shape[1]
     D = threeD // 3
-    hd = D // heads
-    q, k, v = _split_heads(torch.cat([qkv_x, qkv_c], dim=1).float(), heads)
-
-    def rms(t, g):
-        return t * torch.rsqrt(t.square().mean(-1, keepdim=True) + eps) * g
-
-    q = rms(q, _stream_gammas(q_gamma_x, q_gamma_c, Sx, Sc, hd)) * (
-        1.0 / math.sqrt(hd))
-    k = rms(k, _stream_gammas(k_gamma_x, k_gamma_c, Sx, Sc, hd))
+    q, k, v = joint_normalised_qkv(qkv_x, qkv_c, heads, q_gamma_x,
+                                   k_gamma_x, q_gamma_c, k_gamma_c, eps)
+    q = q * (1.0 / math.sqrt(D // heads))
     logits = q @ k.transpose(-1, -2)
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     out = (p @ v) / p.sum(dim=-1, keepdim=True)
@@ -416,10 +458,12 @@ def joint_qkv_attention(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
     [B, Sx+Sc, D] with x rows first.
 
     A CPU tensor takes ``joint_qkv_attention_reference``.  A CUDA tensor
-    launches kernel K4 (``csrc/joint_qkv_attention.cu``) on the current
-    stream without synchronising, or raises for what it does not take
-    (head_dim other than 64, another dtype, a non-contiguous or
-    misaligned stream)."""
+    launches kernel K4 (``csrc/joint_qkv_attention.cu``: bf16 on the
+    tensor-core tile, held to ``joint_qkv_attention_bf16_reference`` by
+    ``joint_qkv_attention_bf16_tolerance``; f32 on the CUDA cores) on the
+    current stream without synchronising, or raises for what it does not
+    take (head_dim other than 64, another dtype, a non-contiguous or
+    misaligned stream, B*heads past 65535 in f32)."""
     B, Sx, threeD = qkv_x.shape
     Sc = qkv_c.shape[1]
     if (qkv_c.dim() != 3 or qkv_c.shape[0] != B or qkv_c.shape[2] != threeD
@@ -440,9 +484,10 @@ def joint_qkv_attention(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
     # an empty ctx stream (self_qkv_dispatch) is never read
     _check_cuda_input("joint_qkv_attention", *((qkv_x, qkv_c) if Sc
                                                 else (qkv_x,)))
-    if B * heads > 65535:
+    if qkv_x.dtype == torch.float32 and B * heads > 65535:
         raise NotImplementedError(f"joint_qkv_attention: B*heads = "
-                                  f"{B * heads} over the grid's 65535")
+                                  f"{B * heads} over the f32 kernel's grid "
+                                  "limit of 65535")
     gam = torch.stack([q_gamma_x, k_gamma_x, q_gamma_c, k_gamma_c]).to(
         device=qkv_x.device, dtype=torch.float32).contiguous()
     out = torch.empty(B, Sx + Sc, D, dtype=qkv_x.dtype, device=qkv_x.device)
@@ -457,6 +502,94 @@ def joint_qkv_attention(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
 
 
 joint_qkv_attention.launches = 0
+
+
+def joint_qkv_attention_bf16_reference(qkv_x, qkv_c, heads: int, q_gamma_x,
+                                       k_gamma_x, q_gamma_c, k_gamma_c,
+                                       eps: float = 1e-6):
+    """Plain version of K4's bf16 path, [B, Sx+Sc, D] f32: q-hat and k-hat
+    of ``joint_normalised_qkv`` rounded to bf16, as the tensor-core tile
+    and the JAX package's composed ``joint_qkv_reference`` round them (the
+    Pallas K4 and ``joint_qkv_attention_reference`` keep them in f32), then
+    ``flash_attention_reference`` in f32 with P unrounded."""
+    B, Sx, threeD = qkv_x.shape
+    q, k, v = joint_normalised_qkv(qkv_x, qkv_c, heads, q_gamma_x, k_gamma_x,
+                                   q_gamma_c, k_gamma_c, eps)
+    out = flash_attention_reference(q.to(torch.bfloat16).float(),
+                                    k.to(torch.bfloat16).float(), v)
+    return out.transpose(1, 2).reshape(B, Sx + qkv_c.shape[1], threeD // 3)
+
+
+# how far K4's f32 q-hat and k-hat may lie from the plain version's, as a
+# fraction of the value, with a factor 2 to spare (see
+# joint_qkv_attention_bf16_tolerance)
+_NORM_REL = 2.0 ** -16
+
+
+def _rounding_flips(x):
+    """2^-7 |x|, at least one bf16 ulp, where x lies within ``_NORM_REL``
+    |x| of a bf16 rounding midpoint, so that x computed in another order
+    may round to the neighbour; else 0."""
+    to_mid = _bf16_ulp(x) / 2 - (x - x.to(torch.bfloat16).float()).abs()
+    return torch.where(to_mid <= _NORM_REL * x.abs(), 2.0 ** -7 * x.abs(),
+                       torch.zeros_like(x))
+
+
+def joint_qkv_attention_bf16_tolerance(qkv_x, qkv_c, heads: int, q_gamma_x,
+                                       k_gamma_x, q_gamma_c, k_gamma_c, want,
+                                       eps: float = 1e-6):
+    """Elementwise bound on |out - want| [B, Sx+Sc, D] for K4
+    ``joint_qkv_attention`` on bf16 inputs, want being
+    ``joint_qkv_attention_bf16_reference`` on the same arguments.
+
+    K4's tensor-core tile computes q-hat and k-hat in f32, rounds them to
+    bf16 and runs the tile of K3, K5 and K6 on them, so the bound is
+    ``flash_attention_bf16_tolerance`` on the rounded q-hat, k-hat and v,
+    plus a term for q-hat and k-hat rounding otherwise than the plain
+    version's.  With u = 2^-8, bf16's unit roundoff:
+
+    - the tile's f32 value of an element x of q-hat or k-hat (its own order
+      for the 64 squares, rsqrtf) lies within 2^-17 |x| of the plain
+      version's: 63 * 2^-24 on the sum of squares in either order, halved
+      by the rsqrt, plus rsqrtf's two ulps and two products;
+    - so the two round x alike unless x lies within 2^-16 |x| of a bf16
+      rounding midpoint; there they may round to neighbours, at most
+      F = 2^-7 |x| apart;
+    - those flips move the logit s_ij by at most e_ij = scale (F_q (|k| +
+      F_k) + |q| F_k)_ij, so p_ij by a factor within 1 +- r_ij, r_ij =
+      max(e^e_ij / Z-_i - 1, 1 - e^-e_ij / Z+_i) with Z+-_i = sum_j p_ij
+      e^(+-e_ij), and the p rounded to bf16 by u (1 + r_ij) p_ij.
+
+    The bound is ``flash_attention_bf16_tolerance`` plus (1 + u) sum_j
+    p_ij r_ij |v_j|, which is 0 where no element lies near a midpoint.
+    The logits are built in chunks of B*H of at most
+    ``_PLAIN_LOGITS_BYTES`` each."""
+    B, Sx, threeD = qkv_x.shape
+    S = Sx + qkv_c.shape[1]
+    D = threeD // 3
+    hd = D // heads
+    qf, kf, v = joint_normalised_qkv(qkv_x, qkv_c, heads, q_gamma_x,
+                                     k_gamma_x, q_gamma_c, k_gamma_c, eps)
+    q, k = qf.to(torch.bfloat16).float(), kf.to(torch.bfloat16).float()
+    tol = flash_attention_bf16_tolerance(
+        q, k, v, want.reshape(B, S, heads, hd).transpose(1, 2))
+    q, k, v, fq, fk = (t.reshape(B * heads, S, hd) for t in (
+        q, k, v, _rounding_flips(qf), _rounding_flips(kf)))
+    scale = 1.0 / math.sqrt(hd)
+    per = max(1, int(_PLAIN_LOGITS_BYTES // (4 * S * S)))
+    flips = []
+    for i in range(0, B * heads, per):
+        n = slice(i, i + per)
+        p = torch.softmax((q[n] @ k[n].transpose(-1, -2)) * scale, dim=-1)
+        e = scale * (fq[n] @ (k[n].abs() + fk[n]).transpose(-1, -2)
+                     + q[n].abs() @ fk[n].transpose(-1, -2))
+        up, down = torch.exp(e), torch.exp(-e)
+        r = torch.maximum(up / (p * down).sum(-1, keepdim=True) - 1,
+                          1 - down / (p * up).sum(-1, keepdim=True))
+        flips.append((p * r) @ v[n].abs())
+        del p, e, up, down, r
+    flips = torch.cat(flips).reshape(B, heads, S, hd)
+    return (tol + (1 + _BF16_U) * flips).transpose(1, 2).reshape(B, S, D)
 
 
 def joint_qkv_reference(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,

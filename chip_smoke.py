@@ -14,14 +14,18 @@ non-zero):
                 of 20 runs), the bound reckoned from each case's bytes and
                 operations, and one PyTorch call computing the same
                 function where one exists (SDPA for K1, K3, K5 and K6,
-                F.layer_norm for K7, cuDNN for K8), and for K3-K6 and K8
-                the TFLOP/s reached (K3, K5, K6 and K8 also the bound over
-                the kernel's time): K3 at the CLIP towers' shapes, K5 at
-                SD3-medium's joint attention and DINOv2 at 518^2, K6 at
-                SD3.5-medium's joint attention at 1024^2 and causal, K7 at
-                ViT-L's token grids,
-                K8 at YOLOv8x's C2f shapes (K7 and K8 are dispatched
-                nowhere, as in the JAX package)
+                F.layer_norm for K7, cuDNN for K8; for K4, as context,
+                SDPA on the already-normalised q/k/v), the TFLOP/s reached
+                and the bound over the kernel's time, and for K1, K3 and
+                K4 the device time alone from a CUDA graph replay: K1 at
+                ViT-L's S 261, K3 at the CLIP towers' shapes, K4 at
+                SD3.5-medium's joint and self-attention at 512^2 and its
+                self-attention at 1024^2 (S 4096, checked on one batch
+                row), K5 at SD3-medium's joint attention and DINOv2 at
+                518^2, K6 at SD3.5-medium's joint attention at 1024^2 and
+                causal, K7 at ViT-L's token grids, K8 at YOLOv8x's C2f
+                shapes (K7 and K8 are dispatched nowhere, as in the JAX
+                package)
   slice f32     the full default Config() -- 680x680 RGB-D, 1000^2 x 200
                 grid, 131,080 slots x 10 tokens x 1024 -- through
                 Perception / VoxelTokenMemory with a random-init DINOv2
@@ -94,7 +98,7 @@ import torch
 
 N_FRAMES, BATCH, N_QUERIES, QUERY_IMAGES = 32, 8, 3, 3
 N_VIEWS, SCORE_REPS = 12, 4     # a 360-degree turn at 30 degrees a step
-K1_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+K1_TOL = 2e-5           # f32 abs; bf16: see BF16_ATTN_TOL
 K3_TOL = 2e-5           # f32 abs (K3, K5, K6); bf16: see BF16_ATTN_TOL
 CLIP_TOL = 1e-4         # unit features and scores, f32 CLIP on card vs CPU
 # int8 towers, card vs CPU: an activation within ~1e-6 of a rounding
@@ -102,10 +106,14 @@ CLIP_TOL = 1e-4         # unit features and scores, f32 CLIP on card vs CPU
 # unit feature by up to a few 1e-3 (tests/test_torch_clip.py INT8_TOL)
 INT8_TOL, INT8_MIN_COS = 1e-2, 0.9995
 K2_TOL = 2e-5           # abs, beside 1e-5 rel (zero-norm rows / 1e-12)
-K4_TOL = 2e-5           # f32 abs; bf16: 2e-5 plus one bf16 ulp per element
-# K3, K5 and K6 in bf16 round P to bf16 on the tensor cores: they take
-# flash_attention_bf16_tolerance; K7 f32 abs on unit-scale outputs (bf16:
-# plus one ulp); K8 a fraction of max |out| (bf16: plus one ulp)
+K4_TOL = 2e-5           # f32 abs; bf16: see BF16_ATTN_TOL
+# K1, K3, K5 and K6 in bf16 round P to bf16 on the tensor cores: they take
+# flash_attention_bf16_tolerance (K1 on its split heads); K4 also rounds
+# q-hat and k-hat, and is held to the plain version that rounds them
+# (joint_qkv_attention_bf16_reference) by the same bound on those q-hat
+# and k-hat plus a term for rounding flips near a bf16 midpoint
+# (joint_qkv_attention_bf16_tolerance); K7 f32 abs on unit-scale outputs
+# (bf16: plus one ulp); K8 a fraction of max |out| (bf16: plus one ulp)
 BF16_ATTN_TOL = "2e-5 + 1 bf16 ulp + 2^-8 x plain on |v|"
 K7_TOL, K8_TOL = 1e-5, 1e-4
 PARITY_TOL = 1e-4       # top-K scores, f32 slice on card vs CPU
@@ -247,27 +255,8 @@ def phase_kernels(dev, gen):
             S, H, hd = 261, 16, 64
             qkv = torch.randn(B, S, 3 * H * hd, generator=gen, device=dev
                               ).to(dtype)
-            got = fa.short_attention_qkv(qkv, H)
-            want = fa.short_attention_qkv_reference(qkv, H)
-            err = (got.float() - want.float()).abs().max().item()
-            ms = cuda_ms(lambda: fa.short_attention_qkv(qkv, H))
-            plain = cuda_ms(lambda: fa.short_attention_qkv_reference(qkv, H))
-            lib = sdpa_ms(*(t.contiguous() for t in fa._split_heads(qkv, H)))
-            b_ms, b_by = bound(attn_flops(B, H, S, S, hd),
-                               nbytes(qkv, got), dtype)
-            tol = K1_TOL[dtype]
-            log("kernels", f"K1 short_attention_qkv B={B} S={S} {H}x{hd} "
-                f"{str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol}) "
-                f"kernel {ms:.4f} ms plain {plain:.4f} ms sdpa {lib:.4f} ms "
-                f"bound {b_ms:.4f} ms ({b_by})")
-            check(err <= tol, f"K1 B={B} {dtype}: err {err} > {tol}")
-            cases.append({"kernel": "K1", "B": B, "S": S, "heads": H,
-                          "head_dim": hd, "dtype": str(dtype)[6:],
-                          "max_abs_err": err, "tol": tol, "ms": ms,
-                          "plain_ms": plain, "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": lib})
-            del qkv, got, want
-
+            cases.append(k1_case(qkv, H, dtype, {"B": B, "S": S}))
+            del qkv
     V1, K, D = 131_080, 10, 1024
     feats = torch.randn(V1 * K, D, generator=gen, device=dev)
     norms = torch.linalg.norm(feats, dim=1)
@@ -365,25 +354,9 @@ def phase_kernels(dev, gen):
         B, S, H, hd = 12, 257, 16, 80
         qkv = torch.randn(B, S, 3 * H * hd, generator=gen, device=dev
                           ).to(dtype)
-        got = fa.short_attention_qkv(qkv, H)
-        err = (got.float() - fa.short_attention_qkv_reference(qkv, H).float()
-               ).abs().max().item()
-        check(err <= K1_TOL[dtype], f"K1 vision shape {dtype}: err {err}")
-        ms = cuda_ms(lambda: fa.short_attention_qkv(qkv, H))
-        plain = cuda_ms(lambda: fa.short_attention_qkv_reference(qkv, H))
-        b_ms, b_by = bound(attn_flops(B, H, S, S, hd), nbytes(qkv, got),
-                           dtype)
-        log("kernels", f"K1 short_attention_qkv at the CLIP vision shape "
-            f"B={B} S={S} {H}x{hd} {str(dtype)[6:]}: max_abs_err {err:.3g} "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {b_ms:.4f} ms "
-            f"({b_by})")
-        cases.append({"kernel": "K1", "case": "clip-vision-shape", "B": B,
-                      "S": S, "heads": H, "head_dim": hd,
-                      "dtype": str(dtype)[6:], "max_abs_err": err,
-                      "tol": K1_TOL[dtype], "ms": ms, "plain_ms": plain,
-                      "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": None})
-        del qkv, got
+        cases.append(k1_case(qkv, H, dtype, {"case": "clip-vision-shape",
+                                             "B": B, "S": S}))
+        del qkv
     k4_cases(dev, gen, cases)
     long_attention_cases(dev, gen, cases)
     layer_norm_cases(dev, gen, cases)
@@ -392,47 +365,126 @@ def phase_kernels(dev, gen):
     return cases
 
 
+def k1_case(qkv, H, dtype, keys) -> dict:
+    """K1 on one fused qkv [B, S, 3*H*hd] against its plain version (f32:
+    K1_TOL; bf16: short_attention_qkv_bf16_tolerance), with its time by
+    CUDA events and replayed from a CUDA graph, beside the plain version
+    and SDPA on the split heads."""
+    import torch.nn.functional as F
+
+    from bsc_nav_tpu_torch.ops import flash_attention as fa
+
+    B, S, threeD = qkv.shape
+    hd = threeD // 3 // H
+    got = fa.short_attention_qkv(qkv, H)
+    want = fa.short_attention_qkv_reference(qkv, H)
+    if dtype == torch.bfloat16:
+        tol = fa.short_attention_qkv_bf16_tolerance(qkv, H, want)
+        tol_s = BF16_ATTN_TOL
+    else:
+        tol, tol_s = K1_TOL, f"{K1_TOL}"
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    check(bool((diff <= tol).all()), f"K1 {keys} {dtype}: err {err}")
+    ms = cuda_ms(lambda: fa.short_attention_qkv(qkv, H))
+    plain = cuda_ms(lambda: fa.short_attention_qkv_reference(qkv, H))
+    q, k, v = (t.contiguous() for t in fa._split_heads(qkv, H))
+    lib = sdpa_ms(q, k, v)
+    dev_ms = graph_ms(lambda: fa.short_attention_qkv(qkv, H))
+    lib_dev = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    flops = attn_flops(B, H, S, S, hd)
+    b_ms, b_by = bound(flops, nbytes(qkv, got), dtype)
+    tag = " ".join(f"{k}={v}" for k, v in keys.items())
+    log("kernels", f"K1 short_attention_qkv {tag} {H}x{hd} "
+        f"{str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol_s}) kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of "
+        f"the bound) plain {plain:.4f} ms sdpa {lib:.4f} ms bound "
+        f"{b_ms:.4f} ms ({b_by}); replayed from a CUDA graph: kernel "
+        f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / dev_ms:.3f} of the bound), sdpa {lib_dev:.4f} ms")
+    return {"kernel": "K1", **keys, "heads": H, "head_dim": hd,
+            "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol_s,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "tflops": flops / ms / 1e9,
+            "bound_share": b_ms / ms, "graph_ms": dev_ms,
+            "library_graph_ms": lib_dev}
+
+
 def normalised_qkv(x, c, heads, g, eps=1e-6):
     """[B, H, S, 64] q, k, v of K4's inputs with the qk-norm applied (q not
     scaled), in the input dtype: what SDPA would need to compute K4."""
     from bsc_nav_tpu_torch.ops import flash_attention as fa
-    Sx, Sc = x.shape[1], c.shape[1]
-    q, k, v = fa._split_heads(torch.cat([x, c], dim=1).float(), heads)
-
-    def rms(t, g_x, g_c):
-        return (t * torch.rsqrt(t.square().mean(-1, keepdim=True) + eps)
-                * fa._stream_gammas(g_x, g_c, Sx, Sc, 64))
-
-    return (rms(q, g[0], g[2]).to(x.dtype).contiguous(),
-            rms(k, g[1], g[3]).to(x.dtype).contiguous(),
-            v.to(x.dtype).contiguous())
+    return tuple(t.to(x.dtype).contiguous() for t in
+                 fa.joint_normalised_qkv(x, c, heads, *g, eps=eps))
 
 
 def k4_cases(dev, gen, cases):
     """K4 at the SD3.5-medium shapes: B 6 (3 images x CFG 2), 24 heads x
     64, 1024 latent rows plus 77 CLIP + 512 T5 context rows, 77 + 77 when
-    T5 is absent, and the dual-attention self-attention (no context)."""
+    T5 is absent, and the dual-attention self-attention (no context) at
+    512^2 (S 1024) and, in bf16, at 1024^2 (S 4096).  bf16 is held to
+    the plain version of its order, which rounds q-hat and k-hat to bf16.
+    The S 4096 case is held to it on the first and the last batch row, and
+    the plain version timed on the first: the plain logits of the whole
+    call would be 9.7 GB."""
+    import torch.nn.functional as F
+
     from bsc_nav_tpu_torch.ops import flash_attention as fa
 
-    B, Sx, H = 6, 1024, 24
+    B, H = 6, 24
     D = H * 64
-    for case, Sc in (("joint", 589), ("joint-no-t5", 154), ("self", 0)):
-        for dtype in (torch.float32, torch.bfloat16):
+    for case, Sx, Sc, dtypes in (
+            ("joint", 1024, 589, (torch.float32, torch.bfloat16)),
+            ("joint-no-t5", 1024, 154, (torch.float32, torch.bfloat16)),
+            ("self", 1024, 0, (torch.float32, torch.bfloat16)),
+            ("self-1024px", 4096, 0, (torch.bfloat16,))):
+        for dtype in dtypes:
             x = torch.randn(B, Sx, 3 * D, generator=gen, device=dev).to(dtype)
             c = torch.randn(B, Sc, 3 * D, generator=gen, device=dev).to(dtype)
             g = [torch.rand(64, generator=gen, device=dev) * 1.5 + 0.25
                  for _ in range(4)]
             got = fa.joint_qkv_attention(x, c, H, *g)
-            want = fa.joint_qkv_attention_reference(x, c, H, *g)
-            diff = (got.float() - want.float()).abs()
-            tol = K4_TOL + (bf16_ulp(want) if dtype == torch.bfloat16 else 0)
-            err = diff.max().item()
-            check(bool((diff <= tol).all()), f"K4 {case} {dtype}: err {err}")
+            plain_fn = (fa.joint_qkv_attention_bf16_reference
+                        if dtype == torch.bfloat16
+                        else fa.joint_qkv_attention_reference)
+            # the plain side one batch row at a time, first and last, where
+            # the whole call's logits would not fit
+            n = 1 if case == "self-1024px" else B
+            err = 0.0
+            for rows in ((slice(0, 1), slice(B - 1, B)) if n < B
+                         else (slice(0, B),)):
+                want = plain_fn(x[rows], c[rows], H, *g)
+                if dtype == torch.bfloat16:
+                    tol = fa.joint_qkv_attention_bf16_tolerance(
+                        x[rows], c[rows], H, *g, want)
+                    tol_s = (f"{BF16_ATTN_TOL} on bf16 q-hat, k-hat + "
+                             "rounding flips")
+                else:
+                    tol, tol_s = K4_TOL, f"{K4_TOL}"
+                diff = (got[rows].float() - want.float()).abs()
+                err = max(err, diff.max().item())
+                check(bool((diff <= tol).all()),
+                      f"K4 {case} {dtype} rows {rows}: err {err}")
+                del want, tol, diff
+            xs, cs = x[:n], c[:n]
             ms = cuda_ms(lambda: fa.joint_qkv_attention(x, c, H, *g))
-            plain = cuda_ms(
-                lambda: fa.joint_qkv_attention_reference(x, c, H, *g))
+            plain = cuda_ms(lambda: plain_fn(xs, cs, H, *g),
+                            reps=5 if n < B else 20)
+            dev_ms = graph_ms(lambda: fa.joint_qkv_attention(x, c, H, *g))
             qn, kn, vn = normalised_qkv(x, c, H, g)
             sdpa = sdpa_ms(qn, kn, vn)
+            sdpa_dev = graph_ms(
+                lambda: F.scaled_dot_product_attention(qn, kn, vn))
+            # the tile without the qk-norm on the same rows: K1's FusedQKV
+            # policy over the two streams concatenated, a split of K4's
+            # time into its row addressing and its norm
+            fused, fused_s = None, ""
+            if dtype == torch.bfloat16:
+                cat = torch.cat([x, c], 1)
+                fused = graph_ms(lambda: fa.short_attention_qkv(cat, H))
+                fused_s = (f"; the tile without the qk-norm on the same "
+                           f"rows (K1's FusedQKV, graph) {fused:.4f} ms")
+                del cat
             S = Sx + Sc
             flops = attn_flops(B, H, S, S, 64)
             b_ms, b_by = bound(flops, nbytes(x, c, got, *g), dtype)
@@ -440,21 +492,32 @@ def k4_cases(dev, gen, cases):
                     if dtype == torch.float32 else "")
             log("kernels", f"K4 joint_qkv_attention {case} B={B} {H}x64 "
                 f"Sx={Sx} Sc={Sc} (S {S}) {str(dtype)[6:]}: max_abs_err "
-                f"{err:.3g} (tol {K4_TOL}"
-                f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}) "
-                f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) plain "
-                f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by}{tf32}); no "
-                f"PyTorch call applies the qk-norm -- for context only, SDPA "
-                f"on the already-normalised q/k/v {sdpa:.4f} ms")
+                f"{err:.3g} (tol {tol_s}"
+                f"{f'; checked on batch rows 0 and {B - 1}' if n < B else ''}"
+                f") kernel "
+                f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{b_ms / ms:.3f} of the bound) plain {plain:.4f} ms"
+                f"{' (batch row 0)' if n < B else ''} bound {b_ms:.4f} ms "
+                f"({b_by}{tf32}); replayed from a CUDA graph: kernel "
+                f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s, "
+                f"{b_ms / dev_ms:.3f} of the bound); no PyTorch call "
+                f"applies the qk-norm -- for context only, SDPA on the "
+                f"already-normalised q/k/v {sdpa:.4f} ms, graph "
+                f"{sdpa_dev:.4f} ms{fused_s}")
             cases.append({"kernel": "K4", "case": case, "B": B, "heads": H,
                           "Sx": Sx, "Sc": Sc, "head_dim": 64,
                           "dtype": str(dtype)[6:], "max_abs_err": err,
-                          "tol": K4_TOL, "ms": ms, "plain_ms": plain,
+                          "tol": tol_s,
+                          "checked_batch_rows": 2 if n < B else B, "ms": ms,
+                          "plain_ms": plain, "plain_batch_rows": n,
                           "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": None,
-                          "sdpa_on_normalised_ms": sdpa})
-            del x, c, got, want, diff, qn, kn, vn
-    torch.cuda.empty_cache()
+                          "library_ms": None, "tflops": flops / ms / 1e9,
+                          "bound_share": b_ms / ms, "graph_ms": dev_ms,
+                          "sdpa_on_normalised_ms": sdpa,
+                          "sdpa_on_normalised_graph_ms": sdpa_dev,
+                          "tile_without_norm_graph_ms": fused})
+            del x, c, got, qn, kn, vn, xs, cs
+            torch.cuda.empty_cache()
 
 
 # (kernel, case, B, heads, S, causal); head_dim 64

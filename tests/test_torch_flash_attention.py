@@ -1,5 +1,6 @@
 """Port parity: K6 ``flash_attention``'s plain version, the bf16 bound of
-the tensor-core tile that K3, K5 and K6 share, and the port's
+the tensor-core tile that K1, K3, K5 and K6 share (K4's, with its
+qk-norm, is in tests/test_torch_joint_attention.py), and the port's
 ``attention()`` route against bsc_nav_tpu/ops/flash_attention.py.
 
 The JAX kernels run in Pallas interpret mode, as tests/test_flash_attention.py
@@ -17,6 +18,8 @@ import torch
 
 from bsc_nav_tpu.ops import flash_attention as jfa
 from bsc_nav_tpu_torch.ops import flash_attention as tfa
+
+from torch_parity import tensor_core_tile
 
 
 def _bhsd(B, H, S, hd, seed):
@@ -55,39 +58,6 @@ def test_flash_attention_plain_matches_pallas_interpret(B, H, Sq, Sk, hd,
     assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
 
 
-def _tensor_core_tile(q, k, v, causal, drop_tile=None):
-    """The arithmetic order of the bf16 tile of K3, K5 and K6
-    (csrc/attention_mma.cuh) in plain torch on the bf16 inputs, ragged Sq
-    and Sk and the square causal mask included: 64-key tiles, f32 scores
-    scaled by 1/sqrt(hd) after
-    the dot, an online softmax with the running max, each p rounded to bf16
-    against that max before P @ V, the row sum of the unrounded p, and
-    acc / l rounded to bf16.  ``drop_tile`` skips one key tile."""
-    qf, kf, vf = (torch.from_numpy(a).to(torch.bfloat16).float()
-                  for a in (q, k, v))
-    Sq, Sk = qf.shape[2], kf.shape[2]
-    scale = float(np.float32(1.0 / np.sqrt(qf.shape[3])))
-    m = torch.full(qf.shape[:3], -torch.inf)
-    l = torch.zeros(qf.shape[:3])
-    acc = torch.zeros_like(qf)
-    rows = torch.arange(Sq)[:, None]
-    for t, k0 in enumerate(range(0, Sk, 64)):
-        if t == drop_tile:
-            continue
-        s = qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2) * scale
-        if causal:
-            keys = torch.arange(k0, min(Sk, k0 + 64))[None, :]
-            s = s.masked_fill(keys > rows, -torch.inf)
-        m_new = torch.maximum(m, s.amax(-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + (p.to(torch.bfloat16).float()
-                                       @ vf[:, :, k0:k0 + 64])
-        m = m_new
-    return (acc / l[..., None]).to(torch.bfloat16).float()
-
-
 # ragged Sq and Sk, causal, past one 64-key tile and past 4096 keys
 EMULATION_CASES = [(1, 2, 300, 700, 64, False), (2, 1, 300, 300, 64, True),
                    (1, 1, 130, 4101, 16, False), (1, 2, 77, 200, 16, False),
@@ -102,7 +72,7 @@ def test_bf16_tolerance_holds_the_tensor_core_order(B, H, Sq, Sk, hd, causal):
     package's Pallas kernel in interpret mode, on the same bf16 inputs."""
     q, k, v = _bhsd(B, H, Sq, hd, 6), _bhsd(B, H, Sk, hd, 7), \
         _bhsd(B, H, Sk, hd, 8)
-    got = _tensor_core_tile(q, k, v, causal)
+    got = tensor_core_tile(q, k, v, causal)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     port = tfa.flash_attention_reference(tq, tk, tv, causal).float()
     pallas = torch.from_numpy(np.array(jfa.flash_attention(
@@ -135,7 +105,7 @@ def test_bf16_tolerance_holds_the_tile_for_k3_and_k5(name, B, H, Sq, Sk, hd,
     deliberate divergence, bounded by the same function."""
     q, k, v = _bhsd(B, H, Sq, hd, 9), _bhsd(B, H, Sk, hd, 10), \
         _bhsd(B, H, Sk, hd, 11)
-    got = _tensor_core_tile(q, k, v, causal)
+    got = tensor_core_tile(q, k, v, causal)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
     if name == "short":
@@ -163,9 +133,59 @@ def test_bf16_tolerance_catches_a_lost_key_tile(B, H, Sq, Sk, hd, causal):
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     want = tfa.flash_attention_reference(tq, tk, tv, causal).float()
     tol = tfa.flash_attention_bf16_tolerance(tq, tk, tv, want, causal)
-    assert bool(((_tensor_core_tile(q, k, v, causal) - want).abs()
+    assert bool(((tensor_core_tile(q, k, v, causal) - want).abs()
                  <= tol).all())
-    lost = _tensor_core_tile(q, k, v, causal, drop_tile=1)
+    lost = tensor_core_tile(q, k, v, causal, drop_tile=1)
+    assert not bool(((lost - want).abs() <= tol).all())
+
+
+# K1 on the tile, small in B*H: ViT-L's S 261 at hd 64 (5 key tiles, a
+# ragged last q tile), an odd batch at S 77, and hd 32 on the unswizzled
+# layout
+K1_CASES = [(1, 261, 2, 64), (3, 77, 2, 64), (2, 130, 4, 32)]
+
+
+def _k1_tile(qkv, heads, drop_tile=None):
+    """K1's bf16 order: the tile on the heads of the fused rows [B, S, 3D],
+    back to [B, S, D]."""
+    B, S, threeD = qkv.shape
+    q, k, v = tfa._split_heads(torch.from_numpy(qkv), heads)
+    out = tensor_core_tile(q, k, v, drop_tile=drop_tile)
+    return out.transpose(1, 2).reshape(B, S, threeD // 3)
+
+
+@pytest.mark.parametrize("B,S,heads,hd", K1_CASES)
+def test_bf16_tolerance_holds_the_tile_for_k1(B, S, heads, hd):
+    """K1 in bf16 runs the same tile on q, k and v read in place from the
+    fused rows, so ``short_attention_qkv_bf16_tolerance`` (the bound above
+    on the split heads) holds its order against the port's plain
+    ``short_attention_qkv`` and the JAX package's Pallas kernel in
+    interpret mode, which keeps P in f32: a deliberate divergence."""
+    qkv = np.random.default_rng(12).normal(
+        size=(B, S, 3 * heads * hd)).astype(np.float32)
+    tqkv = torch.from_numpy(qkv).to(torch.bfloat16)
+    got = _k1_tile(qkv, heads)
+    port = tfa.short_attention_qkv_reference(tqkv, heads).float()
+    pallas = torch.from_numpy(np.array(jfa.short_attention_qkv(
+        jnp.asarray(qkv, jnp.bfloat16), heads, interpret=True
+    ).astype(jnp.float32)))
+    for want in (port, pallas):
+        tol = tfa.short_attention_qkv_bf16_tolerance(tqkv, heads, want)
+        diff = (got - want).abs()
+        assert bool((diff <= tol).all()), (diff - tol).max().item()
+        assert diff.max().item() > 0
+
+
+def test_k1_bf16_tolerance_catches_a_lost_key_tile():
+    """K1's bound fails the same order with keys 64-127 left out."""
+    B, S, heads, hd = K1_CASES[0]
+    qkv = np.random.default_rng(12).normal(
+        size=(B, S, 3 * heads * hd)).astype(np.float32)
+    tqkv = torch.from_numpy(qkv).to(torch.bfloat16)
+    want = tfa.short_attention_qkv_reference(tqkv, heads).float()
+    tol = tfa.short_attention_qkv_bf16_tolerance(tqkv, heads, want)
+    assert bool(((_k1_tile(qkv, heads) - want).abs() <= tol).all())
+    lost = _k1_tile(qkv, heads, drop_tile=1)
     assert not bool(((lost - want).abs() <= tol).all())
 
 

@@ -1,5 +1,6 @@
-"""Kernel K4 ``joint_qkv_attention`` (its plain version on the CPU) and the
-MMDiT attention dispatch against the JAX package.
+"""Kernel K4 ``joint_qkv_attention`` (its plain version on the CPU, and the
+arithmetic order of its bf16 tensor-core tile) and the MMDiT attention
+dispatch against the JAX package.
 
 The JAX kernel runs in Pallas interpret mode, as the JAX package's own
 tests run it on the CPU.  Gammas are drawn per stream and per q/k, so a
@@ -15,7 +16,7 @@ import torch
 from bsc_nav_tpu.ops import flash_attention as jfa
 from bsc_nav_tpu_torch.ops import flash_attention as tfa
 
-from torch_parity import bf16_ulp
+from torch_parity import bf16_ulp, tensor_core_tile
 
 HEADS, HD = 4, 64
 
@@ -149,3 +150,93 @@ def test_gate_is_the_jax_rule_without_the_tpu_test(S, heads, hd, qk_norm,
     assert jfa._MID_MAX_KV == tfa._MID_MAX_KV == 4096
     assert tfa.use_joint_qkv_attention(S, heads, hd, qk_norm) is want
 
+
+
+def _k4_tile(x, c, g, drop_tile=None):
+    """K4's bf16 order (csrc/attention_mma.cuh, JointQKV): the per-stream
+    qk-norm in f32 on the bf16 inputs, q-hat and k-hat rounded to bf16,
+    then the tile -- 64-key tiles, scores scaled after the dot, P rounded
+    to bf16 -- back to [B, Sx+Sc, D]."""
+    q, k, v = tfa.joint_normalised_qkv(
+        _torch(x, "bfloat16"), _torch(c, "bfloat16"), HEADS,
+        *map(torch.from_numpy, g))
+    out = tensor_core_tile(q.to(torch.bfloat16), k.to(torch.bfloat16), v,
+                           drop_tile=drop_tile)
+    return out.transpose(1, 2).reshape(x.shape[0], -1, HEADS * HD)
+
+
+# a ragged sequence (4 key tiles, the second q tile spans both streams);
+# Sx < 128, so the first q tile does; Sc = 0 (the self-attention); an odd
+# batch
+K4_CASES = [(1, 150, 77), (1, 100, 77), (2, 200, 0), (3, 40, 23)]
+
+
+def _rounding_divergence(tx, tc_, tg):
+    """Bound on |``joint_qkv_attention_bf16_reference`` -
+    ``joint_qkv_attention_reference``| in f32: the deliberate divergence of
+    rounding q-hat and k-hat to bf16, which the Pallas K4 does not.  Each
+    is moved by at most u = 2^-8 of itself, so the logit s_ij by at most
+    d_ij = scale (2u + u^2) sum_d |q_id| |k_jd| <= d_i = scale (2u + u^2)
+    sum_d |q_id| max_j |k_jd|, each p_ij by a factor within e^(+-2 d_i),
+    and the output by at most (e^(2 d_i) - 1) sum_j p_ij |v_j|."""
+    q, k, v = tfa.joint_normalised_qkv(tx, tc_, HEADS, *tg)
+    u = 2.0 ** -8
+    d = (2 * u + u * u) / HD ** 0.5 * (
+        q.abs() * k.abs().amax(dim=2, keepdim=True)).sum(-1, keepdim=True)
+    out = torch.expm1(2 * d) * tfa.flash_attention_reference(q, k, v.abs())
+    return out.transpose(1, 2).reshape(tx.shape[0], -1, HEADS * HD)
+
+
+@pytest.mark.parametrize("B,Sx,Sc", K4_CASES,
+                         ids=["ragged", "q-tile-spans-streams", "self",
+                              "odd-batch"])
+def test_bf16_tolerance_holds_the_tile_for_k4(B, Sx, Sc):
+    """``joint_qkv_attention_bf16_tolerance`` holds the tile's order, and
+    the JAX package's composed ``joint_qkv_reference`` in bf16, which
+    rounds q-hat, k-hat and P as the tile does, against
+    ``joint_qkv_attention_bf16_reference``.  Against the port's plain
+    version and the JAX package's Pallas kernel in interpret mode, which
+    keep q-hat, k-hat and P in f32 and round their output to bf16, the
+    tile also takes ``_rounding_divergence`` and those outputs' ulp."""
+    x, c, g = _inputs(B, Sx, Sc, seed=30 + Sx, dtype="bfloat16")
+    got = _k4_tile(x, c, g)
+    tx, tc_ = _torch(x, "bfloat16"), _torch(c, "bfloat16")
+    tg = [torch.from_numpy(a) for a in g]
+    jx, jc = _jax(x, "bfloat16"), _jax(c, "bfloat16")
+    jg = [jnp.asarray(a) for a in g]
+    want = tfa.joint_qkv_attention_bf16_reference(tx, tc_, HEADS, *tg)
+    tol = tfa.joint_qkv_attention_bf16_tolerance(tx, tc_, HEADS, *tg, want)
+    port = tfa.joint_qkv_attention_reference(tx, tc_, HEADS, *tg).float()
+    pallas, composed = (
+        torch.from_numpy(np.array(jnp.asarray(a, jnp.float32))) for a in (
+            jfa.joint_qkv_attention(jx, jc, HEADS, *jg, interpret=True),
+            jfa.joint_qkv_reference(jx, jc, HEADS, *jg)))
+    for out in (got, composed):
+        diff = (out - want).abs()
+        assert bool((diff <= tol).all()), (diff - tol).max().item()
+    div = _rounding_divergence(tx, tc_, tg)
+    for f32_order in (port, pallas):
+        diff = (got - f32_order).abs()
+        wide = tol + div + 2e-5 + bf16_ulp(f32_order)
+        assert bool((diff <= wide).all()), (diff - wide).max().item()
+    # rounding q-hat, k-hat and P is seen: the tile is not the plain version
+    assert (got - port).abs().max().item() > 0
+
+
+@pytest.mark.parametrize("fault", ["lost-key-tile", "swapped-gammas"])
+@pytest.mark.parametrize("B,Sx,Sc", [K4_CASES[0], (1, 1024, 589)],
+                         ids=["S227", "S1613"])
+def test_k4_bf16_tolerance_catches_a_fault(B, Sx, Sc, fault):
+    """The bound is tight enough that the same order fails it with one
+    64-key tile (keys 64-127) left out, or with the two streams' gammas
+    exchanged, at a short sequence and at the 512^2 query's joint length
+    (26 key tiles)."""
+    x, c, g = _inputs(B, Sx, Sc, seed=31, dtype="bfloat16")
+    tx, tc_ = _torch(x, "bfloat16"), _torch(c, "bfloat16")
+    tg = [torch.from_numpy(a) for a in g]
+    want = tfa.joint_qkv_attention_bf16_reference(tx, tc_, HEADS, *tg)
+    tol = tfa.joint_qkv_attention_bf16_tolerance(tx, tc_, HEADS, *tg, want)
+    assert bool(((_k4_tile(x, c, g) - want).abs() <= tol).all())
+    bad = (_k4_tile(x, c, g, drop_tile=1) if fault == "lost-key-tile"
+           else _k4_tile(x, c, [g[2], g[3], g[0], g[1]]))
+    assert not bool(((bad - want).abs() <= tol).all())

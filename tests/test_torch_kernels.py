@@ -152,14 +152,13 @@ def test_kernel_sources_are_the_build_inputs():
 # --------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
-                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,heads,hd", [(2, 261, 16, 64), (3, 37, 2, 16),
                                           (1, 130, 3, 128), (2, 65, 5, 48)])
-def test_k1_matches_plain(cuda, B, S, heads, hd, dtype, atol):
-    """f32: sums in another order, 2e-5 abs.  bf16: both round the f32
-    result to bf16 once, so they differ by at most one bf16 ulp of an
-    O(1) output: 2e-2 abs."""
+def test_k1_matches_plain(cuda, B, S, heads, hd, dtype):
+    """f32 (the CUDA cores): sums in another order, 2e-5 abs.  bf16 (the
+    tensor-core tile) rounds P to bf16:
+    ``short_attention_qkv_bf16_tolerance``."""
     qkv = _qkv(B, S, heads, hd, seed=3).to(cuda, dtype)
     before = tfa.short_attention_qkv.launches
     got = tfa.short_attention_qkv(qkv, heads)
@@ -167,8 +166,71 @@ def test_k1_matches_plain(cuda, B, S, heads, hd, dtype, atol):
     want = tfa.short_attention_qkv_reference(qkv, heads)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, S, heads * hd)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= atol, err
+    diff = (got.float() - want.float()).abs()
+    tol = (2e-5 if dtype == torch.float32 else
+           tfa.short_attention_qkv_bf16_tolerance(qkv, heads, want))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+# K1's edges on the bf16 tile: ViT-L's S 261 (a 5-row last q tile) and
+# the text length 77 at hd 64 (swizzled), odd B and head counts, every
+# other head_dim K1 takes (core matrices), S 1 and 640
+K1_EDGES = [(8, 261, 16, 64), (3, 77, 16, 64), (1, 77, 3, 64),
+            (2, 1, 2, 64), (1, 640, 2, 64), (3, 261, 5, 16),
+            (1, 77, 2, 32), (2, 129, 3, 48), (1, 261, 2, 80),
+            (1, 65, 3, 96), (2, 200, 1, 112), (1, 257, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,heads,hd", K1_EDGES)
+def test_k1_bf16_tensor_core_tile_edges(cuda, B, S, heads, hd):
+    """K1 in bf16, q, k and v read in place from the fused rows, at the
+    tile's edges, within ``short_attention_qkv_bf16_tolerance``."""
+    qkv = _qkv(B, S, heads, hd, seed=24).to(cuda, torch.bfloat16)
+    before = tfa.short_attention_qkv.launches
+    got = tfa.short_attention_qkv(qkv, heads)
+    assert tfa.short_attention_qkv.launches == before + 1
+    want = tfa.short_attention_qkv_reference(qkv, heads)
+    tol = tfa.short_attention_qkv_bf16_tolerance(qkv, heads, want)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, heads * hd)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+def _device_kernels(fn) -> list:
+    """Names of the device kernels that fn() launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_k1_k4_take_the_tile_in_bf16_only(cuda):
+    """By dtype alone: bf16 launches the wgmma tile (K1 with its FusedQKV
+    policy, K4 with JointQKV), f32 the CUDA-core kernels, one each."""
+    qkv = _qkv(2, 77, 2, 64, seed=5).to(cuda)
+    x, c, g = _joint(1, 100, 77, 2, seed=5)
+    x, c = x.to(cuda), c.to(cuda)
+    g = [t.to(cuda) for t in g]
+    for dtype, tile in ((torch.float32, False), (torch.bfloat16, True)):
+        k1 = _device_kernels(
+            lambda: tfa.short_attention_qkv(qkv.to(dtype), 2))
+        k1 = [n for n in k1 if "short_attention_qkv" in n]
+        k4 = _device_kernels(
+            lambda: tfa.joint_qkv_attention(x.to(dtype), c.to(dtype), 2, *g))
+        k4 = [n for n in k4 if "joint_qkv" in n]
+        assert len(k1) == 1 and len(k4) == 1, (k1, k4)
+        if tile:
+            assert "attention_wgmma_kernel" in k1[0] and "FusedQKV" in k1[0]
+            assert "attention_wgmma_kernel" in k4[0] and "JointQKV" in k4[0]
+        else:
+            assert "short_attention_qkv_kernel" in k1[0], k1
+            assert "joint_qkv_kernel" in k4[0], k4
 
 
 @pytest.mark.cuda
@@ -249,22 +311,81 @@ def test_k3_bf16_tensor_core_tile_edges(cuda, B, H, Sq, Sk, hd, causal):
     (6, 1024, 0, 24),                   # MMDiT-X self-attention
     (2, 37, 5, 2), (1, 3, 70, 3), (2, 65, 0, 1)])
 def test_k4_matches_plain(cuda, B, Sx, Sc, heads, dtype):
-    """f32: the same f32 qk-norm and softmax, sums in another order (and
-    rsqrtf against torch.rsqrt): 2e-5 abs on outputs below ~3.  bf16: both
-    widen the same bf16 inputs and round their f32 results once, so 2e-5
-    plus one bf16 ulp at the output's magnitude."""
+    """f32 (the CUDA cores): the same f32 qk-norm and softmax, sums in
+    another order (and rsqrtf against torch.rsqrt): 2e-5 abs on outputs
+    below ~3.  bf16 (the tensor-core tile) rounds q-hat, k-hat and P to
+    bf16: ``joint_qkv_attention_bf16_tolerance`` against the plain version
+    of that order, ``joint_qkv_attention_bf16_reference``."""
     x, c, g = _joint(B, Sx, Sc, heads, seed=Sx + Sc)
     x, c = x.to(cuda, dtype), c.to(cuda, dtype)
     g = [t.to(cuda) for t in g]
     before = tfa.joint_qkv_attention.launches
     got = tfa.joint_qkv_attention(x, c, heads, *g)
     assert tfa.joint_qkv_attention.launches == before + 1
-    want = tfa.joint_qkv_attention_reference(x, c, heads, *g)
+    if dtype == torch.float32:
+        want = tfa.joint_qkv_attention_reference(x, c, heads, *g)
+        tol = 2e-5
+    else:
+        want = tfa.joint_qkv_attention_bf16_reference(x, c, heads, *g)
+        tol = tfa.joint_qkv_attention_bf16_tolerance(x, c, heads, *g, want)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, Sx + Sc, heads * 64)
     diff = (got.float() - want.float()).abs()
-    tol = 2e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
     assert bool((diff <= tol).all()), diff.max().item()
+
+
+# K4's edges on the bf16 tile: the joint sequence at 512^2 (its q tile of
+# rows 1024-1151 straddles the streams), Sx < 128 (the first q tile does),
+# Sc 0 (the self-attention: ctx never read), S 1, a lone ctx row, odd B
+# and head counts, and B*heads past a grid dimension's 65535
+K4_EDGES = [(2, 1024, 589, 24), (2, 100, 77, 2), (3, 1024, 0, 3),
+            (1, 1, 0, 2), (2, 127, 1, 1), (1, 0, 65, 2), (3, 130, 61, 5),
+            (70000, 8, 0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sx,Sc,heads", K4_EDGES)
+def test_k4_bf16_tensor_core_tile_edges(cuda, B, Sx, Sc, heads):
+    """K4 in bf16 through its wrapper at the tile's edges, within
+    ``joint_qkv_attention_bf16_tolerance`` of
+    ``joint_qkv_attention_bf16_reference``; with Sc 0 the ctx stream is
+    an empty view that must never be read."""
+    x, c, g = _joint(B, Sx, Sc, heads, seed=40 + Sx + Sc)
+    x, c = x.to(cuda, torch.bfloat16), c.to(cuda, torch.bfloat16)
+    g = [t.to(cuda) for t in g]
+    if Sc == 0:
+        c = x[:, :0]
+    before = tfa.joint_qkv_attention.launches
+    got = tfa.joint_qkv_attention(x, c, heads, *g)
+    assert tfa.joint_qkv_attention.launches == before + 1
+    want = tfa.joint_qkv_attention_bf16_reference(x, c, heads, *g)
+    tol = tfa.joint_qkv_attention_bf16_tolerance(x, c, heads, *g, want)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Sx + Sc,
+                                                         heads * 64)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+def test_k4_bf16_self_attention_at_1024px(cuda):
+    """The dual self-attention of the 1024^2 text query (S 4096, 24 heads)
+    at B 2, held to its plain version one batch row at a time (the plain
+    logits of the whole call would be 3.2 GB per tensor)."""
+    x, _, g = _joint(2, 4096, 0, 24, seed=41)
+    x = x.to(cuda, torch.bfloat16)
+    g = [t.to(cuda) for t in g]
+    before = tfa.joint_qkv_attention.launches
+    got = tfa.self_qkv_dispatch(x, 24, g[0], g[1])
+    assert tfa.joint_qkv_attention.launches == before + 1
+    for b in range(2):
+        xb = x[b:b + 1]
+        want = tfa.joint_qkv_attention_bf16_reference(xb, xb[:, :0], 24,
+                                                      *g[:2], *g[:2])
+        tol = tfa.joint_qkv_attention_bf16_tolerance(xb, xb[:, :0], 24,
+                                                     *g[:2], *g[:2], want)
+        diff = (got[b:b + 1].float() - want).abs()
+        assert bool((diff <= tol).all()), (b, diff.max().item())
 
 
 @pytest.mark.cuda
@@ -284,6 +405,11 @@ def test_k4_refuses_what_it_does_not_take(cuda):
         tfa.joint_qkv_attention(x, c[..., :-3], 2, *g)
     with pytest.raises(NotImplementedError, match="head_dim"):
         tfa.joint_qkv_attention(x, c, 4, *(t[:32] for t in g))
+    # f32 keeps the CUDA-core kernel's 2-D grid; bf16 takes any B*heads
+    # (test_k4_bf16_tensor_core_tile_edges)
+    big = torch.zeros(65536, 1, 3 * 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="65535"):
+        tfa.joint_qkv_attention(big, big[:, :0], 1, *g)
 
 
 @pytest.mark.cuda

@@ -15,9 +15,11 @@
 // Each source names its kernels with a tag type
 // (attention_wgmma_kernel<mid_attention, 64, ...> in a profile); the names
 // here have internal linkage, so every source holds its own copy.  The
-// f32 paths keep their CUDA-core kernels (attention_tile.cuh for K3, K5
-// and K6): on the tensor cores f32 would mean TF32, whose 10-bit mantissa
-// breaks the exact-f32 parity the f32 paths are held to.
+// Contiguous and FusedQKV policies take their element type, so the f32
+// tile of K1 and K3 (attention_tf32.cuh: every f32 product as three TF32
+// products, within the f32 paths' 2e-5 bound) addresses its rows with
+// them too; K4, K5 and K6 keep their f32 CUDA-core kernels
+// (joint_qkv_attention.cu, attention_tile.cuh).
 //
 // Bound on the H100: the tensor cores, and beside them the exponentials.
 // A bf16 joint call at SD3.5-medium's 1024^2 is 809 GFLOP against 86 MB
@@ -102,10 +104,11 @@ struct WgCfg {
 // ---------------------------------------------------------------------------
 
 // rows of one stream: row r at p + r * stride
-struct Rows {
-  const bf16* p;
+template <typename T>
+struct RowsOf {
+  const T* p;
   int64_t stride;
-  __device__ __forceinline__ const bf16* row(int r) const {
+  __device__ __forceinline__ const T* row(int r) const {
     return p + r * stride;
   }
 };
@@ -123,45 +126,51 @@ struct TwoRows {
 };
 
 // one (batch*head)'s rows; output row r at out + r * out_stride
-template <typename R>
+template <typename R, typename T = bf16>
 struct View {
   R q, k, v;
-  bf16* out;
+  T* out;
   int64_t out_stride;
 };
 
 // K3, K5, K6: separate q [BH, Sq, HD], k and v [BH, Sk, HD] -> out
-// [BH, Sq, HD]
-template <int HD>
-struct Contiguous {
+// [BH, Sq, HD], of element type T
+template <int HD, typename T>
+struct ContiguousOf {
   static constexpr bool kNorm = false;
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* out;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
   int Sq, Sk;
-  __device__ __forceinline__ View<Rows> view(int64_t bh) const {
+  __device__ __forceinline__ View<RowsOf<T>, T> view(int64_t bh) const {
     return {{q + bh * Sq * HD, HD}, {k + bh * Sk * HD, HD},
             {v + bh * Sk * HD, HD}, out + bh * Sq * HD, HD};
   }
 };
 
 // K1: the fused projection [B, S, 3D] (q | k | v column groups, heads
-// contiguous in each) -> out [B, S, D]; bh = b * heads + h
-template <int HD>
-struct FusedQKV {
+// contiguous in each) -> out [B, S, D], of element type T; bh = b * heads
+// + h
+template <int HD, typename T>
+struct FusedQKVOf {
   static constexpr bool kNorm = false;
-  const bf16* qkv;
-  bf16* out;
+  const T* qkv;
+  T* out;
   int S, heads;
-  __device__ __forceinline__ View<Rows> view(int64_t bh) const {
+  __device__ __forceinline__ View<RowsOf<T>, T> view(int64_t bh) const {
     const int64_t b = bh / heads, h = bh - b * heads;
     const int64_t D = static_cast<int64_t>(heads) * HD;
-    const bf16* base = qkv + b * S * 3 * D + h * HD;
+    const T* base = qkv + b * S * 3 * D + h * HD;
     return {{base, 3 * D}, {base + D, 3 * D}, {base + 2 * D, 3 * D},
             out + b * S * D + h * HD, D};
   }
 };
+
+template <int HD>
+using Contiguous = ContiguousOf<HD, bf16>;
+template <int HD>
+using FusedQKV = FusedQKVOf<HD, bf16>;
 
 // K4: two streams' fused projections qkv_x [B, Sx, 3D] and qkv_c
 // [B, Sc, 3D] (head_dim 64) -> out [B, Sx + Sc, D], x rows first, with
@@ -477,48 +486,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Tag, int HD, typename Src>
-int launch_tc(const Src& src, int BH, int Sq, int Sk, int causal,
-              cudaStream_t stream) {
-  auto kernel = attention_wgmma_kernel<Tag, HD, Src>;
-  constexpr size_t smem =
-      WgCfg<HD>::SMEM + (Src::kNorm ? sizeof(float) * 4 * HD : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qtiles = (Sq + kQRows - 1) / kQRows;
-  const int64_t blocks = static_cast<int64_t>(n_qtiles) * BH;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  // 1/sqrt(hd) rounded once from double, as JAX rounds its Python float,
-  // then folded with log2(e) for exp2
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      src, Sq, Sk, causal, scale * 1.4426950408889634f, n_qtiles);
-  return static_cast<int>(cudaGetLastError());
-}
+// the bf16 tile's launch, one 128-row q tile per block
+struct WgmmaTile {
+  template <typename Tag, int HD, typename Src>
+  static int launch(const Src& src, int BH, int Sq, int Sk, int causal,
+                    cudaStream_t stream) {
+    auto kernel = attention_wgmma_kernel<Tag, HD, Src>;
+    constexpr size_t smem =
+        WgCfg<HD>::SMEM + (Src::kNorm ? sizeof(float) * 4 * HD : 0);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int n_qtiles = (Sq + kQRows - 1) / kQRows;
+    const int64_t blocks = static_cast<int64_t>(n_qtiles) * BH;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    // 1/sqrt(hd) rounded once from double, as JAX rounds its Python
+    // float, then folded with log2(e) for exp2
+    const float scale =
+        static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+        src, Sq, Sk, causal, scale * 1.4426950408889634f, n_qtiles);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
 
-// the launch of policy Src<hd>{args...} for hd a multiple of 16 up to 128
-template <typename Tag, template <int> class Src, typename... Args>
+// Tile's launch of policy Src<hd>{args...} for hd a multiple of 16 up to
+// 128 (Tile: WgmmaTile, or attention_tf32.cuh's Tf32Tile)
+template <typename Tile, typename Tag, template <int> class Src,
+          typename... Args>
 int launch_by_hd(int hd, int BH, int Sq, int Sk, int causal, cudaStream_t s,
                  Args... args) {
   switch (hd) {
     case 16:
-      return launch_tc<Tag, 16>(Src<16>{args...}, BH, Sq, Sk, causal, s);
+      return Tile::template launch<Tag, 16>(Src<16>{args...}, BH, Sq, Sk,
+                                            causal, s);
     case 32:
-      return launch_tc<Tag, 32>(Src<32>{args...}, BH, Sq, Sk, causal, s);
+      return Tile::template launch<Tag, 32>(Src<32>{args...}, BH, Sq, Sk,
+                                            causal, s);
     case 48:
-      return launch_tc<Tag, 48>(Src<48>{args...}, BH, Sq, Sk, causal, s);
+      return Tile::template launch<Tag, 48>(Src<48>{args...}, BH, Sq, Sk,
+                                            causal, s);
     case 64:
-      return launch_tc<Tag, 64>(Src<64>{args...}, BH, Sq, Sk, causal, s);
+      return Tile::template launch<Tag, 64>(Src<64>{args...}, BH, Sq, Sk,
+                                            causal, s);
     case 80:
-      return launch_tc<Tag, 80>(Src<80>{args...}, BH, Sq, Sk, causal, s);
+      return Tile::template launch<Tag, 80>(Src<80>{args...}, BH, Sq, Sk,
+                                            causal, s);
     case 96:
-      return launch_tc<Tag, 96>(Src<96>{args...}, BH, Sq, Sk, causal, s);
+      return Tile::template launch<Tag, 96>(Src<96>{args...}, BH, Sq, Sk,
+                                            causal, s);
     case 112:
-      return launch_tc<Tag, 112>(Src<112>{args...}, BH, Sq, Sk, causal, s);
+      return Tile::template launch<Tag, 112>(Src<112>{args...}, BH, Sq,
+                                             Sk, causal, s);
     case 128:
-      return launch_tc<Tag, 128>(Src<128>{args...}, BH, Sq, Sk, causal, s);
+      return Tile::template launch<Tag, 128>(Src<128>{args...}, BH, Sq,
+                                             Sk, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -531,7 +554,7 @@ template <typename Tag>
 int launch_attention_mma(const void* q, const void* k, const void* v,
                          void* out, int BH, int Sq, int Sk, int hd,
                          int causal, cudaStream_t s) {
-  return launch_by_hd<Tag, Contiguous>(
+  return launch_by_hd<WgmmaTile, Tag, Contiguous>(
       hd, BH, Sq, Sk, causal, s, static_cast<const bf16*>(q),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), Sq, Sk);
@@ -544,7 +567,7 @@ int launch_attention_mma(const void* q, const void* k, const void* v,
 template <typename Tag>
 int launch_fused_qkv_mma(const void* qkv, void* out, int B, int S, int heads,
                          int hd, cudaStream_t s) {
-  return launch_by_hd<Tag, FusedQKV>(
+  return launch_by_hd<WgmmaTile, Tag, FusedQKV>(
       hd, B * heads, S, S, 0, s, static_cast<const bf16*>(qkv),
       static_cast<bf16*>(out), S, heads);
 }
@@ -563,8 +586,16 @@ int launch_joint_qkv_mma(const void* qkv_x, const void* qkv_c,
                          static_cast<bf16*>(out),
                          static_cast<const float*>(gammas), Sx, Sc, heads,
                          eps};
-  return launch_tc<Tag, 64>(src, B * heads, Sx + Sc, Sx + Sc, 0, s);
+  return WgmmaTile::launch<Tag, 64>(src, B * heads, Sx + Sc, Sx + Sc, 0, s);
 }
 
 }  // namespace tc
+
+// the launchers' argument check, shared by K3, K5 and K6 in both dtypes:
+// positive sizes, hd a multiple of 16 up to 128, causal only when square
+inline bool attention_args_ok(int BH, int Sq, int Sk, int hd, int causal) {
+  return BH > 0 && Sq > 0 && Sk > 0 && hd > 0 && hd % 16 == 0 && hd <= 128 &&
+         (!causal || Sq == Sk);
+}
+
 }  // namespace

@@ -1,16 +1,18 @@
-// The f32 attention kernel shared by K3 short_attention, K5 mid_attention
+// The f32 attention kernel on the CUDA cores shared by K5 mid_attention
 // and K6 flash_attention: softmax attention over separate f32 q, k, v
 // buffers [BH, S, hd] with an optional square causal mask, written to
 // [BH, Sq, hd].  Their bf16 paths run the tensor-core tile of
-// attention_mma.cuh instead; in f32 the tensor cores would mean TF32,
-// whose 10-bit mantissa breaks the exact-f32 parity the f32 paths are held
-// to.  Each of those sources includes this header, names its kernel with a
-// tag type (so a profiler tells the three apart) and exports its own
-// launch symbol; the header's names have internal linkage, so every source
-// holds its own copy of the kernels it instantiates.
+// attention_mma.cuh instead.  K3's f32 path moved to the tensor cores
+// (attention_tf32.cuh): three TF32 products per f32 product keep the f32
+// paths' 2e-5 bound, which one TF32 product (a 10-bit mantissa) misses;
+// K5 and K6 in f32 are launched by no main path and stay here.  Each of
+// those sources includes this header, names its kernel with a tag type
+// (so a profiler tells them apart) and exports its own launch symbol;
+// the header's names have internal linkage, so every source holds its own
+// copy of the kernels it instantiates.
 //
-// Design: the TPU kernels hold K/V in VMEM -- the whole sequence (K3, K5)
-// or blocks of 128 keys (K6) -- and run a one-shot or a blockwise online
+// Design: the TPU kernels hold K/V in VMEM -- the whole sequence (K5) or
+// blocks of 128 keys (K6) -- and run a one-shot or a blockwise online
 // softmax.  Here each block owns one (batch*head) and 8 * ROWS query rows
 // (8 warps x ROWS rows) and streams K/V through shared memory in tiles of
 // 64 keys with an online softmax, so any Sk fits; larger ROWS reuses each
@@ -242,13 +244,6 @@ int launch_tile(const void* q, const void* k, const void* v, void* out,
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, hd,
       causal, scale, n_qtiles);
   return static_cast<int>(cudaGetLastError());
-}
-
-// the launchers' argument check, shared by K3, K5 and K6 in both dtypes:
-// positive sizes, hd a multiple of 16 up to 128, causal only when square
-inline bool attention_args_ok(int BH, int Sq, int Sk, int hd, int causal) {
-  return BH > 0 && Sq > 0 && Sk > 0 && hd > 0 && hd % 16 == 0 && hd <= 128 &&
-         (!causal || Sq == Sk);
 }
 
 // f32 q [BH, Sq, hd], k and v [BH, Sk, hd] -> out [BH, Sq, hd], all

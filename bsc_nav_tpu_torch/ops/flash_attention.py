@@ -10,20 +10,26 @@ holds, as the JAX package does, and otherwise splits heads and calls
 ``mid_attention`` (``csrc/mid_attention.cu``) for non-causal attention over
 at most 4096 keys, K6 ``flash_attention`` (``csrc/flash_attention.cu``)
 where the f32 logits would pass 4e9 bytes, and the plain composition
-``reference_attention`` otherwise.  K3, K5 and K6 share two device
-kernels, chosen by dtype: f32 runs a CUDA-core tile
-(``csrc/attention_tile.cuh``), bf16 a tensor-core tile
-(``csrc/attention_mma.cuh``) that rounds P to bf16 and is held to the
-plain versions by ``flash_attention_bf16_tolerance``.  The MMDiT's joint
-attention goes through ``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4
+``reference_attention`` otherwise.  The MMDiT's joint attention goes
+through ``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4
 ``joint_qkv_attention`` (``csrc/joint_qkv_attention.cu``) where
-``use_joint_qkv_attention`` holds.  K1 and K4 run the same tensor-core
-tile in bf16, reading q, k and v in place from the fused [B, S, 3*D] rows
-(K4 from two streams, with its qk-norm applied in shared memory); they
-are held to ``short_attention_qkv_bf16_tolerance`` and, against K4's
-bf16 order ``joint_qkv_attention_bf16_reference`` (q-hat and k-hat
-rounded to bf16), ``joint_qkv_attention_bf16_tolerance``.  Every f32 path keeps its
-CUDA-core kernel.
+``use_joint_qkv_attention`` holds.  Each kernel chooses its device kernel
+by dtype:
+
+- bf16: one tensor-core tile (``csrc/attention_mma.cuh``) for K1, K3, K4,
+  K5 and K6, which rounds P to bf16 and is held to the plain versions by
+  ``flash_attention_bf16_tolerance``; K1 and K4 read q, k and v in place
+  from the fused [B, S, 3*D] rows (K4 from two streams, with its qk-norm
+  applied in shared memory) and are held to
+  ``short_attention_qkv_bf16_tolerance`` and, against K4's bf16 order
+  ``joint_qkv_attention_bf16_reference`` (q-hat and k-hat rounded to
+  bf16), ``joint_qkv_attention_bf16_tolerance``.
+- f32: K1 and K3 run a tensor-core tile (``csrc/attention_tf32.cuh``)
+  that takes every f32 product as three TF32 products (a_lo b_hi + a_hi
+  b_lo + a_hi b_hi), which keeps f32's accuracy: they are held to their
+  plain versions by 2e-5 abs, as before.  K4, K5 and K6 keep their
+  CUDA-core kernels (``csrc/joint_qkv_attention.cu``,
+  ``csrc/attention_tile.cuh``).
 
 Layouts follow the JAX package: ``attention``, ``short_attention``,
 ``mid_attention``, ``flash_attention`` and ``reference_attention`` take
@@ -109,10 +115,11 @@ def short_attention_qkv(qkv, heads: int):
     """Fused-QKV attention [B, S, 3*D] -> [B, S, D].
 
     A CPU tensor takes ``short_attention_qkv_reference``.  A CUDA tensor
-    launches kernel K1 (``csrc/short_attention_qkv.cu``: bf16 on the
-    tensor-core tile, within ``short_attention_qkv_bf16_tolerance``; f32 on
-    the CUDA cores) on the current stream without synchronising, or raises
-    for what it does not take.
+    launches kernel K1 (``csrc/short_attention_qkv.cu``: bf16 on the wgmma
+    tile, within ``short_attention_qkv_bf16_tolerance``; f32 on the TF32
+    tile, three TF32 products per f32 product, within 2e-5 abs) on the
+    current stream without synchronising, or raises for what it does not
+    take.
     """
     if qkv.device.type == "cpu":
         return short_attention_qkv_reference(qkv, heads)
@@ -286,8 +293,10 @@ def short_attention(q, k, v, causal: bool = False):
     Sq == Sk.
 
     A CPU tensor takes ``short_attention_reference``.  A CUDA tensor
-    launches kernel K3 (``csrc/short_attention.cu``) on the current stream
-    without synchronising, or raises for what it does not take.
+    launches kernel K3 (``csrc/short_attention.cu``: bf16 on the wgmma
+    tile, within ``flash_attention_bf16_tolerance``; f32 on the TF32 tile,
+    three TF32 products per f32 product, within 2e-5 abs) on the current
+    stream without synchronising, or raises for what it does not take.
     """
     _attention_shapes("short_attention", q, k, v, causal)
     if q.device.type == "cpu":

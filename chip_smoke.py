@@ -12,7 +12,8 @@ non-zero):
   kernels       K1-K8 against their plain PyTorch versions on the card, at
                 the main paths' shapes, with both times (CUDA events, median
                 of 20 runs), the bound reckoned from each case's bytes and
-                operations, and one PyTorch call computing the same
+                operations (f32 products at a third of the TF32 rate, three
+                TF32 products each), and one PyTorch call computing the same
                 function where one exists (SDPA for K1, K3, K5 and K6,
                 F.layer_norm for K7, cuDNN for K8; for K4, as context,
                 SDPA on the already-normalised q/k/v), the TFLOP/s reached
@@ -25,14 +26,18 @@ non-zero):
                 518^2, K6 at SD3.5-medium's joint attention at 1024^2 and
                 causal, K7 at ViT-L's token grids, K8 at YOLOv8x's C2f
                 shapes (K7 and K8 are dispatched nowhere, as in the JAX
-                package)
+                package); the device kernels SDPA runs in f32 at K1's and
+                K3's shapes, from the profiler
   slice f32     the full default Config() -- 680x680 RGB-D, 1000^2 x 200
                 grid, 131,080 slots x 10 tokens x 1024 -- through
                 Perception / VoxelTokenMemory with a random-init DINOv2
                 ViT-L/14-reg: 32 frames (4 flushes of 8), then 3 image
                 queries of 3 images (one with a region radius); launch
-                counts, store and top-K checks, times per flush and query
-  slice bf16    the same with bf16 weights, compute and store
+                counts, store and top-K checks, times per flush and query;
+                one more query under torch.profiler, whose K1 launches must
+                all be the TF32 tile (attention_tf32_kernel)
+  slice bf16    the same with bf16 weights, compute and store (K1 on the
+                wgmma tile)
   slice-parity  small_test_config() and a tiny ViT (head_dim 16, routed to
                 K3 as in the JAX package): the same frames and injected
                 draws on the CPU (plain versions) and on the card (kernels);
@@ -44,7 +49,10 @@ non-zero):
                 then ClipPatchDetector feeding VoxelTokenMemory's long-term
                 memory over the 32 frames (4 flushes), at 0.55 and again
                 at the 99th percentile of the heat a random-init tower
-                gives; K3 in every CLIP layer, K1 never from a CLIP call
+                gives; K3 in every CLIP layer, K1 never from a CLIP call;
+                one more score per matcher and the detector's embedding of
+                8 frames under torch.profiler, whose K3 launches must all
+                be the TF32 tile (the towers run f32 activations)
   clip-parity   a small CLIP keeping head_dim 80 (vision) and a causal
                 head_dim 64 text tower: embeddings and scores, f32 and
                 int8, on the card against the CPU, and the detector's
@@ -88,6 +96,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -121,10 +130,11 @@ PARITY_TOL = 1e-4       # top-K scores, f32 slice on card vs CPU
 # versions): sums in other orders through 2 blocks give velocities within
 # 5e-4 of ~3; 3 CFG steps at scale 4 amplify that to 2e-3 in the latents
 TEXTQ_V_TOL, TEXTQ_LAT_TOL = 5e-4, 2e-3
-# H100 SXM dense peaks (data sheet): f32 outside the tensor cores, bf16 on
-# them, TF32 for the f32 line's context; HBM rate
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM dense peaks (data sheet): bf16 on the tensor cores; f32 at the
+# card's best f32-accurate rate, three TF32 products per f32 product on
+# the tensor cores (495 TFLOP/s / 3; 67 outside them); HBM rate
 TF32_FLOPS, HBM_BYTES_PER_S = 495e12, 3.35e12
+PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3, torch.bfloat16: 989e12}
 
 
 def log(phase: str, msg: str) -> None:
@@ -214,8 +224,8 @@ def unit_cos(a: np.ndarray, b: np.ndarray) -> float:
 
 def bound(flops: float, n_bytes: float, dtype) -> tuple:
     """(ms, "operations" or "bytes"): the least time the card could take
-    for this work, the larger of flops over the dtype's peak and bytes
-    over the HBM rate."""
+    for this work, the larger of flops over the dtype's peak (f32: three
+    TF32 products per product) and bytes over the HBM rate."""
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -229,6 +239,33 @@ def attn_flops(B, H, Sq, Sk, hd, causal=False) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels fn() launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def check_tile(names, tag: str, tile: str, what: str) -> int:
+    """Every kernel among ``names`` that a source tagged ``tag`` launched
+    (K1 "short_attention_qkv", K3 "short_attention": the tag type in the
+    kernel's template arguments) is ``tile``; returns how many there were
+    (at least one)."""
+    got = [n for n in names if re.search(rf"\b{tag}\b", n)]
+    check(bool(got) and all(tile in n for n in got),
+          f"{what}: {len(got)} launches of {tag!r}, not all {tile}: "
+          f"{sorted(set(n[:120] for n in got))[:3]}")
+    return len(got)
+
+
+# the tile each attention kernel runs, by dtype
+F32_TILE, BF16_TILE = "attention_tf32_kernel", "attention_wgmma_kernel"
 
 
 def sdpa_ms(q, k, v, causal=False) -> float:
@@ -323,6 +360,8 @@ def phase_kernels(dev, gen):
             plain = cuda_ms(
                 lambda: fa.short_attention_reference(q, k, v, causal))
             lib = sdpa_ms(q, k, v, causal)
+            if dtype == torch.float32:
+                sdpa_kernels(q, k, v, causal, f"K3 {case} shape")
             # the same calls replayed from a CUDA graph: device time alone
             dev_ms = graph_ms(lambda: fa.short_attention(q, k, v, causal))
             lib_dev = graph_ms(lambda: F.scaled_dot_product_attention(
@@ -390,6 +429,8 @@ def k1_case(qkv, H, dtype, keys) -> dict:
     plain = cuda_ms(lambda: fa.short_attention_qkv_reference(qkv, H))
     q, k, v = (t.contiguous() for t in fa._split_heads(qkv, H))
     lib = sdpa_ms(q, k, v)
+    if dtype == torch.float32 and B == 8:
+        sdpa_kernels(q, k, v, False, f"K1 shape B={B} S={S}")
     dev_ms = graph_ms(lambda: fa.short_attention_qkv(qkv, H))
     lib_dev = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     flops = attn_flops(B, H, S, S, hd)
@@ -408,6 +449,17 @@ def k1_case(qkv, H, dtype, keys) -> dict:
             "library_ms": lib, "tflops": flops / ms / 1e9,
             "bound_share": b_ms / ms, "graph_ms": dev_ms,
             "library_graph_ms": lib_dev}
+
+
+def sdpa_kernels(q, k, v, causal, what) -> None:
+    """Log the device kernels one SDPA call runs on these inputs: in f32
+    the library yardstick of K1 and K3, whose kernel name says which of
+    PyTorch's attention back ends it took."""
+    import torch.nn.functional as F
+    names = device_kernels(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal))
+    log("kernels", f"SDPA {str(q.dtype)[6:]} at the {what}: device kernels "
+        f"{sorted(set(n[:100] for n in names))}")
 
 
 def normalised_qkv(x, c, heads, g, eps=1e-6):
@@ -488,8 +540,6 @@ def k4_cases(dev, gen, cases):
             S = Sx + Sc
             flops = attn_flops(B, H, S, S, 64)
             b_ms, b_by = bound(flops, nbytes(x, c, got, *g), dtype)
-            tf32 = (f", {flops / TF32_FLOPS * 1e3:.4f} ms at the TF32 rate"
-                    if dtype == torch.float32 else "")
             log("kernels", f"K4 joint_qkv_attention {case} B={B} {H}x64 "
                 f"Sx={Sx} Sc={Sc} (S {S}) {str(dtype)[6:]}: max_abs_err "
                 f"{err:.3g} (tol {tol_s}"
@@ -498,7 +548,7 @@ def k4_cases(dev, gen, cases):
                 f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                 f"{b_ms / ms:.3f} of the bound) plain {plain:.4f} ms"
                 f"{' (batch row 0)' if n < B else ''} bound {b_ms:.4f} ms "
-                f"({b_by}{tf32}); replayed from a CUDA graph: kernel "
+                f"({b_by}); replayed from a CUDA graph: kernel "
                 f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s, "
                 f"{b_ms / dev_ms:.3f} of the bound); no PyTorch call "
                 f"applies the qk-norm -- for context only, SDPA on the "
@@ -760,6 +810,13 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
             check(bool((d2r <= radius ** 2).all()),
                   f"query {i}: voxel outside the region")
         best = b[0] if best is None else best
+    # one more query under the profiler: every K1 launch is this dtype's
+    # tile (f32: the TF32 tile)
+    tile = F32_TILE if dtype == torch.float32 else BF16_TILE
+    n_k1 = check_tile(device_kernels(lambda: mem.voxel_localized(
+        queries[0], K=cfg.query.top_k)), "short_attention_qkv", tile,
+        f"{name} profiled query")
+    log(name, f"profiled query: {n_k1} K1 launches, all {tile}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(name, f"num_voxels {nv} dropped {int(mem.state.dropped_voxels)}; "
         f"flush ms (8 frames each) {[round(t, 3) for t in flush_ms]}; "
@@ -769,7 +826,7 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
         f"{peak:.2f} GB")
     result = {"dtype": str(dtype)[6:], "num_voxels": nv,
               "flush_ms": flush_ms, "query_ms": query_ms,
-              "peak_gb": peak}
+              "peak_gb": peak, "k1_tile": tile}
     del mem, perception, params
     torch.cuda.empty_cache()
     return result
@@ -898,6 +955,13 @@ def phase_clip(dev, cfg, vcfg, world, seed):
                   and abs(float(s.sum()) - 1) < 1e-4,
                   f"clip {name}: bad scores {s}")
         check(0 <= best < len(labels), f"clip {name}: best {best}")
+        # one more score under the profiler: the towers keep f32
+        # activations (int8 too), so every K3 launch is the TF32 tile
+        n_k3 = check_tile(device_kernels(lambda: m.score(views, "a bed")),
+                          "short_attention", F32_TILE,
+                          f"clip {name} profiled score")
+        log("clip", f"CLIPMatcher {name} profiled score: {n_k3} K3 "
+            f"launches, all {F32_TILE}")
         view_feats[name] = m._embed_views(views)
         steady = statistics.median(score_ms[1:])
         log("clip", f"CLIPMatcher {name}: score ({N_VIEWS} views, text "
@@ -964,6 +1028,11 @@ def phase_clip(dev, cfg, vcfg, world, seed):
                    "peak_gb": peak})
     del mem
     torch.cuda.empty_cache()
+    n_k3 = check_tile(device_kernels(lambda: det.embed(np.stack(
+        [o["rgb"] for o, _ in frames[:BATCH]]))), "short_attention",
+        F32_TILE, "clip detector profiled embed")
+    log("clip", f"ClipPatchDetector profiled embedding of {BATCH} frames: "
+        f"{n_k3} K3 launches, all {F32_TILE}")
 
     # random-init towers give near-uniform class scores, so no patch may
     # pass 0.55: feed the same frames again with the threshold at the 99th
@@ -1682,10 +1751,13 @@ def main(argv=None) -> int:
                     and c["dtype"] == dtype
                     and all(c.get(k, v) == v for k, v in match.items()))
 
-    # K3, K5 and K6 run one of two shared tiles by dtype
-    tiles = {"tiles": {
-        "bfloat16": "bsc_nav_tpu_torch/csrc/attention_mma.cuh",
-        "float32": "bsc_nav_tpu_torch/csrc/attention_tile.cuh"}}
+    # the shared tiles each attention kernel runs, by dtype: K1 and K3 the
+    # TF32 tile in f32, K5 and K6 the CUDA-core tile
+    csrc = "bsc_nav_tpu_torch/csrc/"
+
+    def tiles(f32):
+        return {"tiles": {"bfloat16": csrc + "attention_mma.cuh",
+                          "float32": csrc + f32}}
 
     def entry(name, source, replaces, i, case, **extra):
         by_path = {p: n[i] for p, n in paths.items()}
@@ -1702,23 +1774,26 @@ def main(argv=None) -> int:
 
     print(json.dumps({"kernels": [
         entry("short_attention_qkv", "short_attention_qkv.cu",
-              "bsc_nav_tpu/ops/flash_attention.py:422", 0, main_case("K1")),
+              "bsc_nav_tpu/ops/flash_attention.py:422", 0, main_case("K1"),
+              **tiles("attention_tf32.cuh")),
         entry("max_cosine_per_voxel", "max_cosine.cu",
               "bsc_nav_tpu/ops/similarity.py:56", 1, main_case("K2")),
         entry("short_attention", "short_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:364", 2,
-              main_case("K3", case="vision"), **tiles),
+              main_case("K3", case="vision"),
+              **tiles("attention_tf32.cuh")),
         entry("joint_qkv_attention", "joint_qkv_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:550", 3,
               main_case("K4", "bfloat16", case="joint")),
         entry("mid_attention", "mid_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:215", 4,
               main_case("K5", "bfloat16", case="sd3-medium-512"),
-              also_replaces="tools/mid_attention_exp.py:56", **tiles),
+              also_replaces="tools/mid_attention_exp.py:56",
+              **tiles("attention_tile.cuh")),
         entry("flash_attention", "flash_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:121", 5,
               main_case("K6", "bfloat16", case="sd35-medium-1024"),
-              **tiles),
+              **tiles("attention_tile.cuh")),
         entry("layer_norm", "layer_norm.cu",
               "bsc_nav_tpu/ops/layernorm.py:47", 6, main_case("K7"),
               dispatched="nowhere, as in the JAX package"),

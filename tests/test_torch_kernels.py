@@ -156,8 +156,8 @@ def test_kernel_sources_are_the_build_inputs():
 @pytest.mark.parametrize("B,S,heads,hd", [(2, 261, 16, 64), (3, 37, 2, 16),
                                           (1, 130, 3, 128), (2, 65, 5, 48)])
 def test_k1_matches_plain(cuda, B, S, heads, hd, dtype):
-    """f32 (the CUDA cores): sums in another order, 2e-5 abs.  bf16 (the
-    tensor-core tile) rounds P to bf16:
+    """f32 (the TF32 tile, three TF32 products per f32 product): sums in
+    another order, 2e-5 abs.  bf16 (the wgmma tile) rounds P to bf16:
     ``short_attention_qkv_bf16_tolerance``."""
     qkv = _qkv(B, S, heads, hd, seed=3).to(cuda, dtype)
     before = tfa.short_attention_qkv.launches
@@ -198,6 +198,23 @@ def test_k1_bf16_tensor_core_tile_edges(cuda, B, S, heads, hd):
     assert bool((diff <= tol).all()), diff.max().item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,heads,hd", K1_EDGES)
+def test_k1_f32_tf32_tile_edges(cuda, B, S, heads, hd):
+    """K1 in f32 on the TF32 tile (three TF32 products per f32 product),
+    q, k and v read in place from the fused rows, at the tile's edges,
+    within the f32 bound of 2e-5 abs."""
+    qkv = _qkv(B, S, heads, hd, seed=25).to(cuda)
+    before = tfa.short_attention_qkv.launches
+    got = tfa.short_attention_qkv(qkv, heads)
+    assert tfa.short_attention_qkv.launches == before + 1
+    want = tfa.short_attention_qkv_reference(qkv, heads)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, S, heads * hd)
+    diff = (got - want).abs()
+    assert bool((diff <= 2e-5).all()), diff.max().item()
+
+
 def _device_kernels(fn) -> list:
     """Names of the device kernels that fn() launches, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -212,11 +229,14 @@ def _device_kernels(fn) -> list:
 @pytest.mark.cuda
 def test_k1_k4_take_the_tile_in_bf16_only(cuda):
     """By dtype alone: bf16 launches the wgmma tile (K1 with its FusedQKV
-    policy, K4 with JointQKV), f32 the CUDA-core kernels, one each."""
+    policy, K4 with JointQKV, K3 with Contiguous); f32 launches the TF32
+    tile for K1 (FusedQKV) and K3 (Contiguous) and K4's CUDA-core kernel;
+    one kernel each."""
     qkv = _qkv(2, 77, 2, 64, seed=5).to(cuda)
     x, c, g = _joint(1, 100, 77, 2, seed=5)
     x, c = x.to(cuda), c.to(cuda)
     g = [t.to(cuda) for t in g]
+    q, k, v = (_bhsd(2, 3, 77, 80, s).to(cuda) for s in (5, 6, 7))
     for dtype, tile in ((torch.float32, False), (torch.bfloat16, True)):
         k1 = _device_kernels(
             lambda: tfa.short_attention_qkv(qkv.to(dtype), 2))
@@ -224,12 +244,18 @@ def test_k1_k4_take_the_tile_in_bf16_only(cuda):
         k4 = _device_kernels(
             lambda: tfa.joint_qkv_attention(x.to(dtype), c.to(dtype), 2, *g))
         k4 = [n for n in k4 if "joint_qkv" in n]
-        assert len(k1) == 1 and len(k4) == 1, (k1, k4)
+        k3 = _device_kernels(lambda: tfa.short_attention(
+            q.to(dtype), k.to(dtype), v.to(dtype), causal=True))
+        k3 = [n for n in k3 if "short_attention" in n]
+        assert len(k1) == 1 and len(k4) == 1 and len(k3) == 1, (k1, k4, k3)
         if tile:
             assert "attention_wgmma_kernel" in k1[0] and "FusedQKV" in k1[0]
             assert "attention_wgmma_kernel" in k4[0] and "JointQKV" in k4[0]
+            assert "attention_wgmma_kernel" in k3[0] and "Contiguous" in k3[0]
         else:
-            assert "short_attention_qkv_kernel" in k1[0], k1
+            for name, policy in ((k1[0], "FusedQKV"), (k3[0], "Contiguous")):
+                assert "attention_tf32_kernel" in name, name
+                assert policy in name and "float" in name, name
             assert "joint_qkv_kernel" in k4[0], k4
 
 
@@ -258,8 +284,9 @@ def test_k2_matches_plain(cuda, V1, K, D, dtype):
     (2, 3, 50, 203, 80, False),         # ragged, Sq != Sk
     (1, 2, 130, 130, 128, True), (2, 5, 9, 9, 16, False)])
 def test_k3_matches_plain(cuda, B, H, Sq, Sk, hd, causal, dtype):
-    """f32: sums in another order, 2e-5 abs.  bf16 rounds P to bf16 on
-    the tensor cores: ``flash_attention_bf16_tolerance``."""
+    """f32 (the TF32 tile, three TF32 products per f32 product): sums in
+    another order, 2e-5 abs.  bf16 rounds P to bf16 on the tensor cores:
+    ``flash_attention_bf16_tolerance``."""
     q = _bhsd(B, H, Sq, hd, 5).to(cuda, dtype)
     k, v = (_bhsd(B, H, Sk, hd, s).to(cuda, dtype) for s in (6, 7))
     before = tfa.short_attention.launches
@@ -301,6 +328,24 @@ def test_k3_bf16_tensor_core_tile_edges(cuda, B, H, Sq, Sk, hd, causal):
     assert got.dtype == torch.bfloat16 and got.shape == (B, H, Sq, hd)
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", K3_EDGES)
+def test_k3_f32_tf32_tile_edges(cuda, B, H, Sq, Sk, hd, causal):
+    """K3 in f32 on the TF32 tile through its wrapper at the tile's edges
+    (every head_dim's ring depth: 3 stages at hd <= 64, 2 at 80, 1 at
+    128), within the f32 bound of 2e-5 abs."""
+    q = _bhsd(B, H, Sq, hd, 26).to(cuda)
+    k, v = (_bhsd(B, H, Sk, hd, s).to(cuda) for s in (27, 28))
+    before = tfa.short_attention.launches
+    got = tfa.short_attention(q, k, v, causal)
+    assert tfa.short_attention.launches == before + 1
+    want = tfa.short_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, H, Sq, hd)
+    diff = (got - want).abs()
+    assert bool((diff <= 2e-5).all()), diff.max().item()
 
 
 @pytest.mark.cuda

@@ -118,6 +118,64 @@ def tensor_core_tile(q, k, v, causal=False, drop_tile=None):
     return (acc / l[..., None]).to(torch.bfloat16).float()
 
 
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32's 10-bit mantissa, to nearest with ties away
+    from zero, on the bits: (bits + 2^12) with the low 13 bits cleared --
+    what the port's f32 attention tile does (cvt.rna.tf32.f32)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """x = hi + lo + O(2^-22 |x|): hi = rna(x), lo = rna(x - hi)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def tf32x3_tile(q, k, v, causal=False, drop_tile=None, passes=3):
+    """The arithmetic order of the port's f32 attention tile
+    (bsc_nav_tpu_torch/csrc/attention_tf32.cuh, run by K1 and K3 in f32)
+    in plain torch on f32 q, k, v [B, H, S, hd] (numpy or torch), ragged
+    Sq and Sk and the square causal mask included: q scaled by the f32
+    scale (1/sqrt(hd) rounded once from double) before the dot, every
+    product of f32 operands a, b as three TF32 products a_lo b_hi +
+    a_hi b_lo + a_hi b_hi (``tf32_split``, small terms first) summed in
+    f32, 64-key tiles, an online softmax with the running max, P split
+    like any operand before P @ V, and acc / l.  ``passes=1`` keeps only
+    a_hi b_hi (one TF32 product); ``drop_tile`` skips one key tile."""
+    qf, kf, vf = (torch.as_tensor(a).float() for a in (q, k, v))
+    Sq, Sk = qf.shape[2], kf.shape[2]
+    scale = float(np.float32(1.0 / np.sqrt(qf.shape[3])))
+
+    def prod(a, b):
+        (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+        if passes == 1:
+            return ah @ bh
+        return (al @ bh + ah @ bl) + ah @ bh
+
+    qs = qf * scale
+    m = torch.full(qf.shape[:3], -torch.inf)
+    l = torch.zeros(qf.shape[:3])
+    acc = torch.zeros_like(qf)
+    rows = torch.arange(Sq)[:, None]
+    for t, k0 in enumerate(range(0, Sk, 64)):
+        if t == drop_tile:
+            continue
+        s = prod(qs, kf[:, :, k0:k0 + 64].transpose(-1, -2))
+        if causal:
+            keys = torch.arange(k0, min(Sk, k0 + 64))[None, :]
+            s = s.masked_fill(keys > rows, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        # a row with no live key yet keeps m = -inf: no update, no NaN
+        ms = torch.where(m_new == -torch.inf, 0.0, m_new)
+        corr = torch.exp(m - ms)
+        p = torch.exp(s - ms[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + prod(p, vf[:, :, k0:k0 + 64])
+        m = m_new
+    return acc / l[..., None]
+
+
 def numpy_tree(tree):
     """A JAX params tree as numpy leaves (writable copies)."""
     return jax.tree.map(lambda a: np.array(a), tree)

@@ -16,10 +16,10 @@
 // (attention_wgmma_kernel<mid_attention, 64, ...> in a profile); the names
 // here have internal linkage, so every source holds its own copy.  The
 // Contiguous and FusedQKV policies take their element type, so the f32
-// tile of K1 and K3 (attention_tf32.cuh: every f32 product as three TF32
-// products, within the f32 paths' 2e-5 bound) addresses its rows with
-// them too; K4, K5 and K6 keep their f32 CUDA-core kernels
-// (joint_qkv_attention.cu, attention_tile.cuh).
+// tile of K1, K3, K5 and K6 (attention_tf32.cuh: every f32 product as
+// three TF32 products, within the f32 paths' 2e-5 bound) addresses its
+// rows with them too; K4 keeps its f32 CUDA-core kernel
+// (joint_qkv_attention.cu).
 //
 // Bound on the H100: the tensor cores, and beside them the exponentials.
 // A bf16 joint call at SD3.5-medium's 1024^2 is 809 GFLOP against 86 MB
@@ -28,8 +28,8 @@
 // so at hd 64 the exp2 work is as large as the products, and the ~5 f32
 // operations per score (scale, max, sum, rescale, round) add ~0.5 ms on
 // the CUDA cores; only their overlap with the products gets below the sum.
-// The CUDA-core tile ran the products as scalar f32 FMAs (67 TFLOP/s peak)
-// and reached 22.6 TFLOP/s.
+// The CUDA-core kernels it replaced ran the products as scalar f32 FMAs
+// (67 TFLOP/s peak) and reached 22.6 TFLOP/s.
 //
 // Design (wgmma, sm_90a): a block owns one (batch*head) and 128 query rows
 // held by two warpgroups of 64 rows, which share a ring of 64-key K/V tiles

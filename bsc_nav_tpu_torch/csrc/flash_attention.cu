@@ -11,7 +11,8 @@
 // Bound on the H100: arithmetic.  The 1024^2 joint call is
 // 4*B*H*S^2*hd = 809 GFLOP against 86 MB of bf16 q, k, v and out --
 // ~9,400 flops per byte: 0.82 ms at the tensor cores' 989 TFLOP/s in
-// bf16, 12.1 ms at the CUDA cores' 67 TFLOP/s in f32.
+// bf16, 4.90 ms in f32 at 165 TFLOP/s (three TF32 products per f32
+// product, a third of the TF32 rate).
 //
 // Design: the TPU kernel runs a (B*H, Sq/bq) grid of programs that each
 // carry an online softmax over K/V blocks of at most 128 keys, padded to
@@ -20,19 +21,21 @@
 // causal mask tile by tile (a block stops at its last row's tile, and the
 // longest rows are scheduled first), and decode (batch*head, q tile) from a
 // one-dimensional grid, so B*H is not bound by the 65,535 limit of a second
-// grid dimension.  The launcher chooses by dtype alone:
+// grid dimension.  The launcher chooses by dtype alone; K3 and K5 run the
+// same two tiles by dtype:
 // - bf16 runs the tensor-core tile of attention_mma.cuh (wgmma with f32
 //   accumulators, two warpgroups of 64 query rows, K/V staged by cp.async
 //   in a ring, the softmax in registers while the previous tile's P.V runs
 //   on the tensor cores); it rounds P to bf16 before P.V, as the JAX
 //   package's reference does on a TPU.  Its bound is then the tensor
 //   cores and the softmax's exponentials together (see the header).
-// - f32 keeps the CUDA-core tile of attention_tile.cuh (8 query rows per
-//   warp), shared with K3 and K5: on the tensor cores f32 would mean TF32,
-//   whose 10-bit mantissa breaks the exact-f32 parity the f32 paths are
-//   held to.  K3 and K5 run the same two tiles by dtype.
+// - f32 runs the tile of attention_tf32.cuh with its Contiguous policy:
+//   every f32 product as three TF32 products (a_lo b_hi + a_hi b_lo +
+//   a_hi b_hi), which keeps f32's accuracy (the f32 paths' 2e-5 abs);
+//   S = QK^T and, at hd <= 64, P.V on wgmma from a V^T split once per
+//   block, 74 key tiles per block at S 4685.
 #include "attention_mma.cuh"
-#include "attention_tile.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 struct flash_attention {};   // names the kernels in a profile
@@ -51,6 +54,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (is_bf16)
     return tc::launch_attention_mma<flash_attention>(q, k, v, out, BH, Sq, Sk,
                                                      hd, causal, s);
-  return launch_attention<flash_attention, 8>(q, k, v, out, BH, Sq, Sk, hd,
-                                              causal, s);
+  return tc::launch_attention_tf32<flash_attention>(q, k, v, out, BH, Sq, Sk,
+                                                    hd, causal, s);
 }

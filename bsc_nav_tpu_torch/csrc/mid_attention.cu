@@ -14,25 +14,28 @@
 // ~295 -- so 0.097 ms at the 989 TFLOP/s bf16 rate.  Its B*H*S^2 = 3.7e8
 // softmax exponentials take ~0.1 ms more on the SMs' MUFU lanes unless
 // they overlap the products (attention_mma.cuh's header reckons them).
-// In f32 the same call is 1.43 ms at the CUDA cores' 67 TFLOP/s.
+// In f32 (60 MB) the same call is 0.581 ms at 165 TFLOP/s, a third of the
+// TF32 rate: every f32 product taken as three TF32 products.
 //
 // Design: the TPU kernel keeps a (batch, head)'s whole K/V resident in VMEM
 // and runs a one-shot softmax per 256-row q tile.  K/V of 4096 keys (2 MB
 // in f32) do not fit a block's 227 KB of shared memory, so both dtypes
 // stream them in 64-key tiles with an online softmax instead, which gives
-// the same softmax up to the order of the sums:
+// the same softmax up to the order of the sums.  Both run two warpgroups
+// of 64 query rows per block; a sequence of 1613 rows gives 13 q tiles
+// per (batch, head), 1,872 blocks at B 6 x 24 heads:
 // - bf16 runs the tensor-core tile of attention_mma.cuh (wgmma with f32
-//   accumulators, 64 query rows per warpgroup, K/V staged by cp.async in a
-//   ring, the softmax in registers while the previous tile's P.V runs on
-//   the tensor cores); it rounds P to bf16 before P.V, as the JAX
-//   package's reference does on a TPU, so it is held to its plain version
-//   by flash_attention_bf16_tolerance.  A sequence of 1613 rows gives 13
-//   q tiles per (batch, head), 1,872 blocks at B 6 x 24 heads.
-// - f32 keeps the CUDA-core tile of attention_tile.cuh with 8 query rows
-//   per warp (64 per block): each K/V tile staged in shared memory serves
-//   twice the rows K3's tile does.
+//   accumulators, K/V staged by cp.async in a ring, the softmax in
+//   registers while the previous tile's P.V runs on the tensor cores); it
+//   rounds P to bf16 before P.V, as the JAX package's reference does on a
+//   TPU, so it is held to its plain version by
+//   flash_attention_bf16_tolerance.
+// - f32 runs the tile of attention_tf32.cuh with its Contiguous policy (as
+//   K3): every f32 product as three TF32 products (a_lo b_hi + a_hi b_lo +
+//   a_hi b_hi), S = QK^T and, at hd <= 64, P.V on wgmma from a V^T split
+//   once per block; held to its plain version by the f32 paths' 2e-5 abs.
 #include "attention_mma.cuh"
-#include "attention_tile.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 struct mid_attention {};   // names the kernels in a profile
@@ -51,6 +54,6 @@ extern "C" int mid_attention_launch(const void* q, const void* k,
   if (is_bf16)
     return tc::launch_attention_mma<mid_attention>(q, k, v, out, BH, Sq, Sk,
                                                    hd, 0, s);
-  return launch_attention<mid_attention, 8>(q, k, v, out, BH, Sq, Sk, hd, 0,
-                                            s);
+  return tc::launch_attention_tf32<mid_attention>(q, k, v, out, BH, Sq, Sk,
+                                                  hd, 0, s);
 }

@@ -29,8 +29,10 @@
 //   one warpgroup were measured against these at K3's shapes and left
 //   out: under 10% apart, and not the same way in every run (PERF.md).
 // - f32 runs the tile of attention_tf32.cuh with its Contiguous policy:
-//   S = QK^T on wgmma and P.V on mma.sync, every f32 product as three
-//   TF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi), so it is held to
+//   S = QK^T on wgmma, and P.V on wgmma at hd 64 (text towers: V split
+//   once per block by a producer warpgroup) and on mma.sync at hd 80
+//   (vision), every f32 product as three TF32 products (a_lo b_hi + a_hi
+//   b_lo + a_hi b_hi), so it is held to
 //   its plain version by the same 2e-5 abs as before; S 257 gives 3 q
 //   tiles, 576 blocks at B 12 x 16 heads.
 #include "attention_mma.cuh"

@@ -27,11 +27,12 @@
 //   128-byte swizzle at hd 64 (ViT-L) and 8x8 core matrices at the other
 //   head_dims; P is rounded to bf16 before P.V, so it is held to its plain
 //   version by flash_attention_bf16_tolerance on the split heads.
-// - f32 runs attention_tf32.cuh (S = QK^T on wgmma, P.V on mma.sync),
-//   every f32 product as three TF32 products (a_lo b_hi + a_hi b_lo +
-//   a_hi b_hi), so it is held to its plain version by 2e-5 abs; q is
-//   scaled by 1/sqrt(hd) rounded once from double, as JAX rounds its
-//   Python float.
+// - f32 runs attention_tf32.cuh (S = QK^T and, at hd <= 64, P.V on
+//   wgmma, V split once per block by a producer warpgroup; P.V on
+//   mma.sync above), every f32 product as three TF32 products (a_lo b_hi
+//   + a_hi b_lo + a_hi b_hi), so it is held to its plain version by 2e-5
+//   abs; q is scaled by 1/sqrt(hd) rounded once from double, as JAX
+//   rounds its Python float.
 #include <cuda_runtime.h>
 
 #include "attention_mma.cuh"

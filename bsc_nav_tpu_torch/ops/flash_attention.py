@@ -24,12 +24,11 @@ by dtype:
   ``short_attention_qkv_bf16_tolerance`` and, against K4's bf16 order
   ``joint_qkv_attention_bf16_reference`` (q-hat and k-hat rounded to
   bf16), ``joint_qkv_attention_bf16_tolerance``.
-- f32: K1 and K3 run a tensor-core tile (``csrc/attention_tf32.cuh``)
-  that takes every f32 product as three TF32 products (a_lo b_hi + a_hi
-  b_lo + a_hi b_hi), which keeps f32's accuracy: they are held to their
-  plain versions by 2e-5 abs, as before.  K4, K5 and K6 keep their
-  CUDA-core kernels (``csrc/joint_qkv_attention.cu``,
-  ``csrc/attention_tile.cuh``).
+- f32: K1, K3, K5 and K6 run a tensor-core tile
+  (``csrc/attention_tf32.cuh``) that takes every f32 product as three TF32
+  products (a_lo b_hi + a_hi b_lo + a_hi b_hi), which keeps f32's
+  accuracy: they are held to their plain versions by 2e-5 abs, as
+  before.  K4 keeps its CUDA-core kernel (``csrc/joint_qkv_attention.cu``).
 
 Layouts follow the JAX package: ``attention``, ``short_attention``,
 ``mid_attention``, ``flash_attention`` and ``reference_attention`` take

@@ -241,27 +241,24 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def device_kernels(fn) -> list:
-    """Names of the device kernels fn() launches, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def check_tile(names, tag: str, tile: str, what: str) -> int:
-    """Every kernel among ``names`` that a source tagged ``tag`` launched
-    (K1 "short_attention_qkv", K3 "short_attention": the tag type in the
-    kernel's template arguments) is ``tile``; returns how many there were
-    (at least one)."""
-    got = [n for n in names if re.search(rf"\b{tag}\b", n)]
-    check(bool(got) and all(tile in n for n in got),
-          f"{what}: {len(got)} launches of {tag!r}, not all {tile}: "
-          f"{sorted(set(n[:120] for n in got))[:3]}")
-    return len(got)
+def check_tile(fn, tag: str, tile: str, what: str) -> int:
+    """fn() runs once under the profiler: every kernel it launches from a
+    source tagged ``tag`` (K1 "short_attention_qkv", K3 "short_attention",
+    K5 "mid_attention", K6 "flash_attention": the tag type in the kernel's
+    template arguments) is ``tile``, and the window shows as many of them
+    as the tag's wrapper counted in that call, at least one.  Returns how
+    many there were."""
+    from bsc_nav_tpu_torch.profiling import device_kernels
+    i = [f.__name__ for f in wrappers()].index(tag)
+    before = counts()
+    names = device_kernels(fn)
+    n = since(before)[i]
+    got = [x for x in names if re.search(rf"\b{tag}\b", x)]
+    check(n > 0 and len(got) == n and all(tile in x for x in got),
+          f"{what}: profiled {len(got)} launches of {tag!r} of the {n} "
+          f"counted, not all {tile}: "
+          f"{sorted(set(x[:120] for x in got or names))[:3]}")
+    return n
 
 
 # the tile each attention kernel runs, by dtype
@@ -456,6 +453,8 @@ def sdpa_kernels(q, k, v, causal, what) -> None:
     the library yardstick of K1 and K3, whose kernel name says which of
     PyTorch's attention back ends it took."""
     import torch.nn.functional as F
+
+    from bsc_nav_tpu_torch.profiling import device_kernels
     names = device_kernels(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal))
     log("kernels", f"SDPA {str(q.dtype)[6:]} at the {what}: device kernels "
@@ -583,6 +582,8 @@ def long_attention_cases(dev, gen, cases):
     S 1374); K6 at SD3.5-medium's joint attention at 1024^2 (B 6, 24x64,
     S 4096 + 589) and causal at B 2, 16x64, S 2048.  The plain versions
     build their logits in 1 GB chunks of B*H."""
+    import torch.nn.functional as F
+
     from bsc_nav_tpu_torch.ops import flash_attention as fa
 
     for kernel, case, B, H, S, causal in LONG_ATTENTION:
@@ -610,24 +611,39 @@ def long_attention_cases(dev, gen, cases):
             err = diff.max().item()
             check(bool((diff <= tol).all()),
                   f"{kernel} {case} {dtype}: err {err}")
+            tile = F32_TILE if dtype == torch.float32 else BF16_TILE
+            n = check_tile(lambda: fn(q, k, v), name, tile,
+                           f"{kernel} {case} {dtype}")
+            log("kernels", f"{kernel} {name} {case} {str(dtype)[6:]}: "
+                f"{n} launch profiled, {tile}")
             ms = cuda_ms(lambda: fn(q, k, v))
             plain_ms = cuda_ms(lambda: plain(q, k, v))
             lib = sdpa_ms(q, k, v, causal)
             flops = attn_flops(B, H, S, S, 64, causal)
             b_ms, b_by = bound(flops, nbytes(q, k, v, got), dtype)
+            graph = {}
+            if dtype == torch.float32:   # device time alone, as K1 and K3
+                graph = {"graph_ms": graph_ms(lambda: fn(q, k, v)),
+                         "library_graph_ms": graph_ms(
+                             lambda: F.scaled_dot_product_attention(
+                                 q, k, v, is_causal=causal))}
             log("kernels", f"{kernel} {name} {case} B={B} {H}x64 S={S} "
                 f"causal={causal} {str(dtype)[6:]}: max_abs_err {err:.3g} "
                 f"(tol {tol_s}) kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
                 f"bound) plain {plain_ms:.4f} ms sdpa {lib:.4f} ms bound "
-                f"{b_ms:.4f} ms ({b_by})")
+                f"{b_ms:.4f} ms ({b_by})"
+                + (f"; replayed from a CUDA graph: kernel "
+                   f"{graph['graph_ms']:.4f} ms ({b_ms / graph['graph_ms']:.3f}"
+                   f" of the bound), sdpa {graph['library_graph_ms']:.4f} ms"
+                   if graph else ""))
             cases.append({"kernel": kernel, "case": case, "B": B, "heads": H,
                           "S": S, "head_dim": 64, "causal": causal,
                           "dtype": str(dtype)[6:], "max_abs_err": err,
                           "tol": tol_s, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "library_ms": lib, "tflops": flops / ms / 1e9,
-                          "bound_share": b_ms / ms})
+                          "bound_share": b_ms / ms, **graph})
             del q, k, v, got, want, diff, tol
         torch.cuda.empty_cache()
 
@@ -813,8 +829,8 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
     # one more query under the profiler: every K1 launch is this dtype's
     # tile (f32: the TF32 tile)
     tile = F32_TILE if dtype == torch.float32 else BF16_TILE
-    n_k1 = check_tile(device_kernels(lambda: mem.voxel_localized(
-        queries[0], K=cfg.query.top_k)), "short_attention_qkv", tile,
+    n_k1 = check_tile(lambda: mem.voxel_localized(
+        queries[0], K=cfg.query.top_k), "short_attention_qkv", tile,
         f"{name} profiled query")
     log(name, f"profiled query: {n_k1} K1 launches, all {tile}")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -957,7 +973,7 @@ def phase_clip(dev, cfg, vcfg, world, seed):
         check(0 <= best < len(labels), f"clip {name}: best {best}")
         # one more score under the profiler: the towers keep f32
         # activations (int8 too), so every K3 launch is the TF32 tile
-        n_k3 = check_tile(device_kernels(lambda: m.score(views, "a bed")),
+        n_k3 = check_tile(lambda: m.score(views, "a bed"),
                           "short_attention", F32_TILE,
                           f"clip {name} profiled score")
         log("clip", f"CLIPMatcher {name} profiled score: {n_k3} K3 "
@@ -1028,8 +1044,8 @@ def phase_clip(dev, cfg, vcfg, world, seed):
                    "peak_gb": peak})
     del mem
     torch.cuda.empty_cache()
-    n_k3 = check_tile(device_kernels(lambda: det.embed(np.stack(
-        [o["rgb"] for o, _ in frames[:BATCH]]))), "short_attention",
+    n_k3 = check_tile(lambda: det.embed(np.stack(
+        [o["rgb"] for o, _ in frames[:BATCH]])), "short_attention",
         F32_TILE, "clip detector profiled embed")
     log("clip", f"ClipPatchDetector profiled embedding of {BATCH} frames: "
         f"{n_k3} K3 launches, all {F32_TILE}")
@@ -1751,13 +1767,10 @@ def main(argv=None) -> int:
                     and c["dtype"] == dtype
                     and all(c.get(k, v) == v for k, v in match.items()))
 
-    # the shared tiles each attention kernel runs, by dtype: K1 and K3 the
-    # TF32 tile in f32, K5 and K6 the CUDA-core tile
+    # the shared tiles K1, K3, K5 and K6 run, by dtype
     csrc = "bsc_nav_tpu_torch/csrc/"
-
-    def tiles(f32):
-        return {"tiles": {"bfloat16": csrc + "attention_mma.cuh",
-                          "float32": csrc + f32}}
+    tiles = {"tiles": {"bfloat16": csrc + "attention_mma.cuh",
+                       "float32": csrc + "attention_tf32.cuh"}}
 
     def entry(name, source, replaces, i, case, **extra):
         by_path = {p: n[i] for p, n in paths.items()}
@@ -1775,13 +1788,13 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         entry("short_attention_qkv", "short_attention_qkv.cu",
               "bsc_nav_tpu/ops/flash_attention.py:422", 0, main_case("K1"),
-              **tiles("attention_tf32.cuh")),
+              **tiles),
         entry("max_cosine_per_voxel", "max_cosine.cu",
               "bsc_nav_tpu/ops/similarity.py:56", 1, main_case("K2")),
         entry("short_attention", "short_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:364", 2,
               main_case("K3", case="vision"),
-              **tiles("attention_tf32.cuh")),
+              **tiles),
         entry("joint_qkv_attention", "joint_qkv_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:550", 3,
               main_case("K4", "bfloat16", case="joint")),
@@ -1789,11 +1802,11 @@ def main(argv=None) -> int:
               "bsc_nav_tpu/ops/flash_attention.py:215", 4,
               main_case("K5", "bfloat16", case="sd3-medium-512"),
               also_replaces="tools/mid_attention_exp.py:56",
-              **tiles("attention_tile.cuh")),
+              float32=main_case("K5", case="sd3-medium-512"), **tiles),
         entry("flash_attention", "flash_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:121", 5,
               main_case("K6", "bfloat16", case="sd35-medium-1024"),
-              **tiles("attention_tile.cuh")),
+              float32=main_case("K6", case="sd35-medium-1024"), **tiles),
         entry("layer_norm", "layer_norm.cu",
               "bsc_nav_tpu/ops/layernorm.py:47", 6, main_case("K7"),
               dispatched="nowhere, as in the JAX package"),

@@ -29,6 +29,7 @@ from bsc_nav_tpu_torch.ops import conv2d as tconv
 from bsc_nav_tpu_torch.ops import flash_attention as tfa
 from bsc_nav_tpu_torch.ops import layernorm as tln
 from bsc_nav_tpu_torch.ops import similarity as tsim
+from bsc_nav_tpu_torch.profiling import device_kernels
 
 
 @pytest.fixture
@@ -215,17 +216,6 @@ def test_k1_f32_tf32_tile_edges(cuda, B, S, heads, hd):
     assert bool((diff <= 2e-5).all()), diff.max().item()
 
 
-def _device_kernels(fn) -> list:
-    """Names of the device kernels that fn() launches, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
 @pytest.mark.cuda
 def test_k1_k4_take_the_tile_in_bf16_only(cuda):
     """By dtype alone: bf16 launches the wgmma tile (K1 with its FusedQKV
@@ -238,13 +228,13 @@ def test_k1_k4_take_the_tile_in_bf16_only(cuda):
     g = [t.to(cuda) for t in g]
     q, k, v = (_bhsd(2, 3, 77, 80, s).to(cuda) for s in (5, 6, 7))
     for dtype, tile in ((torch.float32, False), (torch.bfloat16, True)):
-        k1 = _device_kernels(
+        k1 = device_kernels(
             lambda: tfa.short_attention_qkv(qkv.to(dtype), 2))
         k1 = [n for n in k1 if "short_attention_qkv" in n]
-        k4 = _device_kernels(
+        k4 = device_kernels(
             lambda: tfa.joint_qkv_attention(x.to(dtype), c.to(dtype), 2, *g))
         k4 = [n for n in k4 if "joint_qkv" in n]
-        k3 = _device_kernels(lambda: tfa.short_attention(
+        k3 = device_kernels(lambda: tfa.short_attention(
             q.to(dtype), k.to(dtype), v.to(dtype), causal=True))
         k3 = [n for n in k3 if "short_attention" in n]
         assert len(k1) == 1 and len(k4) == 1 and len(k3) == 1, (k1, k4, k3)
@@ -257,6 +247,27 @@ def test_k1_k4_take_the_tile_in_bf16_only(cuda):
                 assert "attention_tf32_kernel" in name, name
                 assert policy in name and "float" in name, name
             assert "joint_qkv_kernel" in k4[0], k4
+
+
+@pytest.mark.cuda
+def test_k5_k6_take_the_tf32_tile_in_f32(cuda):
+    """By dtype alone: f32 K5 and K6 launch the TF32 tile, bf16 the wgmma
+    tile, both with the Contiguous policy; one kernel each, causal or
+    not."""
+    q, k, v = (_bhsd(1, 2, 700, 64, s).to(cuda) for s in (18, 19, 20))
+    for dtype, tile in ((torch.float32, "attention_tf32_kernel"),
+                        (torch.bfloat16, "attention_wgmma_kernel")):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        for name, fn in (
+                ("mid_attention", lambda: tfa.mid_attention(qd, kd, vd)),
+                ("flash_attention",
+                 lambda: tfa.flash_attention(qd, kd, vd, False)),
+                ("flash_attention",
+                 lambda: tfa.flash_attention(qd, kd, vd, True))):
+            names = device_kernels(fn)
+            got = [n for n in names if name in n]
+            assert len(got) == 1, (got, [n[:100] for n in names[:5]])
+            assert tile in got[0] and "Contiguous" in got[0], got[0]
 
 
 @pytest.mark.cuda
@@ -468,11 +479,21 @@ def test_k4_refuses_what_it_does_not_take(cuda):
     ("flash", 2, 16, 2048, 2048, 64, True),   # causal, square
     ("flash", 2, 3, 129, 4097, 128, False),   # ragged, Sq != Sk
     ("flash", 1, 2, 300, 300, 16, True),
-    ("flash", 70000, 1, 8, 8, 16, False)])    # B*H past a grid dim's 65535
+    ("flash", 70000, 1, 8, 8, 16, False),     # B*H past a grid dim's 65535
+    # one or two heads across many 64-key tiles (f32: the error of 26-74
+    # tiles' sums), every head_dim class of the f32 tile (hd <= 64 takes
+    # P.V on wgmma, hd 80 and 128 on mma.sync)
+    ("mid", 1, 2, 1613, 1613, 64, False), ("mid", 2, 1, 1613, 700, 64, False),
+    ("mid", 1, 2, 1000, 1613, 16, False),
+    ("flash", 1, 1, 4685, 4685, 64, False),
+    ("flash", 1, 2, 2048, 2048, 64, True),
+    ("flash", 1, 2, 777, 4685, 80, False),
+    ("flash", 1, 1, 2048, 2048, 128, True),
+    ("flash", 1, 2, 2100, 2100, 16, True)])
 def test_k5_k6_match_plain(cuda, name, B, H, Sq, Sk, hd, causal, dtype):
-    """K5 mid_attention and K6 flash_attention.  f32 as K3: 2e-5 abs.
-    bf16 rounds P to bf16 on the tensor cores:
-    ``flash_attention_bf16_tolerance``."""
+    """K5 mid_attention and K6 flash_attention.  f32 (the three-pass
+    TF32 tile) as K3: 2e-5 abs.  bf16 rounds P to bf16 on the tensor
+    cores: ``flash_attention_bf16_tolerance``."""
     fn = getattr(tfa, f"{name}_attention")
     plain = getattr(tfa, f"{name}_attention_reference")
     flags = (causal,) if name == "flash" else ()

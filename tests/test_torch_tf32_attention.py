@@ -1,11 +1,13 @@
-"""Port parity: the f32 attention tile of K1 ``short_attention_qkv`` and K3
-``short_attention`` (bsc_nav_tpu_torch/csrc/attention_tf32.cuh), whose
-every product of f32 operands is three TF32 products on the tensor cores,
-emulated in plain torch (``tests/torch_parity.py`` ``tf32x3_tile``) and held
-to the f32 bound the card holds the kernels to: 2e-5 abs against the
-port's plain versions and the JAX package's Pallas kernels in interpret
-mode, as tests/test_flash_attention.py runs them on the CPU.  The same
-bound must catch one TF32 pass and a lost key tile.  The card side is in
+"""Port parity: the f32 attention tile of K1 ``short_attention_qkv``, K3
+``short_attention``, K5 ``mid_attention`` and K6 ``flash_attention``
+(bsc_nav_tpu_torch/csrc/attention_tf32.cuh), whose every product of f32
+operands is three TF32 products on the tensor cores, emulated in plain
+torch (``tests/torch_parity.py`` ``tf32x3_tile``) and held to the f32 bound
+the card holds the kernels to: 2e-5 abs against the port's plain versions
+and the JAX package's Pallas kernels in interpret mode, as
+tests/test_flash_attention.py runs them on the CPU.  The same bound must
+catch one TF32 pass and a lost key tile, at K1's and K3's lengths and
+across the many key tiles of K5's and K6's.  The card side is in
 tests/test_torch_kernels.py.
 """
 
@@ -124,3 +126,64 @@ def test_f32_bound_catches_a_lost_key_tile(B, H, Sq, Sk, hd, causal):
         *(torch.from_numpy(a) for a in (q, k, v)), causal)
     lost = tf32x3_tile(q, k, v, causal, drop_tile=1)
     assert (lost - want).abs().max().item() > F32_TOL
+
+
+# K5 and K6 at small B*H across many 64-key tiles (11-40): K5 with ragged
+# Sq at Sk 641 (just past K3's reach) and at SD3-medium's 1613, K6 with one
+# head at a long non-causal Sk and at a causal S
+K5_CASES = [(1, 2, 300, 641, 64), (1, 2, 700, 1613, 64)]
+K6_CASES = [(1, 1, 130, 2500, 64, False), (1, 1, 1030, 1030, 64, True)]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,hd", K5_CASES)
+def test_tf32x3_order_holds_k5_bound(B, H, Sq, Sk, hd):
+    """The three-pass order within 2e-5 abs of the port's plain
+    ``mid_attention_reference`` and the Pallas ``mid_attention``."""
+    q, k, v = _bhsd(B, H, Sq, hd, 11), _bhsd(B, H, Sk, hd, 12), \
+        _bhsd(B, H, Sk, hd, 13)
+    got = tf32x3_tile(q, k, v)
+    port = tfa.mid_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)))
+    pallas = torch.from_numpy(np.array(jfa.mid_attention(
+        *map(jnp.asarray, (q, k, v)), interpret=True)))
+    for want in (port, pallas):
+        diff = (got - want).abs()
+        assert diff.max().item() <= F32_TOL, diff.max().item()
+        assert diff.max().item() > 0
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", K6_CASES)
+def test_tf32x3_order_holds_k6_bound(B, H, Sq, Sk, hd, causal):
+    """The three-pass order within 2e-5 abs of the port's plain
+    ``flash_attention_reference`` and the Pallas ``flash_attention``."""
+    q, k, v = _bhsd(B, H, Sq, hd, 14), _bhsd(B, H, Sk, hd, 15), \
+        _bhsd(B, H, Sk, hd, 16)
+    got = tf32x3_tile(q, k, v, causal)
+    port = tfa.flash_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal)
+    pallas = torch.from_numpy(np.array(jfa.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal, interpret=True)))
+    for want in (port, pallas):
+        diff = (got - want).abs()
+        assert diff.max().item() <= F32_TOL, diff.max().item()
+        assert diff.max().item() > 0
+
+
+LONG_CASES = [(*K5_CASES[1], False), *K6_CASES]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", LONG_CASES)
+def test_f32_bound_catches_one_pass_and_a_lost_tile_on_long_keys(
+        B, H, Sq, Sk, hd, causal):
+    """Across K5's and K6's many key tiles, one TF32 product per f32
+    product and the three-pass order with one 64-key tile (keys 64-127)
+    left out each miss the 2e-5 bound that the three-pass order meets."""
+    q, k, v = _bhsd(B, H, Sq, hd, 17), _bhsd(B, H, Sk, hd, 18), \
+        _bhsd(B, H, Sk, hd, 19)
+    want = tfa.flash_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal)
+    three = (tf32x3_tile(q, k, v, causal) - want).abs().max().item()
+    one = (tf32x3_tile(q, k, v, causal, passes=1) - want).abs().max().item()
+    lost = (tf32x3_tile(q, k, v, causal, drop_tile=1) - want
+            ).abs().max().item()
+    assert three <= F32_TOL < min(one, lost), (three, one, lost)

@@ -134,15 +134,20 @@ def tf32_split(x: torch.Tensor) -> tuple:
 
 def tf32x3_tile(q, k, v, causal=False, drop_tile=None, passes=3):
     """The arithmetic order of the port's f32 attention tile
-    (bsc_nav_tpu_torch/csrc/attention_tf32.cuh, run by K1 and K3 in f32)
-    in plain torch on f32 q, k, v [B, H, S, hd] (numpy or torch), ragged
-    Sq and Sk and the square causal mask included: q scaled by the f32
-    scale (1/sqrt(hd) rounded once from double) before the dot, every
+    (bsc_nav_tpu_torch/csrc/attention_tf32.cuh, run by K1, K3, K5 and K6
+    in f32) in plain torch on f32 q, k, v [B, H, S, hd] (numpy or torch),
+    ragged Sq and Sk and the square causal mask included: q scaled by the
+    f32 scale (1/sqrt(hd) rounded once from double) before the dot, every
     product of f32 operands a, b as three TF32 products a_lo b_hi +
     a_hi b_lo + a_hi b_hi (``tf32_split``, small terms first) summed in
     f32, 64-key tiles, an online softmax with the running max, P split
-    like any operand before P @ V, and acc / l.  ``passes=1`` keeps only
-    a_hi b_hi (one TF32 product); ``drop_tile`` skips one key tile."""
+    like any operand before P @ V, the tile's P V added to the rescaled
+    acc once, and acc / l.  Each pass runs over the whole tile in turn,
+    as the tile's wgmma passes do (S; P V at hd <= 64); at hd > 64 the
+    tile's mma.sync P V takes the three passes in turn per 8 keys, an
+    order of f32 sums within the tile that this models but does not
+    copy.  ``passes=1`` keeps only a_hi b_hi (one TF32 product);
+    ``drop_tile`` skips one key tile."""
     qf, kf, vf = (torch.as_tensor(a).float() for a in (q, k, v))
     Sq, Sk = qf.shape[2], kf.shape[2]
     scale = float(np.float32(1.0 / np.sqrt(qf.shape[3])))

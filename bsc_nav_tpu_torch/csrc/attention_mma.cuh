@@ -507,7 +507,7 @@ struct WgmmaTile {
         static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
         src, Sq, Sk, causal, scale * 1.4426950408889634f, n_qtiles);
-    return static_cast<int>(cudaGetLastError());
+    return counted_launch(kTileAttnWgmma);
   }
 };
 

@@ -6,18 +6,11 @@
 // _mid_kernel and _flash_kernel in f32 -- q scaled by the f32 scale
 // (1/sqrt(hd) rounded once from double) before the dot, keys past Sk
 // masked (the kv_len mask), ragged Sq and Sk -- with every product of two
-// f32 operands a, b taken as three TF32 products,
-//   a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi   (small terms first),
-//   a_hi = rna(a), a_lo = rna(a - a_hi),
-// summed in f32.  rna rounds to TF32's 10-bit mantissa, to nearest with
-// ties away from zero, on the bits: (bits + 2^12) with the low 13 bits
-// cleared, i.e. cvt.rna.tf32.f32 with its don't-care bits cleared.  Every
-// operand reaches the tensor cores with those 13 bits zero, so how they
-// would treat raw f32 (truncation) never matters.  The split leaves
-// |a - a_hi - a_lo| <= 2^-22 |a| and drops a_lo b_lo (<= 2^-22 |a b|), so
-// the result sits at plain f32's error (emulated on the CPU by
-// tests/torch_parity.py tf32x3_tile), inside the f32 paths' 2e-5 bound,
-// which one TF32 product misses by an order of magnitude.
+// f32 operands a, b taken as three TF32 products, a_lo b_hi + a_hi b_lo +
+// a_hi b_hi (tf32.cuh, shared with K8), so the result sits at plain f32's
+// error (emulated on the CPU by tests/torch_parity.py tf32x3_tile), inside
+// the f32 paths' 2e-5 bound, which one TF32 product misses by an order of
+// magnitude.
 //
 // Bound on the H100: the products.  f32-accurate products run at a third
 // of the TF32 rate, 495 / 3 = 165 TFLOP/s.  ViT-L's K1 call (B 8, 16 x 64,
@@ -92,6 +85,7 @@
 #include <stdint.h>
 
 #include "attention_mma.cuh"
+#include "tf32.cuh"
 
 namespace {
 namespace tc {
@@ -119,19 +113,6 @@ struct Tf32Cfg {
       (PV_WGMMA ? sizeof(float) * 2 * KT + 8 * (2 * STAGES + 1) : 0);
   static_assert(SMEM <= 232448, "over a block's 227 KB");
 };
-
-// f32 rounded to TF32 (10-bit mantissa), to nearest, ties away from zero;
-// the low 13 bits cleared
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + O(2^-22 |x|), both TF32
-__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
-}
 
 // d (m64n64, f32) = A B (+ d when scale_d): A and B TF32 in shared memory,
 // both K-major
@@ -897,7 +878,7 @@ struct Tf32Tile {
         static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
     kernel<<<static_cast<unsigned>(blocks), Tf32Cfg<HD>::THREADS, smem,
              stream>>>(src, Sq, Sk, causal, scale, n_qtiles);
-    return static_cast<int>(cudaGetLastError());
+    return counted_launch(kTileAttnTf32);
   }
 };
 

@@ -21,6 +21,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Launches of each tensor-core kernel, counted on the host by the launcher
+// that made them (a launch the runtime refused is not counted); one array
+// for the library, defined in conv3x3_s1.cu.  chip_smoke.py reads it to
+// check which kernel each call took.
+enum TileKind {
+  kTileAttnWgmma,   // attention_wgmma_kernel (attention_mma.cuh)
+  kTileAttnTf32,    // attention_tf32_kernel (attention_tf32.cuh)
+  kTileConvMma,     // conv3x3_s1_mma_kernel
+  kTileConvTf32,    // conv3x3_s1_tf32_kernel
+  kTileKinds
+};
+extern "C" long long bsc_tile_launches[kTileKinds];
+
+// the launch just made: its error, and one more of `kind` if it took
+inline int counted_launch(TileKind kind) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++bsc_tile_launches[kind];
+  return static_cast<int>(err);
+}
+
 namespace {
 namespace tc {
 

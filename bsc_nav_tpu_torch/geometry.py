@@ -12,8 +12,15 @@ grid ids depend on the last bit of every float step.  Where the JAX
 package's compiled ingest rounds in a particular way, the port rounds the
 same way on every device: the world -> grid division by the cell size is
 a multiply by its float32 reciprocal (XLA's rewrite of a division by a
-constant), and the quaternion norm is a fused multiply-add chain (XLA's
-CPU reduction).
+constant), the quaternion norm is a fused multiply-add chain (XLA's CPU
+reduction), and its square root is correctly rounded (taken in float64
+and rounded once: PyTorch's vectorized float32 sqrt on AVX-512 CPUs is
+not, and moved 670 of 4,096 norms by an ulp).  With these the port's
+``quat_to_rot`` equals the JAX package's eager one bit for bit.  XLA's
+jitted 3-term products are another matter: fused multiply-add chains on
+some host codegens, plain products and sums on others, so no formulation
+matches them everywhere; the parity tests hold those points to JAX's
+within an ulp bound (``tests/torch_parity.py``).
 """
 
 from __future__ import annotations
@@ -85,7 +92,7 @@ def _sum_sq(q: torch.Tensor) -> torch.Tensor:
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     """Quaternion (x, y, z, w) -> 3x3 rotation (normalizing first, like
     scipy's Rotation.from_quat).  Batched over leading dims."""
-    q = q / torch.sqrt(_sum_sq(q))[..., None]
+    q = q / torch.sqrt(_sum_sq(q).double()).to(q.dtype)[..., None]
     x, y, z, w = q.unbind(-1)
     rows = [
         [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],

@@ -17,6 +17,13 @@ Differences from the JAX version, by design:
   ``jax.random``.  ``pix [B, P]`` (pixel subset, with replacement) and
   ``repl_idx [N]`` (replacement slots) may be injected instead; tests
   rebuild them from the JAX key and inject them.
+- The float geometry (camera-frame and world points) may be injected as
+  ``points``.  Its last bits are not the same in every XLA build: the
+  jitted 3-term products become fused multiply-add chains on some host
+  codegens and plain products and sums on others, and a point on an
+  axis-aligned wall then falls into the neighbouring voxel.  Tests hold
+  the port's points to JAX's within an ulp bound and inject JAX's to
+  compare everything downstream exactly.
 - Scatters that JAX drops out of range (``mode="drop"``) write the
   garbage row here (slot V, cell G*G, voxel id G*G*H).  Each data row
   still has exactly one writer, so no host sync is needed to select the
@@ -52,6 +59,26 @@ def _run_heads(sorted_key: torch.Tensor) -> torch.Tensor:
     return head & (sorted_key != _BIG)
 
 
+def frame_points(depth: torch.Tensor, pix: torch.Tensor,
+                 cam2world: torch.Tensor, cfg: Config):
+    """Depth, camera-frame and world points of the pixels ``pix`` [B, P]
+    of ``depth`` [B, H, W]: (z [B, P], p_local, p_world [B, P, 3]),
+    all f32."""
+    B, H, W = depth.shape
+    f32 = dict(dtype=torch.float32, device=depth.device)
+    inv_calib = torch.linalg.inv_ex(torch.as_tensor(
+        G.camera_intrinsics(H, W, cfg.sensor.hfov_deg), **f32)).inverse
+    py_img, px_img = pix // W, pix % W
+    z = depth.reshape(B, H * W).gather(1, pix).to(torch.float32)
+    uv1 = torch.stack([px_img.to(torch.float32) + 0.5,
+                       py_img.to(torch.float32) + 0.5,
+                       torch.ones_like(z)], dim=-1)              # [B, P, 3]
+    p_local = (uv1 @ inv_calib.T) * z[..., None]
+    p_world = (p_local @ cam2world[:, :3, :3].transpose(1, 2)
+               + cam2world[:, None, :3, 3])
+    return z, p_local, p_world
+
+
 def ingest_frames(
     state: VoxelStoreState,
     rgb: torch.Tensor,          # [B, H, W, 3] uint8
@@ -62,9 +89,12 @@ def ingest_frames(
     cfg: Config,
     pix: Optional[torch.Tensor] = None,       # [B, P] int pixel draws
     repl_idx: Optional[torch.Tensor] = None,  # [N]    int slot draws
+    points: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[VoxelStoreState, dict]:
     """Scatter a batch of frames into the store, in place.  Returns
-    (state, stats).  Draws not injected come from ``generator``."""
+    (state, stats).  Draws not injected come from ``generator``;
+    ``points`` = (p_local, p_world) [B, P, 3] f32 replaces the float
+    geometry of the drawn pixels."""
     mem = cfg.memory
     if mem.replacement != "dist":
         raise NotImplementedError(
@@ -84,8 +114,6 @@ def ingest_frames(
 
     base_tf = f32(G.base_axes_transform())
     base2cam = f32(G.base_to_cam_transform(cfg.sensor.sensor_height))
-    inv_calib = torch.linalg.inv_ex(
-        f32(G.camera_intrinsics(H, W, cfg.sensor.hfov_deg))).inverse
     patch_intr = f32(G.patch_intrinsics(nh, nw))
 
     # --- frame chain: initialized on the very first frame ever ------------
@@ -103,17 +131,11 @@ def ingest_frames(
         repl_idx = torch.randint(0, K, (N,), generator=generator, device=dev)
     pix = pix.to(device=dev, dtype=torch.int64)
     repl_idx = repl_idx.to(device=dev, dtype=torch.int64)
-    py_img, px_img = pix // W, pix % W
-
-    z = depth.reshape(B, H * W).gather(1, pix).to(torch.float32)   # [B, P]
-    uv1 = torch.stack([px_img.to(torch.float32) + 0.5,
-                       py_img.to(torch.float32) + 0.5,
-                       torch.ones_like(z)], dim=-1)              # [B, P, 3]
-    rays = uv1 @ inv_calib.T
-    p_local = rays * z[..., None]                     # camera-frame points
+    z, p_local, p_world = frame_points(depth, pix, cam2world, cfg)
+    if points is not None:
+        p_local, p_world = (p.to(device=dev, dtype=torch.float32)
+                            for p in points)
     valid = (z > cfg.sensor.min_depth) & (z < cfg.sensor.max_depth)
-    p_world = (p_local @ cam2world[:, :3, :3].transpose(1, 2)
-               + cam2world[:, None, :3, 3])
 
     # --- voxel ids ---------------------------------------------------------
     rc = G.world_to_grid(p_world, Gs, mem.cell_size)      # [B, P, 3]

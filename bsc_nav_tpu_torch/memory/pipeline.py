@@ -44,18 +44,20 @@ def encode_patch_grid(params: vit.ViT, images_uint8: torch.Tensor,
 
 def make_build_step(cfg: Config, vit_cfg: vit.ViTConfig,
                     compute_dtype=torch.float32):
-    """Returns (carry, params, rgb, depth, poses, pix=None, repl_idx=None)
-    -> (carry, stats) with carry = (state, generator).  ``pix`` and
-    ``repl_idx`` inject the ingest's random draws (see ingest_frames)."""
+    """Returns (carry, params, rgb, depth, poses, pix=None, repl_idx=None,
+    points=None) -> (carry, stats) with carry = (state, generator).
+    ``pix`` and ``repl_idx`` inject the ingest's random draws, ``points``
+    its float geometry (see ingest_frames)."""
 
     def build_step(carry, params: vit.ViT, rgb, depth, poses,
                    pix: Optional[torch.Tensor] = None,
-                   repl_idx: Optional[torch.Tensor] = None):
+                   repl_idx: Optional[torch.Tensor] = None,
+                   points=None):
         state, generator = carry
         patch = encode_patch_grid(params, rgb, vit_cfg, cfg, compute_dtype)
         state, stats = ingest_frames(
             state, rgb, depth, poses, patch.to(torch.float32), generator,
-            cfg, pix=pix, repl_idx=repl_idx)
+            cfg, pix=pix, repl_idx=repl_idx, points=points)
         return (state, generator), stats
 
     return build_step

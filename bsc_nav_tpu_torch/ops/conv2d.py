@@ -7,8 +7,9 @@ nowhere (its YOLO stack uses ``lax.conv``).  The port keeps it the same
 way: no model calls ``conv3x3_s1``; ``chip_smoke.py`` holds it against
 its plain version and against cuDNN (``F.conv2d``) on the card.  Unlike
 the TPU kernel it takes any C, CO, H and W, YOLOv8x's widths 160 and 320
-included.  bf16 runs on the tensor cores, f32 on the CUDA cores (exact
-f32, no TF32).
+included.  Both dtypes run on the tensor cores: bf16 products directly,
+f32 products as three TF32 products each (f32's error, not one TF32
+product's).
 """
 
 from __future__ import annotations

@@ -33,7 +33,9 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
 
     A CPU tensor takes ``layer_norm_reference``.  A CUDA tensor launches
     kernel K7 (``csrc/layer_norm.cu``) on the current stream without
-    synchronising, or raises for what it does not take.
+    synchronising, or raises for what it does not take.  A view that is
+    contiguous but not 16-byte aligned (or a D the vector loads do not
+    divide) takes the kernel's generic path.
     """
     D = x.shape[-1]
     if scale.shape != (D,) or bias.shape != (D,):

@@ -1,6 +1,8 @@
-"""Which device kernels a call launches, by torch.profiler: how
-``chip_smoke.py`` and the card tests check the tile each attention kernel
-took."""
+"""Which device kernels a call launches, by torch.profiler: how the card
+tests check the tile each attention kernel took, and how ``chip_smoke.py``
+lists the kernels SDPA runs (``chip_smoke.py`` checks tiles by the
+launchers' own counts: late in its long run a profiled window has come
+back empty)."""
 
 from __future__ import annotations
 

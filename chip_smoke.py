@@ -3,6 +3,7 @@
 one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --kernels K7,K8   # those kernels' cases alone
 
 Phases, one line each (any failed check raises, so the script exits
 non-zero):
@@ -17,8 +18,12 @@ non-zero):
                 function where one exists (SDPA for K1, K3, K5 and K6,
                 F.layer_norm for K7, cuDNN for K8; for K4, as context,
                 SDPA on the already-normalised q/k/v), the TFLOP/s reached
-                and the bound over the kernel's time, and for K1, K3 and
-                K4 the device time alone from a CUDA graph replay: K1 at
+                and the bound over the kernel's time, and for K1, K3, K4,
+                K7 and K8 the device time alone from a CUDA graph replay
+                (and K7's F.layer_norm's and K8's cuDNN's), for K5, K6 and
+                K8 the kernel each launch took (f32: the three-pass TF32
+                tiles; bf16: attention_wgmma_kernel,
+                conv3x3_s1_mma_kernel): K1 at
                 ViT-L's S 261, K3 at the CLIP towers' shapes, K4 at
                 SD3.5-medium's joint and self-attention at 512^2 and its
                 self-attention at 1024^2 (S 4096, checked on one batch
@@ -34,8 +39,8 @@ non-zero):
                 ViT-L/14-reg: 32 frames (4 flushes of 8), then 3 image
                 queries of 3 images (one with a region radius); launch
                 counts, store and top-K checks, times per flush and query;
-                one more query under torch.profiler, whose K1 launches must
-                all be the TF32 tile (attention_tf32_kernel)
+                one more query, whose K1 launches must all be the TF32
+                tile (attention_tf32_kernel)
   slice bf16    the same with bf16 weights, compute and store (K1 on the
                 wgmma tile)
   slice-parity  small_test_config() and a tiny ViT (head_dim 16, routed to
@@ -51,8 +56,8 @@ non-zero):
                 at the 99th percentile of the heat a random-init tower
                 gives; K3 in every CLIP layer, K1 never from a CLIP call;
                 one more score per matcher and the detector's embedding of
-                8 frames under torch.profiler, whose K3 launches must all
-                be the TF32 tile (the towers run f32 activations)
+                8 frames, whose K3 launches must all be the TF32 tile (the
+                towers run f32 activations)
   clip-parity   a small CLIP keeping head_dim 80 (vision) and a causal
                 head_dim 64 text tower: embeddings and scores, f32 and
                 int8, on the card against the CPU, and the detector's
@@ -180,6 +185,19 @@ def graph_ms(fn, n: int = 20, reps: int = 10) -> float:
     return ms
 
 
+def host_ms(fn, n: int = 200) -> float:
+    """Host time of one fn() in ms: n calls enqueued back to back, over n,
+    without waiting for the device (200 launches fit the launch queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def wrappers() -> tuple:
     """The wrappers of K1-K8, each holding its launch count."""
     from bsc_nav_tpu_torch.ops import conv2d, layernorm, similarity
@@ -241,28 +259,43 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# the tensor-core kernels, in the order of csrc/mma_bf16.cuh's TileKind
+TILES = ("attention_wgmma_kernel", "attention_tf32_kernel",
+         "conv3x3_s1_mma_kernel", "conv3x3_s1_tf32_kernel")
+
+
+def tile_launches() -> tuple:
+    """The kernel library's launches of each of TILES, counted by the
+    launchers where they launch them (``bsc_tile_launches``)."""
+    import ctypes
+
+    from bsc_nav_tpu_torch.ops import _build
+    return tuple((ctypes.c_longlong * len(TILES)).in_dll(
+        _build.kernels(), "bsc_tile_launches"))
+
+
 def check_tile(fn, tag: str, tile: str, what: str) -> int:
-    """fn() runs once under the profiler: every kernel it launches from a
-    source tagged ``tag`` (K1 "short_attention_qkv", K3 "short_attention",
-    K5 "mid_attention", K6 "flash_attention": the tag type in the kernel's
-    template arguments) is ``tile``, and the window shows as many of them
-    as the tag's wrapper counted in that call, at least one.  Returns how
-    many there were."""
-    from bsc_nav_tpu_torch.profiling import device_kernels
+    """fn() runs once: every launch that the wrapper ``tag`` (K1
+    "short_attention_qkv", K3 "short_attention", K5 "mid_attention", K6
+    "flash_attention", K8 "conv3x3_s1") counted in that call, at least
+    one, took ``tile``, and no other kernel of its kind (attention or
+    conv) ran, by the launchers' own counts (``tile_launches``).  Returns
+    how many there were."""
     i = [f.__name__ for f in wrappers()].index(tag)
-    before = counts()
-    names = device_kernels(fn)
+    before, tiles = counts(), tile_launches()
+    fn()
+    torch.cuda.synchronize()
     n = since(before)[i]
-    got = [x for x in names if re.search(rf"\b{tag}\b", x)]
-    check(n > 0 and len(got) == n and all(tile in x for x in got),
-          f"{what}: profiled {len(got)} launches of {tag!r} of the {n} "
-          f"counted, not all {tile}: "
-          f"{sorted(set(x[:120] for x in got or names))[:3]}")
+    took = dict(zip(TILES, (a - b for a, b in zip(tile_launches(), tiles))))
+    kind = [t for t in TILES if t.split("_")[0] == tile.split("_")[0]]
+    check(n > 0 and took[tile] == n and sum(took[t] for t in kind) == n,
+          f"{what}: {n} launches of {tag!r} counted, tiles launched {took}")
     return n
 
 
-# the tile each attention kernel runs, by dtype
-F32_TILE, BF16_TILE = "attention_tf32_kernel", "attention_wgmma_kernel"
+# the tile each attention kernel runs, by dtype; K8's kernels
+F32_TILE, BF16_TILE = TILES[1], TILES[0]
+K8_TILES = {torch.float32: TILES[3], torch.bfloat16: TILES[2]}
 
 
 def sdpa_ms(q, k, v, causal=False) -> float:
@@ -615,7 +648,7 @@ def long_attention_cases(dev, gen, cases):
             n = check_tile(lambda: fn(q, k, v), name, tile,
                            f"{kernel} {case} {dtype}")
             log("kernels", f"{kernel} {name} {case} {str(dtype)[6:]}: "
-                f"{n} launch profiled, {tile}")
+                f"{n} launch counted, {tile}")
             ms = cuda_ms(lambda: fn(q, k, v))
             plain_ms = cuda_ms(lambda: plain(q, k, v))
             lib = sdpa_ms(q, k, v, causal)
@@ -672,19 +705,32 @@ def layer_norm_cases(dev, gen, cases):
             plain = cuda_ms(lambda: ln.layer_norm_reference(x, g, b))
             gd, bd = g.to(dtype), b.to(dtype)
             lib = cuda_ms(lambda: F.layer_norm(x, (D,), gd, bd, 1e-6))
+            # events around one short call also count the host's work:
+            # the same calls replayed from a CUDA graph give device time
+            dev_ms = graph_ms(lambda: ln.layer_norm(x, g, b))
+            lib_dev = graph_ms(lambda: F.layer_norm(x, (D,), gd, bd, 1e-6))
+            # ... and the host's share: the wrapper's work per call
+            host = host_ms(lambda: ln.layer_norm(x, g, b))
+            lib_host = host_ms(lambda: F.layer_norm(x, (D,), gd, bd, 1e-6))
             # per element: the two sums, centre, square, scale, affine
             b_ms, b_by = bound(8.0 * x.numel(), nbytes(x, got, g, b), dtype)
             log("kernels", f"K7 layer_norm [{B}, 261, {D}] {str(dtype)[6:]}: "
                 f"max_abs_err {err:.3g} (tol {K7_TOL}"
                 f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}) "
                 f"kernel {ms:.4f} ms plain {plain:.4f} ms F.layer_norm "
-                f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by}); dispatched "
-                f"nowhere")
+                f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by}); replayed from "
+                f"a CUDA graph: kernel {dev_ms:.4f} ms ({b_ms / dev_ms:.3f} "
+                f"of the bound), F.layer_norm {lib_dev:.4f} ms; host work "
+                f"per call: kernel {host:.4f} ms, F.layer_norm "
+                f"{lib_host:.4f} ms; dispatched nowhere")
             cases.append({"kernel": "K7", "B": B, "S": 261, "D": D,
                           "dtype": str(dtype)[6:], "max_abs_err": err,
                           "tol": K7_TOL, "ms": ms, "plain_ms": plain,
                           "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": lib})
+                          "library_ms": lib, "bound_share": b_ms / ms,
+                          "graph_ms": dev_ms, "library_graph_ms": lib_dev,
+                          "graph_bound_share": b_ms / dev_ms,
+                          "host_ms": host, "library_host_ms": lib_host})
             del x, got, want, diff
 
 
@@ -716,6 +762,8 @@ def conv_cases(dev, gen, cases):
             err = diff.max().item()
             case = f"{HW}x{HW}x{C}->{CO}"
             check(bool((diff <= tol).all()), f"K8 {case} {dtype}: err {err}")
+            check_tile(lambda: conv2d.conv3x3_s1(x, w, bias), "conv3x3_s1",
+                       K8_TILES[dtype], f"K8 {case} {dtype}")
             ms = cuda_ms(lambda: conv2d.conv3x3_s1(x, w, bias))
             plain = cuda_ms(lambda: conv2d.conv3x3_s1_reference(x, w, bias))
             xc = x.permute(0, 3, 1, 2)              # NCHW view, NHWC memory
@@ -723,6 +771,9 @@ def conv_cases(dev, gen, cases):
                 memory_format=torch.channels_last)
             bc = bias.to(dtype)
             lib = cuda_ms(lambda: F.silu(F.conv2d(xc, wc, bc, padding=1)))
+            dev_ms = graph_ms(lambda: conv2d.conv3x3_s1(x, w, bias))
+            lib_dev = graph_ms(
+                lambda: F.silu(F.conv2d(xc, wc, bc, padding=1)))
             flops = 2.0 * B * HW * HW * C * CO * 9
             b_ms, b_by = bound(flops, nbytes(x, w, bias, got), dtype)
             log("kernels", f"K8 conv3x3_s1 B={B} {case} {str(dtype)[6:]}: "
@@ -730,15 +781,20 @@ def conv_cases(dev, gen, cases):
                 f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}) "
                 f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                 f"{b_ms / ms:.3f} of the bound) plain {plain:.4f} ms cuDNN "
-                f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by}); dispatched "
-                f"nowhere")
+                f"{lib:.4f} ms bound {b_ms:.4f} ms ({b_by}); replayed from "
+                f"a CUDA graph: kernel {dev_ms:.4f} ms ({b_ms / dev_ms:.3f} "
+                f"of the bound), cuDNN {lib_dev:.4f} ms; {K8_TILES[dtype]}; "
+                f"dispatched nowhere")
             cases.append({"kernel": "K8", "case": case, "B": B, "H": HW,
                           "W": HW, "C": C, "CO": CO, "dtype": str(dtype)[6:],
                           "max_abs_err": err, "tol": K8_TOL, "ms": ms,
                           "plain_ms": plain, "bound_ms": b_ms,
                           "bound_by": b_by, "library_ms": lib,
                           "tflops": flops / ms / 1e9,
-                          "bound_share": b_ms / ms})
+                          "bound_share": b_ms / ms, "graph_ms": dev_ms,
+                          "library_graph_ms": lib_dev,
+                          "graph_bound_share": b_ms / dev_ms,
+                          "tile": K8_TILES[dtype]})
             del x, w, got, want, diff, xc, wc
     torch.cuda.empty_cache()
 
@@ -826,13 +882,13 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
             check(bool((d2r <= radius ** 2).all()),
                   f"query {i}: voxel outside the region")
         best = b[0] if best is None else best
-    # one more query under the profiler: every K1 launch is this dtype's
-    # tile (f32: the TF32 tile)
+    # one more query: every K1 launch is this dtype's tile (f32: the TF32
+    # tile)
     tile = F32_TILE if dtype == torch.float32 else BF16_TILE
     n_k1 = check_tile(lambda: mem.voxel_localized(
         queries[0], K=cfg.query.top_k), "short_attention_qkv", tile,
-        f"{name} profiled query")
-    log(name, f"profiled query: {n_k1} K1 launches, all {tile}")
+        f"{name} checked query")
+    log(name, f"checked query: {n_k1} K1 launches, all {tile}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(name, f"num_voxels {nv} dropped {int(mem.state.dropped_voxels)}; "
         f"flush ms (8 frames each) {[round(t, 3) for t in flush_ms]}; "
@@ -971,12 +1027,12 @@ def phase_clip(dev, cfg, vcfg, world, seed):
                   and abs(float(s.sum()) - 1) < 1e-4,
                   f"clip {name}: bad scores {s}")
         check(0 <= best < len(labels), f"clip {name}: best {best}")
-        # one more score under the profiler: the towers keep f32
-        # activations (int8 too), so every K3 launch is the TF32 tile
+        # one more score: the towers keep f32 activations (int8 too), so
+        # every K3 launch is the TF32 tile
         n_k3 = check_tile(lambda: m.score(views, "a bed"),
                           "short_attention", F32_TILE,
-                          f"clip {name} profiled score")
-        log("clip", f"CLIPMatcher {name} profiled score: {n_k3} K3 "
+                          f"clip {name} checked score")
+        log("clip", f"CLIPMatcher {name} checked score: {n_k3} K3 "
             f"launches, all {F32_TILE}")
         view_feats[name] = m._embed_views(views)
         steady = statistics.median(score_ms[1:])
@@ -1046,8 +1102,8 @@ def phase_clip(dev, cfg, vcfg, world, seed):
     torch.cuda.empty_cache()
     n_k3 = check_tile(lambda: det.embed(np.stack(
         [o["rgb"] for o, _ in frames[:BATCH]])), "short_attention",
-        F32_TILE, "clip detector profiled embed")
-    log("clip", f"ClipPatchDetector profiled embedding of {BATCH} frames: "
+        F32_TILE, "clip detector checked embed")
+    log("clip", f"ClipPatchDetector checked embedding of {BATCH} frames: "
         f"{n_k3} K3 launches, all {F32_TILE}")
 
     # random-init towers give near-uniform class scores, so no patch may
@@ -1682,14 +1738,45 @@ def composed_route_parity(dev, seed):
 
 # ---------------------------------------------------------------------------
 
+def kernel_cases_only(names, seed) -> int:
+    """``--kernels``: the named kernels' cases alone, on the card."""
+    from bsc_nav_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = {"K7": layer_norm_cases, "K8": conv_cases}
+    check(set(names) <= set(run), f"--kernels {names}: only {sorted(run)}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    log("build", f"in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for name in names:
+        run[name](dev, gen, cases)
+    print(json.dumps({"cases": cases}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", default="",
+                    help="only the kernel cases of these kernels (of K7, "
+                    "K8, comma separated): build, check, time, print their "
+                    "cases as JSON, and stop -- a measurement run, not "
+                    "the smoke")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False -- this "
               "script runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.kernels:
+        return kernel_cases_only(args.kernels.split(","), args.seed)
     from bsc_nav_tpu_torch.config import Config
     from bsc_nav_tpu_torch.models.vit import CONFIGS
     from bsc_nav_tpu_torch.ops import _build
@@ -1809,10 +1896,14 @@ def main(argv=None) -> int:
               float32=main_case("K6", case="sd35-medium-1024"), **tiles),
         entry("layer_norm", "layer_norm.cu",
               "bsc_nav_tpu/ops/layernorm.py:47", 6, main_case("K7"),
+              tiles={"float32": "layer_norm_kernel<float, 8>",
+                     "bfloat16": "layer_norm_kernel<__nv_bfloat16, 4>"},
               dispatched="nowhere, as in the JAX package"),
         entry("conv3x3_s1", "conv3x3_s1.cu",
               "bsc_nav_tpu/ops/conv2d.py:120", 7,
               main_case("K8", "bfloat16", case="40x40x640->640"),
+              float32=main_case("K8", case="40x40x640->640"),
+              tiles={str(d)[6:]: t for d, t in K8_TILES.items()},
               dispatched="nowhere, as in the JAX package"),
     ], "slices": slices, "slice_parity_max_err": parity_err, "clip": clip,
         "clip_parity": clip_parity, "textq": textq,

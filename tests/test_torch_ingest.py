@@ -69,6 +69,16 @@ def test_se3_chain_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+def test_quat_to_rot_matches_eager_jax_bitwise():
+    """The port's quat_to_rot equals the JAX package's eager one bit for
+    bit (the long-term feed's host frame chain): the norm an FMA chain as
+    XLA reduces it, its square root correctly rounded on every host."""
+    q = np.random.default_rng(0).normal(size=(4096, 4)).astype(np.float32)
+    np.testing.assert_array_equal(
+        TG.quat_to_rot(torch.from_numpy(q)).numpy(),
+        np.asarray(JG.quat_to_rot(jnp.asarray(q))))
+
+
 def test_grid_helpers_match_jax():
     rng = np.random.default_rng(1)
     pts = rng.uniform(-6, 6, size=(4000, 3)).astype(np.float32)

@@ -589,6 +589,37 @@ def test_k7_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D,offset", [
+    (9, 1, 0),          # D 1: the generic path
+    (7, 1022, 0),       # D not a multiple of either vector width
+    (5, 1020, 0),       # f32: a part-filled last chunk; bf16: generic
+    (6, 768, 0),        # chunks past D masked
+    (3, 4096, 0),       # the widest vector path
+    (2, 4104, 0),       # past it: generic
+    (4, 1024, 1)])      # a view one element off 16-byte alignment
+def test_k7_edge_widths(cuda, rows, D, offset, dtype):
+    """K7 at the edges of its vector path, as ``test_k7_matches_plain``:
+    a misaligned view or a D the 16-byte loads do not divide takes the
+    generic path of the same kernel, neither refused nor copied."""
+    rng = np.random.default_rng(D + offset)
+    buf = torch.from_numpy((rng.normal(size=offset + rows * D) * 3 + 1
+                            ).astype(np.float32)).to(cuda, dtype)
+    x = buf[offset:].view(rows, D)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset > 0)
+    g, b = (torch.from_numpy(rng.normal(size=D).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    before = tln.layer_norm.launches
+    got = tln.layer_norm(x, g, b)
+    assert tln.layer_norm.launches == before + 1
+    want = tln.layer_norm_reference(x, g, b)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-5 + (0 if dtype == torch.float32 else bf16_ulp(want))
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,W,C,CO,act", [
     (1, 80, 80, 160, 160, "silu"),      # YOLOv8x C2f widths
     (2, 40, 40, 320, 320, "silu"),
@@ -648,6 +679,40 @@ def test_k8_bf16_tensor_core_edges(cuda, B, H, W, C, CO, act):
     diff = (got.float() - want.float()).abs()
     tol = 1e-4 * want.float().abs().max() + bf16_ulp(want)
     assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,CO,offset", [
+    (1, 7, 9, 160, 160, 0),    # 63 pixels: less than one 128-pixel tile
+    (1, 13, 11, 320, 320, 0),  # 143: one tile and a ragged one; N 3 tiles
+    (2, 7, 9, 20, 36, 0),      # C 20: 16-byte copies; CO 36: an N tail
+    (1, 10, 10, 6, 70, 0),     # 8-byte copies; CO 70
+    (1, 5, 3, 3, 70, 0),       # C 3: 4-byte copies
+    (1, 9, 9, 40, 200, 0),     # CO 200: a part-filled second N tile
+    (1, 1, 1, 33, 17, 0),      # one pixel, odd widths
+    (3, 4, 5, 64, 64, 1)])     # x one float off 16-byte alignment
+def test_k8_f32_tensor_core_edges(cuda, B, H, W, C, CO, offset):
+    """The edges of K8's f32 implicit GEMM on the tensor cores (three TF32
+    products per product): M and N tails, each copy width, a warp past
+    CO, a misaligned view; within 1e-4 of max |out|, the f32 bound."""
+    rng = np.random.default_rng(21 + C)
+    n = B * H * W * C
+    buf = torch.from_numpy(rng.normal(size=offset + n).astype(np.float32)
+                           ).to(cuda)
+    x = buf[offset:].view(B, H, W, C)
+    w = torch.from_numpy((rng.normal(size=(9, C, CO)) / np.sqrt(9 * C)
+                          ).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.normal(size=CO).astype(np.float32)).to(cuda)
+    for act in ("silu", "none"):
+        before = tconv.conv3x3_s1.launches
+        got = tconv.conv3x3_s1(x, w, bias, act)
+        assert tconv.conv3x3_s1.launches == before + 1
+        want = tconv.conv3x3_s1_reference(x, w, bias, act)
+        torch.cuda.synchronize()
+        assert got.shape == (B, H, W, CO)
+        diff = (got - want).abs()
+        assert bool((diff <= 1e-4 * want.abs().max()).all()), (
+            act, diff.max().item())
 
 
 @pytest.mark.cuda

@@ -26,23 +26,49 @@ def _store(V1, K, D, seed=0):
     return feats, norms, counts, q
 
 
-def _check(got, want, atol):
+def _dot_bound(feats, norms, counts, q):
+    """Per voxel, how far two f32 evaluations of its max cosine may lie
+    apart: a D-term dot product summed in any order is within
+    gamma_D sum_i |r_i||q_i| of the exact value and the quotient adds one
+    rounding, so two evaluations of a row's cosine differ by at most
+    2 gamma_{D+1} sum_i |r_i||q_i| / max(norm, 1e-12); the voxel's max by
+    at most the largest such bound over its live rows.  Valid rows of
+    norm 0 (kept on purpose) divide by 1e-12, so their cosines and bounds
+    reach ~1e12."""
+    V1, D = counts.shape[0], feats.shape[1]
+    K = feats.shape[0] // V1
+    u = 2.0 ** -24
+    gamma = (D + 1) * u / (1 - (D + 1) * u)
+    absdot = np.abs(np.asarray(feats, np.float64)) @ np.abs(
+        np.asarray(q, np.float64))
+    rows = 2 * gamma * absdot / np.maximum(norms.astype(np.float64), 1e-12)
+    live = np.arange(K)[None, :] < counts[:, None]
+    return np.where(live, rows.reshape(V1, K), 0.0).max(axis=1)
+
+
+def _check(got, want, feats, norms, counts, q):
+    """Equal empty voxels (-inf); elsewhere within the f32 dot bound
+    (``_dot_bound``) plus 1e-5 absolute."""
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
     live = np.isfinite(want)
-    np.testing.assert_allclose(got[live], want[live], atol=atol, rtol=1e-5)
+    err = np.abs(got[live].astype(np.float64) - want[live])
+    bound = 1e-5 + _dot_bound(feats, norms, counts, q)[live]
+    assert np.all(err <= bound), (
+        f"{int((err > bound).sum())} voxels outside the f32 dot bound, "
+        f"worst {(err / bound).max():.3g}x")
 
 
 @pytest.mark.parametrize("D", [32, 128])
 def test_plain_matches_pallas_interpret(D):
     # VK % 1024 == 0: the Pallas kernel's own gate; f32 both sides.
-    # Valid zero-norm rows divide by 1e-12 -- huge but finite and equal in
-    # relative terms, hence rtol 1e-5 beside 1e-5 abs.
+    # Valid zero-norm rows divide by 1e-12 -- huge but finite, held to
+    # the f32 dot bound scaled the same way.
     feats, norms, counts, q = _store(256, 4, D)
     want = np.asarray(jsim.max_cosine_per_voxel(
         *map(jnp.asarray, (feats, norms, counts, q)), interpret=True))
     got = tsim.max_cosine_per_voxel(
         *map(torch.from_numpy, (feats, norms, counts, q))).numpy()
-    _check(got, want, 1e-5)
+    _check(got, want, feats, norms, counts, q)
 
 
 def test_plain_matches_jax_reference_ragged():
@@ -51,7 +77,7 @@ def test_plain_matches_jax_reference_ragged():
         *map(jnp.asarray, (feats, norms, counts, q))))
     got = tsim.reference_max_cosine(
         *map(torch.from_numpy, (feats, norms, counts, q))).numpy()
-    _check(got, want, 1e-5)
+    _check(got, want, feats, norms, counts, q)
 
 
 def test_masked_norms_matches_jax():
@@ -63,14 +89,55 @@ def test_masked_norms_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
-def test_bf16_rows_match_pallas_interpret():
-    # bf16 rows widened to f32 and dotted with the f32 query, as the TPU
-    # kernel does: equal inputs, f32 sums in another order -> 1e-5
+def _bf16_case():
     feats, norms, counts, q = _store(256, 4, 64, seed=3)
     fb = torch.from_numpy(feats).to(torch.bfloat16)
     want = np.asarray(jsim.max_cosine_per_voxel(
         jnp.asarray(fb.float().numpy()).astype(jnp.bfloat16),
         *map(jnp.asarray, (norms, counts, q)), interpret=True))
+    return fb, norms, counts, q, want
+
+
+def test_bf16_rows_match_pallas_interpret():
+    # bf16 rows widened to f32 and dotted with the f32 query, as the TPU
+    # kernel does: equal inputs, f32 sums in another order -> the f32 dot
+    # bound on the widened rows
+    fb, norms, counts, q, want = _bf16_case()
     got = tsim.max_cosine_per_voxel(
         fb, *map(torch.from_numpy, (norms, counts, q))).numpy()
-    _check(got, want, 1e-5)
+    _check(got, want, fb.float().numpy(), norms, counts, q)
+
+
+def _max_row(fb, norms, counts, q, last_only):
+    """(voxel, row) of the live row of norm > 0 whose loss moves its
+    voxel's max the most: any row, or only each voxel's last live row."""
+    V1 = counts.shape[0]
+    K = fb.shape[0] // V1
+    cos = (fb.float().numpy().astype(np.float64) @ q) / np.maximum(
+        norms.astype(np.float64), 1e-12)
+    cos = np.where(np.arange(K)[None, :] < counts[:, None],
+                   cos.reshape(V1, K), -np.inf)
+    best = (-np.inf, None)
+    for v in np.flatnonzero((counts >= 2) & (np.abs(cos) < 2).all(1)):
+        r = int(counts[v]) - 1 if last_only else int(cos[v].argmax())
+        gap = cos[v, r] - np.delete(cos[v], r).max()
+        if gap > best[0]:
+            best = (gap, (int(v), r))
+    return best[1]
+
+
+@pytest.mark.parametrize("fault", ["dropped_row", "count_off_by_one"])
+def test_bf16_bound_catches_a_fault(fault):
+    """The bound still fails a scan that loses one live row (its dot never
+    taken) or reads a count one short."""
+    fb, norms, counts, q, want = _bf16_case()
+    bad_fb, bad_counts = fb.clone(), counts.copy()
+    v, r = _max_row(fb, norms, counts, q, last_only=fault != "dropped_row")
+    if fault == "dropped_row":
+        bad_fb[v * (fb.shape[0] // counts.shape[0]) + r] = 0
+    else:
+        bad_counts[v] -= 1
+    got = tsim.max_cosine_per_voxel(
+        bad_fb, *map(torch.from_numpy, (norms, bad_counts, q))).numpy()
+    with pytest.raises(AssertionError, match="outside the f32 dot bound"):
+        _check(got, want, fb.float().numpy(), norms, counts, q)

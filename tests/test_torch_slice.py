@@ -27,8 +27,12 @@ from bsc_nav_tpu_torch.memory.store import init_store as tinit
 from bsc_nav_tpu_torch.models import vit as tv
 from bsc_nav_tpu_torch.models.weights import vit_from_jax_params
 
+from bsc_nav_tpu_torch import geometry as TG
 from torch_parity import (
-    assert_same_topk, build_step_draws, store_fields_equal)
+    assert_frame_points_within_bound, assert_same_topk, build_step_draws,
+    store_fields_equal)
+
+TG_camera_to_world = TG.camera_to_world_transform
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIT_KW = dict(img_size=56, patch_size=14, dim=32, depth=2, heads=2,
@@ -76,17 +80,19 @@ def world():
     return cfg, env, frames, (rgb, depth, poses), qimg, params
 
 
-def _torch_slice(cfg, params, batch, qimg, draws, device):
+def _torch_slice(cfg, params, batch, qimg, draws, device, points=None):
     rgb, depth, poses = batch
     model = vit_from_jax_params(params, tv.ViTConfig(**VIT_KW),
                                 device=device)
     build = tpipe.make_build_step(cfg, model.cfg)
     query = tpipe.make_query_step(cfg, model.cfg)
     pix, repl = (torch.from_numpy(a).to(device) for a in draws)
+    if points is not None:
+        points = [torch.from_numpy(a).to(device) for a in points]
     (state, _), _ = build(
         (tinit(cfg.memory, device=device), None), model,
         *(torch.from_numpy(a).to(device) for a in (rgb, depth, poses)),
-        pix=pix, repl_idx=repl)
+        pix=pix, repl_idx=repl, points=points)
     pos, sc = query(state, model, torch.from_numpy(qimg).to(device),
                     top_k=16)
     return state, pos.cpu().numpy(), sc.cpu().numpy()
@@ -103,16 +109,13 @@ def _jax_slice(cfg, params, batch, qimg):
     return carry[0], np.asarray(pos), np.asarray(sc)
 
 
-def test_build_and_query_match_jax(world):
-    """Same frames, same weights, JAX draws injected.  The ViT's f32
-    tokens differ by ~1e-6, so stored rows are compared within 1e-4 and
-    the top-K scores within 1e-4; the integer store and the top-K voxel
-    set (up to ties at the K-th score) must be equal."""
+def _check_slice(world):
     cfg, _, _, batch, qimg, params = world
     _, pix, repl = build_step_draws(jax.random.PRNGKey(7), cfg, 12)
+    points = assert_frame_points_within_bound(cfg, batch[1], batch[2], pix)
     js, jpos, jsc = _jax_slice(cfg, params, batch, qimg)
     ts, tpos, tsc = _torch_slice(cfg, params, batch, qimg, (pix, repl),
-                                 "cpu")
+                                 "cpu", points=points[1:])
     assert int(ts.num_voxels) > 200
     store_fields_equal(js, ts, cfg)
     VK = cfg.memory.voxel_capacity * cfg.memory.cache_size
@@ -120,6 +123,50 @@ def test_build_and_query_match_jax(world):
                                np.asarray(js.feats)[:VK], atol=1e-4)
     assert np.isfinite(jsc).all()
     assert_same_topk(tpos, tsc, jpos, jsc, atol=1e-4)
+
+
+def test_build_and_query_match_jax(world):
+    """Same frames, same weights, JAX draws injected.  The port's float
+    geometry (cam2world, camera and world points) is held to JAX's within
+    the ulp bounds of ``torch_parity.assert_frame_points_within_bound``,
+    not bit for bit: XLA's jitted 3-term products are FMA chains on some
+    host codegens and plain sums on others, and this world's axis-aligned
+    walls put points on cell edges.  JAX's points are then injected, and
+    everything downstream is compared: the ViT's f32 tokens differ by
+    ~1e-6, so stored rows are compared within 1e-4 and the top-K scores
+    within 1e-4; the integer store and the top-K voxel set (up to ties at
+    the K-th score) must be equal."""
+    _check_slice(world)
+
+
+def _floor_world_to_grid(points, grid_size, cell_size):
+    # the fault: floor where the reference truncates toward zero
+    half = grid_size // 2
+    ids = torch.floor(points * np.float32(1.0 / cell_size)).to(torch.int32)
+    return torch.stack([half - ids[..., 0], half - ids[..., 1],
+                        ids[..., 2]], dim=-1)
+
+
+def _transposed_cam2world(*args):
+    tf = TG_camera_to_world(*args).clone()
+    tf[..., :3, :3] = tf[..., :3, :3].transpose(-1, -2)
+    return tf
+
+
+@pytest.mark.parametrize("fault", ["floor_in_world_to_grid",
+                                   "transposed_rotation"])
+def test_slice_check_catches_a_fault(world, monkeypatch, fault):
+    """The restated check still fails a real fault: voxel ids by floor
+    instead of truncation (downstream of the injected points, caught by
+    the exact store), or the world rotation transposed (caught by the
+    float geometry's bound)."""
+    if fault == "floor_in_world_to_grid":
+        monkeypatch.setattr(TG, "world_to_grid", _floor_world_to_grid)
+    else:
+        monkeypatch.setattr(TG, "camera_to_world_transform",
+                            _transposed_cam2world)
+    with pytest.raises(AssertionError):
+        _check_slice(world)
 
 
 def _grid_to_world(cfg, origin, rc):

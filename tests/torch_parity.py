@@ -36,6 +36,111 @@ def build_step_draws(key, cfg, B):
     return (key,) + ingest_draws(sub, cfg, B)
 
 
+U32 = 2.0 ** -24          # f32 unit roundoff
+
+
+def _gamma(n):
+    return n * U32 / (1 - n * U32)
+
+
+def jax_frame_points(cfg, depth, poses, pix):
+    """(cam2world [B, 4, 4], p_local, p_world [B, P, 3]) of a first batch
+    of frames as ``bsc_nav_tpu/memory/ingest.py`` computes them inside
+    its jitted ``ingest_frames`` (frame chain, backprojection, world
+    transform; ``ingest.py:99-132``), jitted alone."""
+    from bsc_nav_tpu import geometry as JG
+    B, H, W = depth.shape
+    hi = jax.lax.Precision.HIGHEST
+    base = jnp.asarray(JG.base_axes_transform(), jnp.float32)
+    b2c = jnp.asarray(JG.base_to_cam_transform(cfg.sensor.sensor_height),
+                      jnp.float32)
+    calib = jnp.asarray(JG.camera_intrinsics(H, W, cfg.sensor.hfov_deg),
+                        jnp.float32)
+
+    @jax.jit
+    def stage(depth, poses, pix):
+        inv_calib = jnp.asarray(jnp.linalg.inv(calib), jnp.float32)
+        inv_init = JG.initial_base_inverse(poses[0], base)
+        cam2world = jax.vmap(lambda p: JG.camera_to_world_transform(
+            p, inv_init, base, b2c))(poses)
+        z = jnp.take_along_axis(depth.reshape(B, H * W), pix, axis=1)
+        uv1 = jnp.stack([(pix % W).astype(jnp.float32) + 0.5,
+                         (pix // W).astype(jnp.float32) + 0.5,
+                         jnp.ones_like(z)], axis=-1)
+        rays = jnp.einsum("bpj,ij->bpi", uv1, inv_calib, precision=hi)
+        p_local = rays * z[..., None]
+        p_world = jnp.einsum("bpj,bij->bpi", p_local, cam2world[:, :3, :3],
+                             precision=hi) + cam2world[:, None, :3, 3]
+        return inv_calib, cam2world, p_local, p_world
+
+    out = stage(*map(jnp.asarray, (depth, poses.astype(np.float32), pix)))
+    return tuple(np.array(a) for a in out)
+
+
+def assert_frame_points_within_bound(cfg, depth, poses, pix):
+    """The port's float geometry (``memory/ingest.frame_points`` on its own
+    frame chain) against JAX's (``jax_frame_points``), each within a
+    stated bound, not bit for bit: XLA's own bits for these products
+    depend on the host codegen (fused multiply-add chains on some hosts,
+    plain products on others) and on the compile mode (the JAX package's
+    jitted and eager ``quat_to_rot`` differ).
+
+    - cam2world: 64 ulps of (1 + its largest translation), per matrix:
+      the quaternion rows (<= 8u each), the LU inverse of the first pose
+      and two 4x4 products (<= gamma_4 each on unit rows, times |t| in
+      the last column) put each evaluation within ~32u of the exact
+      chain, so two evaluations within 64u.
+    - A point a . b + c summed over n terms in f32, in any order, with or
+      without FMA, lies within gamma_{n+1} (sum |a_j b_j| + |c|) of the exact
+      value; two evaluations within twice that, plus the exact effect of
+      their differing operands (measured, propagated).
+
+    Returns JAX's (cam2world, p_local, p_world) as numpy."""
+    from bsc_nav_tpu_torch import geometry as TG
+    from bsc_nav_tpu_torch.memory import ingest as ting
+    inv_calib, c2w, pl, pw = jax_frame_points(cfg, depth, poses, pix)
+    base = torch.as_tensor(TG.base_axes_transform(), dtype=torch.float32)
+    b2c = torch.as_tensor(TG.base_to_cam_transform(cfg.sensor.sensor_height),
+                          dtype=torch.float32)
+    tposes = torch.from_numpy(np.array(poses, np.float32))
+    t_c2w = TG.camera_to_world_transform(
+        tposes, TG.initial_base_inverse(tposes[0], base), base, b2c)
+    _, t_pl, t_pw = ting.frame_points(
+        torch.from_numpy(np.array(depth)), torch.from_numpy(
+            np.array(pix)).long(), t_c2w, cfg)
+    f64 = lambda a: np.asarray(a, np.float64)
+    t_c2w, t_pl, t_pw = f64(t_c2w), f64(t_pl), f64(t_pw)
+    c2w, pl, pw = f64(c2w), f64(pl), f64(pw)
+
+    scale = 1.0 + np.abs(c2w[:, :3, 3]).max(-1)[:, None, None]
+    d_c2w = np.abs(t_c2w - c2w)
+    assert np.all(d_c2w <= 64 * U32 * scale), (
+        f"cam2world {(d_c2w / (U32 * scale)).max():.1f} ulps > 64")
+
+    H, W = depth.shape[1:]
+    t_inv = np.linalg.inv(np.float32(TG.camera_intrinsics(
+        H, W, cfg.sensor.hfov_deg))).astype(np.float32)
+    d_k = np.abs(f64(t_inv) - f64(inv_calib))
+    z = f64(np.take_along_axis(np.asarray(depth).reshape(len(depth), -1),
+                               np.asarray(pix), axis=1))[..., None]
+    uv = np.stack([pix % W + 0.5, pix // W + 0.5, np.ones(pix.shape)], -1)
+    bound_l = (2 * _gamma(4) * (np.abs(uv) @ np.abs(f64(inv_calib)).T)
+               + np.abs(uv) @ d_k.T) * np.abs(z)
+    d_l = np.abs(t_pl - pl)
+    assert np.all(d_l <= bound_l), "p_local outside its bound"
+
+    R, t = c2w[:, :3, :3], c2w[:, None, :3, 3]
+    dR, dt = d_c2w[:, :3, :3], d_c2w[:, None, :3, 3]
+    bound_w = (2 * _gamma(4) * (np.abs(pl) @ np.abs(R).transpose(0, 2, 1)
+                                + np.abs(t))
+               + d_l @ (np.abs(R) + dR).transpose(0, 2, 1)
+               + np.abs(pl) @ dR.transpose(0, 2, 1) + dt)
+    d_w = np.abs(t_pw - pw)
+    assert np.all(d_w <= bound_w), (
+        f"p_world outside its bound by {(d_w / bound_w).max():.2f}x")
+    return (np.float32(c2w), np.float32(pl), np.float32(pw))
+
+
 def tensors(*arrays, device="cpu"):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in arrays]
@@ -179,6 +284,56 @@ def tf32x3_tile(q, k, v, causal=False, drop_tile=None, passes=3):
         acc = acc * corr[..., None] + prod(p, vf[:, :, k0:k0 + 64])
         m = m_new
     return acc / l[..., None]
+
+
+def _round_toward_zero(t64: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounded toward zero (the tensor cores' accumulation)."""
+    r = t64.float()
+    over = r.double().abs() > t64.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def tf32x3_conv(x, w9, bias, act="silu", passes=3, drop_tap=None,
+                bk=32):
+    """The arithmetic order of K8's f32 path (conv3x3_s1.cu
+    conv3x3_s1_tf32_kernel) in plain torch on f32 x [B, H, W, C] and w9
+    [9, C, CO] (numpy or torch): the implicit GEMM walked tap by tap in
+    ``bk``-channel slices (one ring stage each); every product of f32
+    operands a, b as three TF32 products a_lo b_hi + a_hi b_lo + a_hi b_hi
+    (``tf32_split``, small terms first), each pass over the slice's k8
+    steps in turn, each k8 step one tensor-core accumulation -- its eight
+    products exact, added to the running value and rounded toward zero --
+    into a zeroed per-stage accumulator that is added to the result in
+    f32 (rounded to nearest);
+    then bias and x * sigmoid(x) when act is "silu".  ``passes=1`` keeps
+    only a_hi b_hi (one TF32 product); ``drop_tap`` skips one of the nine
+    taps.  Returns f32 [B, H, W, CO]."""
+    xf = torch.as_tensor(x).float()
+    w = torch.as_tensor(w9).float()
+    B, H, W, C = xf.shape
+    CO = w.shape[2]
+    xp = torch.nn.functional.pad(xf, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(B * H * W, CO)
+    for tap in range(9):
+        if tap == drop_tap:
+            continue
+        dy, dx = divmod(tap, 3)
+        a_all = xp[:, dy:dy + H, dx:dx + W, :].reshape(-1, C)
+        for c0 in range(0, C, bk):
+            (ah, al), (bh, bl) = (tf32_split(a_all[:, c0:c0 + bk]),
+                                  tf32_split(w[tap, c0:c0 + bk]))
+            part = torch.zeros(B * H * W, CO, dtype=torch.float64)
+            pairs = ((ah, bh),) if passes == 1 else (
+                (al, bh), (ah, bl), (ah, bh))
+            for a, b in pairs:
+                for k in range(0, ah.shape[1], 8):
+                    prod = a[:, k:k + 8].double() @ b[k:k + 8].double()
+                    part = _round_toward_zero(part + prod).double()
+            acc = acc + part.float()
+    out = acc + torch.as_tensor(bias).float()
+    if act == "silu":
+        out = out * torch.sigmoid(out)
+    return out.reshape(B, H, W, CO)
 
 
 def numpy_tree(tree):

@@ -426,34 +426,6 @@ __device__ __forceinline__ int64_t opaque(int64_t x) {
   return x;
 }
 
-// mbarriers in shared memory: init by one thread (then a block barrier),
-// arrive (release), and wait for a phase to complete (acquire)
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // S = Q K^T of one warpgroup's 64 rows and a K tile (hi | lo) into sc:
 // three passes, small terms first; a k8 step spans two core matrices
 // along hd (lbo 128 bytes).  Issues and commits; the caller fences before

@@ -79,6 +79,7 @@
 
 extern "C" {
 long long bsc_tile_launches[kTileKinds] = {};
+extern const int bsc_tile_kinds = kTileKinds;   // the array's length
 }
 
 namespace {

@@ -17,18 +17,22 @@
 // Design: the TPU kernel runs a (B*H, Sq/bq) grid of programs that each
 // carry an online softmax over K/V blocks of at most 128 keys, padded to
 // the block size.  Here both dtypes keep that online softmax over 64-key
-// tiles, mask the ragged last q and key tiles instead of padding, run the
-// causal mask tile by tile (a block stops at its last row's tile, and the
-// longest rows are scheduled first), and decode (batch*head, q tile) from a
-// one-dimensional grid, so B*H is not bound by the 65,535 limit of a second
-// grid dimension.  The launcher chooses by dtype alone; K3 and K5 run the
-// same two tiles by dtype:
-// - bf16 runs the tensor-core tile of attention_mma.cuh (wgmma with f32
-//   accumulators, two warpgroups of 64 query rows, K/V staged by cp.async
-//   in a ring, the softmax in registers while the previous tile's P.V runs
-//   on the tensor cores); it rounds P to bf16 before P.V, as the JAX
-//   package's reference does on a TPU.  Its bound is then the tensor
-//   cores and the softmax's exponentials together (see the header).
+// tiles (128 in bf16 at head_dim 64), mask the ragged last q and key tiles
+// instead of padding, run the causal mask tile by tile (a block stops at
+// its last row's tile, and the longest rows are scheduled first), and
+// decode (batch*head, q tile) from a one-dimensional grid, so B*H is not
+// bound by the 65,535 limit of a second grid dimension.  The launcher
+// chooses by dtype and head_dim alone, as K5's does:
+// - bf16 at head_dim 64 (every main path's) runs attention_tma.cuh: a
+//   producer warpgroup loads Q and 128-key K/V tiles by TMA into an
+//   mbarrier ring, three consumer warpgroups of 64 query rows take the
+//   tensor cores in turn (wgmma, f32 accumulators, the softmax in
+//   registers while the previous tile's P.V runs), one block per SM
+//   walking the (q tile, head) items unless causal.  Other head_dims run
+//   attention_mma.cuh's tile (two warpgroups, 64-key tiles by cp.async).
+//   Both round P to bf16 before P.V, as the JAX package's reference does
+//   on a TPU.  Their bound is the tensor cores and the softmax's
+//   exponentials together (see the headers).
 // - f32 runs the tile of attention_tf32.cuh with its Contiguous policy:
 //   every f32 product as three TF32 products (a_lo b_hi + a_hi b_lo +
 //   a_hi b_hi), which keeps f32's accuracy (the f32 paths' 2e-5 abs);
@@ -36,6 +40,7 @@
 //   block, 74 key tiles per block at S 4685.
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
+#include "attention_tma.cuh"
 
 namespace {
 struct flash_attention {};   // names the kernels in a profile
@@ -51,6 +56,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!attention_args_ok(BH, Sq, Sk, hd, causal))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && hd == 64)
+    return tc::launch_attention_tma<flash_attention>(q, k, v, out, BH, Sq, Sk,
+                                                     causal, s);
   if (is_bf16)
     return tc::launch_attention_mma<flash_attention>(q, k, v, out, BH, Sq, Sk,
                                                      hd, causal, s);

@@ -20,22 +20,24 @@
 // Design: the TPU kernel keeps a (batch, head)'s whole K/V resident in VMEM
 // and runs a one-shot softmax per 256-row q tile.  K/V of 4096 keys (2 MB
 // in f32) do not fit a block's 227 KB of shared memory, so both dtypes
-// stream them in 64-key tiles with an online softmax instead, which gives
-// the same softmax up to the order of the sums.  Both run two warpgroups
-// of 64 query rows per block; a sequence of 1613 rows gives 13 q tiles
-// per (batch, head), 1,872 blocks at B 6 x 24 heads:
-// - bf16 runs the tensor-core tile of attention_mma.cuh (wgmma with f32
-//   accumulators, K/V staged by cp.async in a ring, the softmax in
-//   registers while the previous tile's P.V runs on the tensor cores); it
-//   rounds P to bf16 before P.V, as the JAX package's reference does on a
-//   TPU, so it is held to its plain version by
-//   flash_attention_bf16_tolerance.
+// stream them in 64- or 128-key tiles with an online softmax instead,
+// which gives the same softmax up to the order of the sums:
+// - bf16 at head_dim 64 (every main path's) runs attention_tma.cuh (K6's
+//   tile: TMA producer warpgroup, 128-key tiles, three consumer
+//   warpgroups of 64 query rows taking the tensor cores in turn, 192 rows
+//   a work item: 9 per (batch, head) at S 1613, walked by one block per
+//   SM); other head_dims run attention_mma.cuh's tile (wgmma, K/V staged
+//   by cp.async).  Both keep the softmax in registers while the previous
+//   tile's P.V runs on the tensor cores and round P to bf16 before P.V,
+//   as the JAX package's reference does on a TPU, so they are held to the
+//   plain version by flash_attention_bf16_tolerance.
 // - f32 runs the tile of attention_tf32.cuh with its Contiguous policy (as
 //   K3): every f32 product as three TF32 products (a_lo b_hi + a_hi b_lo +
 //   a_hi b_hi), S = QK^T and, at hd <= 64, P.V on wgmma from a V^T split
 //   once per block; held to its plain version by the f32 paths' 2e-5 abs.
 #include "attention_mma.cuh"
 #include "attention_tf32.cuh"
+#include "attention_tma.cuh"
 
 namespace {
 struct mid_attention {};   // names the kernels in a profile
@@ -51,6 +53,9 @@ extern "C" int mid_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!attention_args_ok(BH, Sq, Sk, hd, 0))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && hd == 64)
+    return tc::launch_attention_tma<mid_attention>(q, k, v, out, BH, Sq, Sk,
+                                                   0, s);
   if (is_bf16)
     return tc::launch_attention_mma<mid_attention>(q, k, v, out, BH, Sq, Sk,
                                                    hd, 0, s);

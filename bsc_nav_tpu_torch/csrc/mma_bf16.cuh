@@ -1,11 +1,11 @@
-// Tensor-core building blocks of the bf16 kernels of K3, K5 and K6
-// (attention_mma.cuh)
-// and K8 (conv3x3_s1.cu): asynchronous global -> shared copies that
-// zero-fill what lies outside a tensor, ldmatrix fragment loads, the
-// warp-level bf16 product mma.sync m16n8k16 (K8), the warpgroup product
-// wgmma with its shared-memory descriptors and fences (K3, K5, K6), all
-// with f32
-// accumulators, and the MUFU exp2.
+// Tensor-core building blocks of the bf16 kernels of K1, K3, K4, K5 and K6
+// (attention_mma.cuh, attention_tma.cuh) and K8 (conv3x3_s1.cu):
+// asynchronous global -> shared copies that zero-fill what lies outside a
+// tensor (cp.async, and TMA's cp.async.bulk.tensor), mbarriers, named
+// barriers and setmaxnreg for warp-specialized blocks, ldmatrix fragment
+// loads, the warp-level bf16 product mma.sync m16n8k16 (K8), the
+// warpgroup product wgmma with its shared-memory descriptors and fences,
+// all with f32 accumulators, and the MUFU exp2.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4):
 //   A (16 x 16, row-major): a0 rows g, cols 2t..2t+1; a1 row g+8; a2 row g,
@@ -23,13 +23,15 @@
 
 // Launches of each tensor-core kernel, counted on the host by the launcher
 // that made them (a launch the runtime refused is not counted); one array
-// for the library, defined in conv3x3_s1.cu.  chip_smoke.py reads it to
-// check which kernel each call took.
+// for the library, defined in conv3x3_s1.cu with its length
+// (bsc_tile_kinds).  chip_smoke.py reads it to check which kernel each call
+// took.
 enum TileKind {
   kTileAttnWgmma,   // attention_wgmma_kernel (attention_mma.cuh)
   kTileAttnTf32,    // attention_tf32_kernel (attention_tf32.cuh)
   kTileConvMma,     // conv3x3_s1_mma_kernel
   kTileConvTf32,    // conv3x3_s1_tf32_kernel
+  kTileAttnTma,     // attention_tma_kernel (attention_tma.cuh)
   kTileKinds
 };
 extern "C" long long bsc_tile_launches[kTileKinds];
@@ -157,6 +159,86 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// mbarriers in shared memory: init by one thread (then
+// fence_mbarrier_init and a block barrier), arrive (release), and wait for
+// a phase to complete (acquire)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// makes the mbarrier inits visible to the async proxy (TMA's complete_tx)
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` more of transactions (a TMA load's)
+// before the phase can complete
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// TMA: the box of a 3-D tensor map at (c0, c1, c2), innermost first, into
+// shared memory at dst (1024-byte aligned under the 128-byte swizzle),
+// completing its bytes on bar; elements outside the tensor read as zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a warpgroup's register budget: all four warps give registers back to
+// the SM (dec) or wait for them (inc), N a multiple of 8 in [24, 256]
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `n` threads: wait
+// for them (sync), or count this warp's arrival and go on (arrive)
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // pins registers that an in-flight wgmma reads or writes: the compiler
 // may not move their uses across this point (put it after wgmma_wait)
 template <int N>
@@ -191,6 +273,36 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (m64n128, f32) = A B (+ d when scale_d): A and B bf16 in shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

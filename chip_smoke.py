@@ -3,7 +3,7 @@
 one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --kernels K7,K8   # those kernels' cases alone
+    python3 chip_smoke.py --kernels K5,K6   # those kernels' cases alone
 
 Phases, one line each (any failed check raises, so the script exits
 non-zero):
@@ -18,11 +18,10 @@ non-zero):
                 function where one exists (SDPA for K1, K3, K5 and K6,
                 F.layer_norm for K7, cuDNN for K8; for K4, as context,
                 SDPA on the already-normalised q/k/v), the TFLOP/s reached
-                and the bound over the kernel's time, and for K1, K3, K4,
-                K7 and K8 the device time alone from a CUDA graph replay
-                (and K7's F.layer_norm's and K8's cuDNN's), for K5, K6 and
-                K8 the kernel each launch took (f32: the three-pass TF32
-                tiles; bf16: attention_wgmma_kernel,
+                and the bound over the kernel's time, the device time alone
+                from a CUDA graph replay (and the library call's), for K5,
+                K6 and K8 the kernel each launch took (f32: the three-pass
+                TF32 tiles; bf16: attention_tma_kernel at head_dim 64,
                 conv3x3_s1_mma_kernel): K1 at
                 ViT-L's S 261, K3 at the CLIP towers' shapes, K4 at
                 SD3.5-medium's joint and self-attention at 512^2 and its
@@ -32,7 +31,8 @@ non-zero):
                 causal, K7 at ViT-L's token grids, K8 at YOLOv8x's C2f
                 shapes (K7 and K8 are dispatched nowhere, as in the JAX
                 package); the device kernels SDPA runs in f32 at K1's and
-                K3's shapes, from the profiler
+                K3's shapes and in bf16 at K5's and K6's main shapes, from
+                the profiler
   slice f32     the full default Config() -- 680x680 RGB-D, 1000^2 x 200
                 grid, 131,080 slots x 10 tokens x 1024 -- through
                 Perception / VoxelTokenMemory with a random-init DINOv2
@@ -71,13 +71,13 @@ non-zero):
                 once under torch.profiler; 1,036 K4 launches per query
   textq sd3-medium  the same with SD3-medium (no qk-norm, no dual
                 attention): the composed joint attention, 672 K5 launches
-                per query and no K4; each text query prints its host-clock
-                times and its attention kernels' share of the profiled
-                device time
+                per query (all on attention_tma_kernel) and no K4; each
+                text query prints its host-clock times and its attention
+                kernels' share of the profiled device time
   textq sd35-1024  SD3.5-medium at its published 1024^2 (a 4685-token
-                joint sequence): 672 K6 and 364 K4 (the dual
-                self-attention at 4096 tokens) per query; one timed and
-                one profiled call
+                joint sequence): 672 K6 (all on attention_tma_kernel) and
+                364 K4 (the dual self-attention at 4096 tokens) per query;
+                one timed and one profiled call
   textq int8    SD3.5-medium at 512^2 with the MMDiT token matmuls in W8A8
                 and T5-XXL quantized on the host (quantize_params_host), the
                 default diffusion_int8=True; one timed and one profiled call
@@ -261,17 +261,34 @@ def nbytes(*tensors) -> int:
 
 # the tensor-core kernels, in the order of csrc/mma_bf16.cuh's TileKind
 TILES = ("attention_wgmma_kernel", "attention_tf32_kernel",
-         "conv3x3_s1_mma_kernel", "conv3x3_s1_tf32_kernel")
+         "conv3x3_s1_mma_kernel", "conv3x3_s1_tf32_kernel",
+         "attention_tma_kernel")
+
+
+def tile_kinds() -> int:
+    """How many of TILES the built library counts (``bsc_tile_kinds``): a
+    library built before the last tile was added counts the first four,
+    so that this script also times such a build."""
+    import ctypes
+
+    from bsc_nav_tpu_torch.ops import _build
+    try:
+        return ctypes.c_int.in_dll(_build.kernels(), "bsc_tile_kinds").value
+    except ValueError:
+        return 4
 
 
 def tile_launches() -> tuple:
     """The kernel library's launches of each of TILES, counted by the
-    launchers where they launch them (``bsc_tile_launches``)."""
+    launchers where they launch them (``bsc_tile_launches``); 0 for a tile
+    the library does not have."""
     import ctypes
 
     from bsc_nav_tpu_torch.ops import _build
-    return tuple((ctypes.c_longlong * len(TILES)).in_dll(
+    n = tile_kinds()
+    got = tuple((ctypes.c_longlong * n).in_dll(
         _build.kernels(), "bsc_tile_launches"))
+    return got + (0,) * (len(TILES) - n)
 
 
 def check_tile(fn, tag: str, tile: str, what: str) -> int:
@@ -293,9 +310,16 @@ def check_tile(fn, tag: str, tile: str, what: str) -> int:
     return n
 
 
-# the tile each attention kernel runs, by dtype; K8's kernels
-F32_TILE, BF16_TILE = TILES[1], TILES[0]
+# the tile each attention kernel runs, by dtype (K5 and K6 in bf16 at
+# head_dim 64: TMA_TILE); K8's kernels
+F32_TILE, BF16_TILE, TMA_TILE = TILES[1], TILES[0], TILES[4]
 K8_TILES = {torch.float32: TILES[3], torch.bfloat16: TILES[2]}
+
+
+def long_bf16_tile() -> str:
+    """The tile of K5 and K6 in bf16 at head_dim 64: TMA_TILE, or in a
+    library built before it existed, BF16_TILE."""
+    return TMA_TILE if tile_kinds() > 4 else BF16_TILE
 
 
 def sdpa_ms(q, k, v, causal=False) -> float:
@@ -482,9 +506,9 @@ def k1_case(qkv, H, dtype, keys) -> dict:
 
 
 def sdpa_kernels(q, k, v, causal, what) -> None:
-    """Log the device kernels one SDPA call runs on these inputs: in f32
-    the library yardstick of K1 and K3, whose kernel name says which of
-    PyTorch's attention back ends it took."""
+    """Log the device kernels one SDPA call runs on these inputs (the
+    library yardstick of K1 and K3 in f32, of K5 and K6 in bf16), whose
+    kernel name says which of PyTorch's attention back ends it took."""
     import torch.nn.functional as F
 
     from bsc_nav_tpu_torch.profiling import device_kernels
@@ -609,17 +633,21 @@ LONG_ATTENTION = (("K5", "sd3-medium-512", 6, 24, 1613, False),
                   ("K6", "causal", 2, 16, 2048, True))
 
 
-def long_attention_cases(dev, gen, cases):
+def long_attention_cases(dev, gen, cases, kernels=("K5", "K6")):
     """K5 at SD3-medium's joint attention at 512^2 (B 6 = 3 images x CFG 2,
     24 heads x 64, S 1024 + 589) and at DINOv2 ViT-L at 518^2 (B 8, 16x64,
     S 1374); K6 at SD3.5-medium's joint attention at 1024^2 (B 6, 24x64,
-    S 4096 + 589) and causal at B 2, 16x64, S 2048.  The plain versions
-    build their logits in 1 GB chunks of B*H."""
+    S 4096 + 589) and causal at B 2, 16x64, S 2048: the cases of
+    ``kernels``.  Each by events and by a CUDA graph replay, beside SDPA;
+    the device kernels SDPA runs in bf16 at the two main shapes.  The
+    plain versions build their logits in 1 GB chunks of B*H."""
     import torch.nn.functional as F
 
     from bsc_nav_tpu_torch.ops import flash_attention as fa
 
     for kernel, case, B, H, S, causal in LONG_ATTENTION:
+        if kernel not in kernels:
+            continue
         if kernel == "K5":
             name, fn, plain = ("mid_attention", fa.mid_attention,
                                fa.mid_attention_reference)
@@ -644,7 +672,7 @@ def long_attention_cases(dev, gen, cases):
             err = diff.max().item()
             check(bool((diff <= tol).all()),
                   f"{kernel} {case} {dtype}: err {err}")
-            tile = F32_TILE if dtype == torch.float32 else BF16_TILE
+            tile = F32_TILE if dtype == torch.float32 else long_bf16_tile()
             n = check_tile(lambda: fn(q, k, v), name, tile,
                            f"{kernel} {case} {dtype}")
             log("kernels", f"{kernel} {name} {case} {str(dtype)[6:]}: "
@@ -654,29 +682,31 @@ def long_attention_cases(dev, gen, cases):
             lib = sdpa_ms(q, k, v, causal)
             flops = attn_flops(B, H, S, S, 64, causal)
             b_ms, b_by = bound(flops, nbytes(q, k, v, got), dtype)
-            graph = {}
-            if dtype == torch.float32:   # device time alone, as K1 and K3
-                graph = {"graph_ms": graph_ms(lambda: fn(q, k, v)),
-                         "library_graph_ms": graph_ms(
-                             lambda: F.scaled_dot_product_attention(
-                                 q, k, v, is_causal=causal))}
+            if dtype == torch.bfloat16 and case in ("sd3-medium-512",
+                                                    "sd35-medium-1024"):
+                sdpa_kernels(q, k, v, causal, f"{kernel} {case} shape")
+            # device time alone, as K1 and K3
+            graph = {"graph_ms": graph_ms(lambda: fn(q, k, v)),
+                     "library_graph_ms": graph_ms(
+                         lambda: F.scaled_dot_product_attention(
+                             q, k, v, is_causal=causal))}
             log("kernels", f"{kernel} {name} {case} B={B} {H}x64 S={S} "
                 f"causal={causal} {str(dtype)[6:]}: max_abs_err {err:.3g} "
                 f"(tol {tol_s}) kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
                 f"bound) plain {plain_ms:.4f} ms sdpa {lib:.4f} ms bound "
-                f"{b_ms:.4f} ms ({b_by})"
-                + (f"; replayed from a CUDA graph: kernel "
-                   f"{graph['graph_ms']:.4f} ms ({b_ms / graph['graph_ms']:.3f}"
-                   f" of the bound), sdpa {graph['library_graph_ms']:.4f} ms"
-                   if graph else ""))
+                f"{b_ms:.4f} ms ({b_by}); replayed from a CUDA graph: "
+                f"kernel {graph['graph_ms']:.4f} ms "
+                f"({flops / graph['graph_ms'] / 1e9:.1f} TFLOP/s, "
+                f"{b_ms / graph['graph_ms']:.3f} of the bound), sdpa "
+                f"{graph['library_graph_ms']:.4f} ms; {tile}")
             cases.append({"kernel": kernel, "case": case, "B": B, "heads": H,
                           "S": S, "head_dim": 64, "causal": causal,
                           "dtype": str(dtype)[6:], "max_abs_err": err,
                           "tol": tol_s, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "library_ms": lib, "tflops": flops / ms / 1e9,
-                          "bound_share": b_ms / ms, **graph})
+                          "bound_share": b_ms / ms, **graph, "tile": tile})
             del q, k, v, got, want, diff, tol
         torch.cuda.empty_cache()
 
@@ -1394,6 +1424,7 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed, per_query,
     k3_per_query = 2 * (C.SD3_CLIP_L.text_layers + C.SD3_CLIP_G.text_layers)
     want = launches(K1=vcfg.depth, K2=1, K3=k3_per_query, **per_query)
     query_ms = []
+    tiles = tile_launches()
     for i in range(n_queries):
         before = counts()
         t0 = time.perf_counter()
@@ -1413,6 +1444,15 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed, per_query,
         check(float(imgs.float().std()) > 0, f"{name}: flat images")
     peak = torch.cuda.max_memory_allocated() / 1e9
     img_stats = (float(imgs.float().mean()), float(imgs.float().std()))
+    # every K5 and K6 launch of the queries (bf16, head_dim 64) took the
+    # TMA tile, and nothing else did
+    n_long = n_queries * (per_query.get("K5", 0) + per_query.get("K6", 0))
+    took = dict(zip(TILES, (a - b for a, b in zip(tile_launches(), tiles))))
+    check(took[TMA_TILE] == n_long,
+          f"{name}: {n_long} K5/K6 launches, tiles launched {took}")
+    if n_long:
+        log(name, f"all {n_long} K5/K6 launches of the {n_queries} "
+            f"queries took {TMA_TILE}")
 
     # T5 alone (cond + uncond prompts), CUDA events: the profiler's kernel
     # names cannot tell its GEMMs from the MMDiT's
@@ -1744,7 +1784,9 @@ def kernel_cases_only(names, seed) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run = {"K7": layer_norm_cases, "K8": conv_cases}
+    run = {"K5": lambda d, g, c: long_attention_cases(d, g, c, ("K5",)),
+           "K6": lambda d, g, c: long_attention_cases(d, g, c, ("K6",)),
+           "K7": layer_norm_cases, "K8": conv_cases}
     check(set(names) <= set(run), f"--kernels {names}: only {sorted(run)}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1766,10 +1808,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="",
-                    help="only the kernel cases of these kernels (of K7, "
-                    "K8, comma separated): build, check, time, print their "
-                    "cases as JSON, and stop -- a measurement run, not "
-                    "the smoke")
+                    help="only the kernel cases of these kernels (of K5, "
+                    "K6, K7, K8, comma separated): build, check, time, "
+                    "print their cases as JSON, and stop -- a measurement "
+                    "run, not the smoke")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False -- this "
@@ -1858,6 +1900,8 @@ def main(argv=None) -> int:
     csrc = "bsc_nav_tpu_torch/csrc/"
     tiles = {"tiles": {"bfloat16": csrc + "attention_mma.cuh",
                        "float32": csrc + "attention_tf32.cuh"}}
+    long_tiles = {"tiles": {"bfloat16, head_dim 64": csrc
+                            + "attention_tma.cuh", **tiles["tiles"]}}
 
     def entry(name, source, replaces, i, case, **extra):
         by_path = {p: n[i] for p, n in paths.items()}
@@ -1889,11 +1933,12 @@ def main(argv=None) -> int:
               "bsc_nav_tpu/ops/flash_attention.py:215", 4,
               main_case("K5", "bfloat16", case="sd3-medium-512"),
               also_replaces="tools/mid_attention_exp.py:56",
-              float32=main_case("K5", case="sd3-medium-512"), **tiles),
+              float32=main_case("K5", case="sd3-medium-512"), **long_tiles),
         entry("flash_attention", "flash_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:121", 5,
               main_case("K6", "bfloat16", case="sd35-medium-1024"),
-              float32=main_case("K6", case="sd35-medium-1024"), **tiles),
+              float32=main_case("K6", case="sd35-medium-1024"),
+              **long_tiles),
         entry("layer_norm", "layer_norm.cu",
               "bsc_nav_tpu/ops/layernorm.py:47", 6, main_case("K7"),
               tiles={"float32": "layer_norm_kernel<float, 8>",

@@ -64,15 +64,29 @@ EMULATION_CASES = [(1, 2, 300, 700, 64, False), (2, 1, 300, 300, 64, True),
                    (1, 2, 150, 150, 16, True)]
 
 
-@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", EMULATION_CASES)
-def test_bf16_tolerance_holds_the_tensor_core_order(B, H, Sq, Sk, hd, causal):
+def _with_keys(cases, takes_128=lambda c: c[4] == 64):
+    """Each case at the 64-key tile (attention_mma.cuh), then the cases
+    that K5 or K6 would run on the 128-key tile (attention_tma.cuh: bf16
+    at head_dim 64) again at 128 keys, with a ``keys`` parameter; the
+    64-key cases keep their plain ids."""
+    ids = ["-".join(map(str, c)) for c in cases]
+    return ([pytest.param(*c, 64, id=i) for c, i in zip(cases, ids)]
+            + [pytest.param(*c, 128, id=i + "-keys128")
+               for c, i in zip(cases, ids) if takes_128(c)])
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal,keys",
+                         _with_keys(EMULATION_CASES))
+def test_bf16_tolerance_holds_the_tensor_core_order(B, H, Sq, Sk, hd, causal,
+                                                    keys):
     """``flash_attention_bf16_tolerance`` (2e-5 + one bf16 ulp + 2^-8 x
     the plain version on |v|) holds the tensor-core K6's arithmetic, P
-    rounded to bf16, against both the port's plain version and the JAX
-    package's Pallas kernel in interpret mode, on the same bf16 inputs."""
+    rounded to bf16, at either tile's key width, against both the port's
+    plain version and the JAX package's Pallas kernel in interpret mode,
+    on the same bf16 inputs."""
     q, k, v = _bhsd(B, H, Sq, hd, 6), _bhsd(B, H, Sk, hd, 7), \
         _bhsd(B, H, Sk, hd, 8)
-    got = tensor_core_tile(q, k, v, causal)
+    got = tensor_core_tile(q, k, v, causal, keys=keys)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     port = tfa.flash_attention_reference(tq, tk, tv, causal).float()
     pallas = torch.from_numpy(np.array(jfa.flash_attention(
@@ -95,17 +109,20 @@ K3_K5_CASES = [("short", 1, 2, 257, 257, 80, False),
                ("mid", 1, 2, 700, 1030, 64, False)]
 
 
-@pytest.mark.parametrize("name,B,H,Sq,Sk,hd,causal", K3_K5_CASES)
+# K5 at head_dim 64 also at the 128-key tile (K3 never takes it)
+@pytest.mark.parametrize(
+    "name,B,H,Sq,Sk,hd,causal,keys",
+    _with_keys(K3_K5_CASES, lambda c: c[0] == "mid" and c[5] == 64))
 def test_bf16_tolerance_holds_the_tile_for_k3_and_k5(name, B, H, Sq, Sk, hd,
-                                                     causal):
-    """K3 and K5 in bf16 run K6's tile, so ``flash_attention_bf16_tolerance``
-    holds its arithmetic against the port's plain ``short_attention`` /
+                                                     causal, keys):
+    """K3 and K5 in bf16 run K6's tiles, so ``flash_attention_bf16_tolerance``
+    holds their arithmetic against the port's plain ``short_attention`` /
     ``mid_attention`` and against the JAX package's Pallas kernels in
     interpret mode, which keep P in f32: the rounding of P to bf16 is a
     deliberate divergence, bounded by the same function."""
     q, k, v = _bhsd(B, H, Sq, hd, 9), _bhsd(B, H, Sk, hd, 10), \
         _bhsd(B, H, Sk, hd, 11)
-    got = tensor_core_tile(q, k, v, causal)
+    got = tensor_core_tile(q, k, v, causal, keys=keys)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
     if name == "short":
@@ -122,20 +139,22 @@ def test_bf16_tolerance_holds_the_tile_for_k3_and_k5(name, B, H, Sq, Sk, hd,
         assert diff.max().item() > 0
 
 
-@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal", [
+@pytest.mark.parametrize("B,H,Sq,Sk,hd,causal,keys", _with_keys([
     EMULATION_CASES[0], EMULATION_CASES[1],
-    K3_K5_CASES[0][1:]])                # K3's vision shape, 5 key tiles
-def test_bf16_tolerance_catches_a_lost_key_tile(B, H, Sq, Sk, hd, causal):
-    """The bound stays tight enough that the same arithmetic with one
-    64-key tile (keys 64-127) left out fails it."""
+    K3_K5_CASES[0][1:]]))               # K3's vision shape, 5 key tiles
+def test_bf16_tolerance_catches_a_lost_key_tile(B, H, Sq, Sk, hd, causal,
+                                                keys):
+    """The bound stays tight enough that the same arithmetic with its
+    second key tile (keys 64-127, or 128-255 at the 128-key tile) left
+    out fails it."""
     q, k, v = _bhsd(B, H, Sq, hd, 6), _bhsd(B, H, Sk, hd, 7), \
         _bhsd(B, H, Sk, hd, 8)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     want = tfa.flash_attention_reference(tq, tk, tv, causal).float()
     tol = tfa.flash_attention_bf16_tolerance(tq, tk, tv, want, causal)
-    assert bool(((tensor_core_tile(q, k, v, causal) - want).abs()
+    assert bool(((tensor_core_tile(q, k, v, causal, keys=keys) - want).abs()
                  <= tol).all())
-    lost = tensor_core_tile(q, k, v, causal, drop_tile=1)
+    lost = tensor_core_tile(q, k, v, causal, drop_tile=1, keys=keys)
     assert not bool(((lost - want).abs() <= tol).all())
 
 

@@ -251,12 +251,12 @@ def test_k1_k4_take_the_tile_in_bf16_only(cuda):
 
 @pytest.mark.cuda
 def test_k5_k6_take_the_tf32_tile_in_f32(cuda):
-    """By dtype alone: f32 K5 and K6 launch the TF32 tile, bf16 the wgmma
-    tile, both with the Contiguous policy; one kernel each, causal or
+    """By dtype alone: f32 K5 and K6 launch the TF32 tile (Contiguous
+    policy), bf16 at head_dim 64 the TMA tile; one kernel each, causal or
     not."""
     q, k, v = (_bhsd(1, 2, 700, 64, s).to(cuda) for s in (18, 19, 20))
     for dtype, tile in ((torch.float32, "attention_tf32_kernel"),
-                        (torch.bfloat16, "attention_wgmma_kernel")):
+                        (torch.bfloat16, "attention_tma_kernel")):
         qd, kd, vd = (t.to(dtype) for t in (q, k, v))
         for name, fn in (
                 ("mid_attention", lambda: tfa.mid_attention(qd, kd, vd)),
@@ -267,7 +267,30 @@ def test_k5_k6_take_the_tf32_tile_in_f32(cuda):
             names = device_kernels(fn)
             got = [n for n in names if name in n]
             assert len(got) == 1, (got, [n[:100] for n in names[:5]])
-            assert tile in got[0] and "Contiguous" in got[0], got[0]
+            assert tile in got[0], got[0]
+            if dtype == torch.float32:
+                assert "Contiguous" in got[0], got[0]
+
+
+@pytest.mark.cuda
+def test_k5_k6_bf16_take_the_tma_tile_at_head_dim_64_only(cuda):
+    """In bf16, K5 and K6 at head_dim 64 launch attention_tma_kernel; at
+    16, 32, 80 and 128 they stay on attention_wgmma_kernel (Contiguous
+    policy); one kernel each."""
+    for hd in (64, 16, 32, 80, 128):
+        q, k, v = (_bhsd(1, 2, 700, hd, s).to(cuda, torch.bfloat16)
+                   for s in (21, 22, 23))
+        tile = "attention_tma_kernel" if hd == 64 else "attention_wgmma_kernel"
+        for name, fn in (
+                ("mid_attention", lambda: tfa.mid_attention(q, k, v)),
+                ("flash_attention",
+                 lambda: tfa.flash_attention(q, k, v, True))):
+            names = device_kernels(fn)
+            got = [n for n in names if name in n]
+            assert len(got) == 1, (hd, got, [n[:100] for n in names[:5]])
+            assert tile in got[0], (hd, got[0])
+            if hd != 64:
+                assert "Contiguous" in got[0], got[0]
 
 
 @pytest.mark.cuda
@@ -536,6 +559,42 @@ def test_k6_bf16_tensor_core_tile_edges(cuda, B, H, Sq, Sk, hd, causal):
     tol = tfa.flash_attention_bf16_tolerance(q, k, v, want, causal)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (B, H, Sq, hd)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,H,Sq,Sk,causal", [
+    ("mid", 2, 3, 1, 1, False), ("mid", 1, 2, 1, 300, False),   # Sq = 1
+    ("flash", 2, 3, 1, 1, False), ("flash", 1, 2, 1, 300, False),
+    ("mid", 2, 2, 100, 65, False),      # one key past a 64-key tile
+    ("flash", 2, 2, 100, 65, False),
+    ("mid", 2, 2, 200, 129, False),     # one key past a 128-key tile
+    ("flash", 2, 2, 200, 129, False),
+    ("mid", 1, 2, 70, 4096, False),     # K5's most keys
+    ("flash", 1, 2, 70, 4097, False),   # ... and past them
+    ("flash", 2, 2, 300, 300, True),    # causal, ragged last tile
+    ("flash", 1, 2, 2048, 2048, True),
+    ("mid", 2, 1, 1613, 700, False),    # ragged Sq != Sk
+    ("flash", 1, 3, 333, 1000, False),
+    ("mid", 70000, 1, 8, 8, False),     # B*H past 65,535 (the tensor
+    ("flash", 70000, 1, 8, 8, False)])  # map's BH dimension, the grid)
+def test_k5_k6_bf16_tma_tile_edges(cuda, name, B, H, Sq, Sk, causal):
+    """The edges of the TMA tile (K5 and K6 in bf16 at head_dim 64):
+    ragged Sq and Sk on both sides of a 64- and a 128-key tile, the causal
+    diagonal, a large B*H, within ``flash_attention_bf16_tolerance``."""
+    fn = getattr(tfa, f"{name}_attention")
+    plain = getattr(tfa, f"{name}_attention_reference")
+    flags = (causal,) if name == "flash" else ()
+    q = _bhsd(B, H, Sq, 64, 24).to(cuda, torch.bfloat16)
+    k, v = (_bhsd(B, H, Sk, 64, s).to(cuda, torch.bfloat16) for s in (25, 26))
+    before = fn.launches
+    got = fn(q, k, v, *flags)
+    assert fn.launches == before + 1
+    want = plain(q, k, v, *flags)
+    tol = tfa.flash_attention_bf16_tolerance(q, k, v, want, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, Sq, 64)
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= tol).all()), diff.max().item()
 

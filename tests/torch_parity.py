@@ -189,15 +189,17 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def tensor_core_tile(q, k, v, causal=False, drop_tile=None):
-    """The arithmetic order of the port's bf16 attention tile
-    (bsc_nav_tpu_torch/csrc/attention_mma.cuh, run by K1, K3, K4, K5 and
-    K6) in plain torch on q, k, v [B, H, S, hd] (numpy or torch), rounded
-    to bf16 first, ragged Sq and Sk and the square causal mask included:
-    64-key tiles, f32 scores scaled by 1/sqrt(hd) after the dot, an online
-    softmax with the running max, each p rounded to bf16 against that max
-    before P @ V, the row sum of the unrounded p, and acc / l rounded to
-    bf16.  ``drop_tile`` skips one key tile.  Returns f32."""
+def tensor_core_tile(q, k, v, causal=False, drop_tile=None, keys=64):
+    """The arithmetic order of the port's bf16 attention tiles in plain
+    torch on q, k, v [B, H, S, hd] (numpy or torch), rounded to bf16
+    first, ragged Sq and Sk and the square causal mask included: key tiles
+    of ``keys`` -- 64 for bsc_nav_tpu_torch/csrc/attention_mma.cuh (K1,
+    K3, K4, and K5 and K6 at other head_dims), 128 for attention_tma.cuh
+    (K5 and K6 in bf16 at head_dim 64) -- f32 scores scaled by 1/sqrt(hd)
+    after the dot, an online softmax with the running max, each p rounded
+    to bf16 against that max before P @ V, the row sum of the unrounded p,
+    and acc / l rounded to bf16.  ``drop_tile`` skips one key tile.
+    Returns f32."""
     qf, kf, vf = (torch.as_tensor(a).to(torch.bfloat16).float()
                   for a in (q, k, v))
     Sq, Sk = qf.shape[2], kf.shape[2]
@@ -206,19 +208,19 @@ def tensor_core_tile(q, k, v, causal=False, drop_tile=None):
     l = torch.zeros(qf.shape[:3])
     acc = torch.zeros_like(qf)
     rows = torch.arange(Sq)[:, None]
-    for t, k0 in enumerate(range(0, Sk, 64)):
+    for t, k0 in enumerate(range(0, Sk, keys)):
         if t == drop_tile:
             continue
-        s = qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2) * scale
+        s = qf @ kf[:, :, k0:k0 + keys].transpose(-1, -2) * scale
         if causal:
-            keys = torch.arange(k0, min(Sk, k0 + 64))[None, :]
-            s = s.masked_fill(keys > rows, -torch.inf)
+            cols = torch.arange(k0, min(Sk, k0 + keys))[None, :]
+            s = s.masked_fill(cols > rows, -torch.inf)
         m_new = torch.maximum(m, s.amax(-1))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + (p.to(torch.bfloat16).float()
-                                       @ vf[:, :, k0:k0 + 64])
+                                       @ vf[:, :, k0:k0 + keys])
         m = m_new
     return (acc / l[..., None]).to(torch.bfloat16).float()
 

@@ -1,6 +1,6 @@
 // The bf16 attention tile on the tensor cores, shared by K1
-// short_attention_qkv, K3 short_attention, K4 joint_qkv_attention, K5
-// mid_attention and K6 flash_attention: non-causal or square-causal
+// short_attention_qkv, K3 short_attention, and K5 mid_attention and K6
+// flash_attention at head_dims other than 64: non-causal or square-causal
 // softmax attention, with one addressing policy per way the callers lay
 // out their rows (a template parameter of the kernel):
 //   Contiguous  separate q, k, v [BH, S, hd] -> out [BH, Sq, hd] (K3, K5,
@@ -8,18 +8,13 @@
 //   FusedQKV    q, k and v read straight from the fused projection
 //               [B, S, 3D] (row stride 3D, columns h*hd, D + h*hd,
 //               2D + h*hd) -> out [B, S, D] (K1)
-//   JointQKV    the same from two streams' projections, rows r < Sx from
-//               qkv_x and the rest from qkv_c, with the per-stream RMS
-//               qk-norm applied to each Q and K tile in shared memory ->
-//               out [B, Sx + Sc, D] (K4)
 // Each source names its kernels with a tag type
 // (attention_wgmma_kernel<mid_attention, 64, ...> in a profile); the names
 // here have internal linkage, so every source holds its own copy.  The
-// Contiguous and FusedQKV policies take their element type, so the f32
-// tile of K1, K3, K5 and K6 (attention_tf32.cuh: every f32 product as
-// three TF32 products, within the f32 paths' 2e-5 bound) addresses its
-// rows with them too; K4 keeps its f32 CUDA-core kernel
-// (joint_qkv_attention.cu).
+// policies take their element type, so the f32 tile of K1, K3, K4, K5 and
+// K6 (attention_tf32.cuh: every f32 product as three TF32 products, within
+// the f32 paths' 2e-5 bound) addresses its rows with them too.  K4, and K5
+// and K6 at head_dim 64, run attention_tma.cuh in bf16.
 //
 // Bound on the H100: the tensor cores, and beside them the exponentials.
 // A bf16 joint call at SD3.5-medium's 1024^2 is 809 GFLOP against 86 MB
@@ -37,8 +32,7 @@
 // up to two tiles ahead of the one in use; key rows past Sk and query rows past
 // Sq are zero-filled in shared memory, never padded in device memory, and
 // keys past Sk score -inf.  The policy only maps a row index to a row
-// pointer, so a tile may straddle K4's two streams.  Per tile t a
-// warpgroup issues
+// pointer.  Per tile t a warpgroup issues
 //   S_t = Q K_t^T         wgmma m64n64k16, Q and K K-major from shared
 //                         memory, f32 accumulators in registers
 //   O += P_{t-1} V_{t-1}  wgmma m64n{hd}k16, P from registers (the f32
@@ -60,21 +54,6 @@
 // tile holding its last row, a warpgroup stops at the tile past its rows,
 // only the tiles that cross its diagonal (or Sk) are masked, and the
 // longest q tiles are scheduled first.
-//
-// K4's qk-norm: cp.async cannot transform what it copies, so Q and each K
-// tile land raw and are normalised in place -- x * rsqrt(mean(x^2) + eps)
-// * gamma of the row's stream in f32, rounded to bf16 -- by the very
-// threads that copied them: a row's eight 16-byte chunks are copied by
-// eight consecutive lanes, which may read their own cp.async writes after
-// cp.async.wait_group, sum the squares by three shuffles and write the
-// chunks back.  So the barrier that already publishes each landed tile to
-// wgmma publishes it normalised, and no barrier is added; the softmax /
-// P.V overlap is untouched.  Q is normalised once in the prologue, each K
-// tile once as it lands; V is used raw.  The gammas (q_x, k_x, q_c, k_c)
-// sit in shared memory behind the ring.  Rounding q-hat and k-hat to bf16
-// (as the JAX package's composed joint_qkv_reference does) is the order of
-// joint_qkv_attention_bf16_reference, which holds K4 by
-// joint_qkv_attention_bf16_tolerance.
 #pragma once
 
 #include <math.h>
@@ -113,18 +92,6 @@ struct RowsOf {
   }
 };
 
-// rows of two streams, as K4 reads its joint sequence: rows r < split
-// from x, the rest from c
-struct TwoRows {
-  const bf16* x;
-  const bf16* c;
-  int64_t stride;
-  int split;
-  __device__ __forceinline__ const bf16* row(int r) const {
-    return r < split ? x + r * stride : c + (r - split) * stride;
-  }
-};
-
 // one (batch*head)'s rows; output row r at out + r * out_stride
 template <typename R, typename T = bf16>
 struct View {
@@ -137,7 +104,6 @@ struct View {
 // [BH, Sq, HD], of element type T
 template <int HD, typename T>
 struct ContiguousOf {
-  static constexpr bool kNorm = false;
   const T* q;
   const T* k;
   const T* v;
@@ -149,12 +115,11 @@ struct ContiguousOf {
   }
 };
 
-// K1: the fused projection [B, S, 3D] (q | k | v column groups, heads
-// contiguous in each) -> out [B, S, D], of element type T; bh = b * heads
-// + h
+// K1 (and K4's f32 tile, on its pre-pass's joint rows): the fused rows
+// [B, S, 3D] (q | k | v column groups, heads contiguous in each) -> out
+// [B, S, D], of element type T; bh = b * heads + h
 template <int HD, typename T>
 struct FusedQKVOf {
-  static constexpr bool kNorm = false;
   const T* qkv;
   T* out;
   int S, heads;
@@ -171,30 +136,6 @@ template <int HD>
 using Contiguous = ContiguousOf<HD, bf16>;
 template <int HD>
 using FusedQKV = FusedQKVOf<HD, bf16>;
-
-// K4: two streams' fused projections qkv_x [B, Sx, 3D] and qkv_c
-// [B, Sc, 3D] (head_dim 64) -> out [B, Sx + Sc, D], x rows first, with
-// the per-stream RMS qk-norm; gammas f32 [4, 64] (q_x, k_x, q_c, k_c).
-// c is never read when Sc == 0 (the launcher then passes x for it).
-template <int HD>
-struct JointQKV {
-  static constexpr bool kNorm = true;
-  const bf16* x;
-  const bf16* c;
-  bf16* out;
-  const float* gammas;
-  int Sx, Sc, heads;
-  float eps;
-  __device__ __forceinline__ View<TwoRows> view(int64_t bh) const {
-    const int64_t b = bh / heads, h = bh - b * heads;
-    const int64_t D = static_cast<int64_t>(heads) * HD;
-    const bf16* xb = x + b * Sx * 3 * D + h * HD;
-    const bf16* cb = c + b * Sc * 3 * D + h * HD;
-    return {{xb, cb, 3 * D, Sx}, {xb + D, cb + D, 3 * D, Sx},
-            {xb + 2 * D, cb + 2 * D, 3 * D, Sx},
-            out + b * (Sx + Sc) * D + h * HD, D};
-  }
-};
 
 // rows [rows, HD] (row r0 first; rows past n zero-filled) into dst as 8x8
 // core matrices: element (r, c) at ((r/8) * HD/8 + c/8) * 64 + (r%8) * 8 +
@@ -226,49 +167,6 @@ __device__ __forceinline__ void load_sw128(bf16* dst, const R& src, int r0,
   }
 }
 
-// K4's qk-norm on a tile that load_sw128 filled: the chunks this thread
-// copied (it must have waited for them), each row x -> x * rsqrt(mean(x^2)
-// + eps) * gamma in f32, rounded to bf16 in place; gamma is g_lo for rows
-// r0 + r < split, else g_hi, indexed by the unswizzled dim.  The eight
-// lanes that copied a row's chunks sum its squares by shuffles.  A
-// zero-filled row stays zero.
-template <int ROWS>
-__device__ __forceinline__ void rms_norm_sw128(bf16* tile, int r0, int split,
-                                               const float* g_lo,
-                                               const float* g_hi, float eps,
-                                               int tid) {
-  static_assert(ROWS * 8 % kThreads == 0, "every lane takes every pass");
-#pragma unroll
-  for (int j = 0; j < ROWS * 8 / kThreads; ++j) {
-    const int i = tid + j * kThreads;
-    const int r = i >> 3, c = i & 7;
-    uint4* p = reinterpret_cast<uint4*>(tile + 64 * r + 8 * (c ^ (r & 7)));
-    uint4 u = *p;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-    float x[8];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + e));
-      x[2 * e] = f.x;
-      x[2 * e + 1] = f.y;
-    }
-    float ss = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) ss = fmaf(x[e], x[e], ss);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 2);
-    ss += __shfl_xor_sync(0xffffffffu, ss, 4);
-    const float inv = rsqrtf(ss * (1.f / 64) + eps);
-    const float* g = (r0 + r < split ? g_lo : g_hi) + 8 * c;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      w[e] = pack_bf16(x[2 * e] * inv * g[2 * e],
-                       x[2 * e + 1] * inv * g[2 * e + 1]);
-    *p = u;
-  }
-}
-
 // B128 descriptor: 8-row atoms of 1024 bytes (sbo), 1024-aligned tiles;
 // a tile of one 64-wide panel never steps along the leading dimension, so
 // its offset (lbo) is unused
@@ -291,13 +189,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int ON = HD / 8;      // n8 chunks of the output
 
   constexpr bool SW = HD == 64;   // 128-byte swizzle
-  static_assert(SW || !Src::kNorm, "the qk-norm reads swizzled rows");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [kQRows x HD] cores
   bf16* KVs = Qs + kQRows * HD;                    // [STAGES][K|V][TILE]
-  // the qk-norm's gammas [4][HD] behind the ring: q_x, k_x, q_c, k_c
-  [[maybe_unused]] float* Gs =
-      reinterpret_cast<float*>(KVs + STAGES * 2 * TILE);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -313,10 +207,6 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = q0 + 16 * w4 + g;      // this thread's rows: r0, r0 + 8
   const auto rows = src.view(bh);
 
-  if constexpr (Src::kNorm) {
-    for (int i = tid; i < 4 * HD; i += kThreads) Gs[i] = src.gammas[i];
-    __syncthreads();
-  }
   if constexpr (SW)
     load_sw128<kQRows>(Qs, rows.q, qb, Sq, tid);
   else
@@ -344,11 +234,6 @@ __global__ void __launch_bounds__(kThreads)
     if (s < n_tiles) load_kv(s);
     cp_async_commit();   // empty groups keep the count uniform
   }
-  if constexpr (Src::kNorm) {   // the Q tile has landed (for this thread)
-    cp_async_wait<AHEAD>();
-    rms_norm_sw128<kQRows>(Qs, qb, rows.q.split, Gs, Gs + 2 * HD, src.eps,
-                           tid);
-  }
 
   const bf16* Qw = Qs + 64 * HD * wg;
   float o[HD / 2], sc[NT * 4], m[2], l[2];
@@ -361,12 +246,6 @@ __global__ void __launch_bounds__(kThreads)
   // iteration t computes S_t (t < n_live) and P_{t-1} V_{t-1} (t > 0)
   for (int t = 0; t <= n_tiles; ++t) {
     cp_async_wait<AHEAD - 1>();   // tile t has landed (for this thread)
-    if constexpr (Src::kNorm) {   // ... and K_t is normalised by its copiers
-      if (t < n_tiles)
-        rms_norm_sw128<kKeys>(KVs + (t % STAGES) * 2 * TILE, t * kKeys,
-                              rows.k.split, Gs + HD, Gs + 3 * HD, src.eps,
-                              tid);
-    }
     fence_proxy_async();          // ... and is visible to wgmma
     __syncthreads();              // ... for all; tile t-2 is free
     if (t + AHEAD < n_tiles) load_kv(t + AHEAD);
@@ -492,8 +371,7 @@ struct WgmmaTile {
   static int launch(const Src& src, int BH, int Sq, int Sk, int causal,
                     cudaStream_t stream) {
     auto kernel = attention_wgmma_kernel<Tag, HD, Src>;
-    constexpr size_t smem =
-        WgCfg<HD>::SMEM + (Src::kNorm ? sizeof(float) * 4 * HD : 0);
+    constexpr size_t smem = WgCfg<HD>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -570,23 +448,6 @@ int launch_fused_qkv_mma(const void* qkv, void* out, int B, int S, int heads,
   return launch_by_hd<WgmmaTile, Tag, FusedQKV>(
       hd, B * heads, S, S, 0, s, static_cast<const bf16*>(qkv),
       static_cast<bf16*>(out), S, heads);
-}
-
-// bf16 qkv_x [B, Sx, 3 * heads * 64] and qkv_c [B, Sc, 3 * heads * 64]
-// (NULL when Sc == 0), gammas f32 [4, 64] (q_x, k_x, q_c, k_c) -> out
-// [B, Sx + Sc, heads * 64], x rows first, all contiguous and 16-byte
-// aligned, B and heads positive, Sx + Sc positive (the caller checks).
-// Returns the first CUDA error, or 0.
-template <typename Tag>
-int launch_joint_qkv_mma(const void* qkv_x, const void* qkv_c,
-                         const void* gammas, void* out, int B, int Sx,
-                         int Sc, int heads, float eps, cudaStream_t s) {
-  const bf16* x = static_cast<const bf16*>(qkv_x);
-  const JointQKV<64> src{x, Sc > 0 ? static_cast<const bf16*>(qkv_c) : x,
-                         static_cast<bf16*>(out),
-                         static_cast<const float*>(gammas), Sx, Sc, heads,
-                         eps};
-  return WgmmaTile::launch<Tag, 64>(src, B * heads, Sx + Sc, Sx + Sc, 0, s);
 }
 
 }  // namespace tc

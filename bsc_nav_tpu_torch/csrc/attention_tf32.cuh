@@ -1,16 +1,17 @@
 // The f32 attention tile on the tensor cores, shared by K1
-// short_attention_qkv (FusedQKV policy: q, k and v read in place from the
-// fused [B, S, 3D] rows), K3 short_attention, K5 mid_attention and K6
+// short_attention_qkv and K4 joint_qkv_attention (FusedQKV policy: q, k
+// and v read in place from fused [B, S, 3D] rows, K4's written by its
+// qk-norm pre-pass), K3 short_attention, K5 mid_attention and K6
 // flash_attention (Contiguous policy): the non-causal or square-causal
-// softmax attention of the Pallas _qkv_kernel_3in, _short_kernel,
-// _mid_kernel and _flash_kernel in f32 -- q scaled by the f32 scale
-// (1/sqrt(hd) rounded once from double) before the dot, keys past Sk
-// masked (the kv_len mask), ragged Sq and Sk -- with every product of two
-// f32 operands a, b taken as three TF32 products, a_lo b_hi + a_hi b_lo +
-// a_hi b_hi (tf32.cuh, shared with K8), so the result sits at plain f32's
-// error (emulated on the CPU by tests/torch_parity.py tf32x3_tile), inside
-// the f32 paths' 2e-5 bound, which one TF32 product misses by an order of
-// magnitude.
+// softmax attention of the Pallas _qkv_kernel_3in, _joint_qkv_kernel,
+// _short_kernel, _mid_kernel and _flash_kernel in f32 -- q scaled by the
+// f32 scale (1/sqrt(hd) rounded once from double) before the dot, keys
+// past Sk masked (the kv_len mask), ragged Sq and Sk -- with every product
+// of two f32 operands a, b taken as three TF32 products, a_lo b_hi +
+// a_hi b_lo + a_hi b_hi (tf32.cuh, shared with K8), so the result sits at
+// plain f32's error (emulated on the CPU by tests/torch_parity.py
+// tf32x3_tile), inside the f32 paths' 2e-5 bound, which one TF32 product
+// misses by an order of magnitude.
 //
 // Bound on the H100: the products.  f32-accurate products run at a third
 // of the TF32 rate, 495 / 3 = 165 TFLOP/s.  ViT-L's K1 call (B 8, 16 x 64,
@@ -70,7 +71,7 @@
 //   warpgroups copy each K/V tile by cp.async (2 stages at hd 80, 1
 //   above), split Q and K in place -- the threads that copied each chunk
 //   split it, so the barrier that publishes a tile publishes it split and
-//   no barrier is added (the JointQKV pattern of attention_mma.cuh) -- and
+//   no barrier is added -- and
 //   compute: S as above, and P V on mma.sync m16n8k8 .tf32 per warp on its
 //   16 rows, V raw f32 in shared memory (rows padded to hd + 4 floats, so
 //   the fragment reads hit 32 banks) split by each lane as it reads; V^T

@@ -1,9 +1,15 @@
-// The bf16 attention tile of K5 mid_attention and K6 flash_attention at
-// head_dim 64, the only head_dim their main paths give them (the MMDiT's
-// joint attention and DINOv2: 24 or 16 heads x 64): separate q, k, v
-// [BH, S, 64] -> out [BH, Sq, 64], non-causal or square-causal, ragged Sq
-// and Sk.  Every other head_dim of K5 and K6, and K1, K3 and K4 in bf16,
-// run attention_mma.cuh's attention_wgmma_kernel.
+// The bf16 attention tile of K4 joint_qkv_attention, and of K5
+// mid_attention and K6 flash_attention at head_dim 64, the only head_dim
+// their main paths give them (the MMDiT's joint attention and DINOv2: 24
+// or 16 heads x 64), in two layouts of rows:
+//   contiguous  separate q, k, v [BH, S, 64] -> out [BH, Sq, 64],
+//               non-causal or square-causal, ragged Sq and Sk (K5, K6)
+//   fused       q, k and v read from fused rows [B, S, 3D] (q | k | v
+//               column groups, heads contiguous in each) -> out [B, S, D]
+//               at column h*64, non-causal (K4, on the joint rows its
+//               qk-norm pre-pass writes)
+// Every other head_dim of K5 and K6, and K1 and K3 in bf16, run
+// attention_mma.cuh's attention_wgmma_kernel.
 //
 // Bound on the H100: the tensor cores, and beside them the exponentials
 // (attention_mma.cuh's header reckons both at SD3.5-medium's 1024^2: 0.82
@@ -21,12 +27,15 @@
 //   its 128-key K and V tiles into a ring of STAGES stages that runs on
 //   across items, each published on its own "full" mbarrier (expect-tx)
 //   and refilled once every consumer thread has released it on its
-//   "empty" one.  The tensor maps are 3-D, [BH, S, 64] with the 128-byte
-//   swizzle (one 64-wide bf16 row per swizzle atom, the layout of wgmma's
-//   B128 mode), so TMA's zero fill ends each (batch*head) at its own S:
-//   ragged Sq and Sk read no other head's rows, and keys past Sk also
-//   score -inf.  K and V have separate rings, so K_t is freed once S_t is
-//   done, V_t once P_t V_t is.
+//   "empty" one.  The tensor maps are 3-D, [BH, S, 64], or over fused
+//   rows 4-D, {64, heads, S, B} with strides of 128 bytes, 3D and S*3D
+//   elements and q, k, v at column offsets 0, D and 2D, read in boxes of
+//   {64, 1, rows, 1}; both with the 128-byte swizzle (one 64-wide bf16
+//   row per swizzle atom, the layout of wgmma's B128 mode), so shared
+//   memory gets the same [rows x 64] tile and TMA's zero fill ends each
+//   (batch, head) at its own S: ragged Sq and Sk read no other head's
+//   rows, and keys past Sk also score -inf.  K and V have separate
+//   rings, so K_t is freed once S_t is done, V_t once P_t V_t is.
 // - Warpgroups 1..NC, the consumers (64 query rows each), take the
 //   registers and per key tile t issue
 //     S_t = Q K_t^T         wgmma m64n128k16 x 4, Q and K from shared
@@ -171,13 +180,15 @@ __device__ __forceinline__ void pack_p_128(uint32_t (&pa)[8][4],
   }
 }
 
-template <typename Tag>
+// FUSED: the tensor maps are 4-D over fused rows and out is [B, Sq,
+// heads * 64]; else 3-D and out [BH, Sq, 64]
+template <typename Tag, bool FUSED>
 __global__ void __launch_bounds__(TmaCfg::THREADS, 1)
     attention_tma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          bf16* __restrict__ out, int Sq, int Sk, int causal,
-                         float scale_log2, int n_qtiles, int BH) {
+                         float scale_log2, int n_qtiles, int BH, int heads) {
   using Cfg = TmaCfg;
   constexpr int NC = Cfg::NC, KEYS = Cfg::KEYS, QROWS = Cfg::QROWS;
   constexpr int ST = Cfg::STAGES;
@@ -233,6 +244,14 @@ __global__ void __launch_bounds__(TmaCfg::THREADS, 1)
   if (wg == 0) {   // the producer: one thread issues every load
     setmaxnreg_dec<Cfg::PRODUCER_REGS>();
     if (tid == 0) {
+      // row r of (batch*head) bh: {0, r, bh}, or {0, h, r, b} fused
+      auto load = [&](bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                      int r, int bh) {
+        if constexpr (FUSED)
+          tma_load_4d(dst, map, bar, 0, bh % heads, r, bh / heads);
+        else
+          tma_load_3d(dst, map, bar, 0, r, bh);
+      };
       int it = 0;   // K/V tiles loaded so far: the ring position
       int j = 0;    // work items so far: the Q buffer
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++j) {
@@ -242,16 +261,16 @@ __global__ void __launch_bounds__(TmaCfg::THREADS, 1)
         // the work item before in this Q buffer has released it
         if (j >= 2) mbar_wait(q_empty + qs, (j / 2 - 1) & 1);
         mbar_expect_tx(q_full + qs, Cfg::Q_BYTES);
-        tma_load_3d(Qs + qs * QROWS * 64, &tm_q, q_full + qs, 0, qb, bh);
+        load(Qs + qs * QROWS * 64, &tm_q, q_full + qs, qb, bh);
         for (int t = 0; t < n_tiles; ++t, ++it) {
           const int s = it % ST;
           // the tile before in this stage has been released
           if (it >= ST) mbar_wait(k_empty + s, (it / ST - 1) & 1);
           mbar_expect_tx(k_full + s, Cfg::KV_BYTES);
-          tma_load_3d(Ks + s * TILE, &tm_k, k_full + s, 0, t * KEYS, bh);
+          load(Ks + s * TILE, &tm_k, k_full + s, t * KEYS, bh);
           if (it >= ST) mbar_wait(v_empty + s, (it / ST - 1) & 1);
           mbar_expect_tx(v_full + s, Cfg::KV_BYTES);
-          tma_load_3d(Vs + s * TILE, &tm_v, v_full + s, 0, t * KEYS, bh);
+          load(Vs + s * TILE, &tm_v, v_full + s, t * KEYS, bh);
         }
       }
     }
@@ -344,6 +363,15 @@ __global__ void __launch_bounds__(TmaCfg::THREADS, 1)
     }
     it += n_tiles;
 
+    // this item's output rows: [BH, Sq, 64], or [B, Sq, D] at column h*64
+    bf16* obase = out + static_cast<int64_t>(bh) * Sq * 64;
+    int64_t ostride = 64;
+    if constexpr (FUSED) {
+      const int b = bh / heads;
+      ostride = static_cast<int64_t>(heads) * 64;
+      obase = out + static_cast<int64_t>(b) * Sq * ostride +
+              (bh - b * heads) * 64;
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float sum = l[h];
@@ -351,7 +379,7 @@ __global__ void __launch_bounds__(TmaCfg::THREADS, 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const int row = r0 + 8 * h;
       if (row >= Sq) continue;
-      bf16* dst = out + (static_cast<int64_t>(bh) * Sq + row) * 64 + 2 * t4;
+      bf16* dst = obase + row * ostride + 2 * t4;
 #pragma unroll
       for (int n = 0; n < 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
@@ -388,41 +416,58 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// the tensor map of bf16 rows [BH, S, 64] read in boxes of `rows` x 64
-// with the 128-byte swizzle; rows past S (and heads past BH) read as zeros
-inline int encode_rows(CUtensorMap* map, const void* base, int BH, int S,
-                       int rows) {
+// a bf16 tensor map of `rank` dims (innermost first, strides in bytes of
+// dims 1..rank-1) read in boxes `box` with the 128-byte swizzle; what lies
+// outside the dims reads as zeros
+inline int encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {64 * sizeof(bf16),
-                                 static_cast<cuuint64_t>(S) * 64 *
-                                     sizeof(bf16)};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
       dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16 q [BH, Sq, 64], k and v [BH, Sk, 64] -> out [BH, Sq, 64], all
-// contiguous and 16-byte aligned, BH, Sq and Sk positive, causal only when
-// Sq == Sk (the caller checks).  Returns the first CUDA error, or 0.
-template <typename Tag>
-int launch_attention_tma(const void* q, const void* k, const void* v,
-                         void* out, int BH, int Sq, int Sk, int causal,
-                         cudaStream_t stream) {
+// the tensor map of bf16 rows [BH, S, 64] read in boxes of `rows` x 64;
+// rows past S (and heads past BH) read as zeros
+inline int encode_rows(CUtensorMap* map, const void* base, int BH, int S,
+                       int rows) {
+  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {64 * sizeof(bf16),
+                                 static_cast<cuuint64_t>(S) * 64 *
+                                     sizeof(bf16)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return encode_bf16(map, base, 3, dims, strides, box);
+}
+
+// the tensor map of one column group of fused bf16 rows [B, S, 3D] (base
+// at its first column), as {64, heads, S, B}, read in boxes of one head's
+// `rows` x 64; rows past S read as zeros
+inline int encode_fused_rows(CUtensorMap* map, const void* base, int B,
+                             int S, int heads, int rows) {
+  const cuuint64_t row = 3ull * heads * 64 * sizeof(bf16);   // bytes
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {64 * sizeof(bf16), row,
+                                 static_cast<cuuint64_t>(S) * row};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  return encode_bf16(map, base, 4, dims, strides, box);
+}
+
+// the kernel's launch on encoded maps: out as FUSED says, BH * Sq items
+template <typename Tag, bool FUSED>
+int launch_tma(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+               const CUtensorMap& tm_v, void* out, int BH, int Sq, int Sk,
+               int causal, int heads, cudaStream_t stream) {
   using Cfg = TmaCfg;
-  CUtensorMap tm_q, tm_k, tm_v;
-  int err = encode_rows(&tm_q, q, BH, Sq, Cfg::QROWS);
-  if (!err) err = encode_rows(&tm_k, k, BH, Sk, Cfg::KEYS);
-  if (!err) err = encode_rows(&tm_v, v, BH, Sk, Cfg::KEYS);
-  if (err) return err;
-  auto kernel = attention_tma_kernel<Tag>;
+  auto kernel = attention_tma_kernel<Tag, FUSED>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(Cfg::SMEM));
@@ -446,8 +491,44 @@ int launch_attention_tma(const void* q, const void* k, const void* v,
   const float scale = static_cast<float>(1.0 / sqrt(64.0));
   kernel<<<blocks, Cfg::THREADS, Cfg::SMEM, stream>>>(
       tm_q, tm_k, tm_v, static_cast<bf16*>(out), Sq, Sk, causal,
-      scale * 1.4426950408889634f, n_qtiles, BH);
+      scale * 1.4426950408889634f, n_qtiles, BH, heads);
   return counted_launch(kTileAttnTma);
+}
+
+// bf16 q [BH, Sq, 64], k and v [BH, Sk, 64] -> out [BH, Sq, 64], all
+// contiguous and 16-byte aligned, BH, Sq and Sk positive, causal only when
+// Sq == Sk (the caller checks).  Returns the first CUDA error, or 0.
+template <typename Tag>
+int launch_attention_tma(const void* q, const void* k, const void* v,
+                         void* out, int BH, int Sq, int Sk, int causal,
+                         cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode_rows(&tm_q, q, BH, Sq, TmaCfg::QROWS);
+  if (!err) err = encode_rows(&tm_k, k, BH, Sk, TmaCfg::KEYS);
+  if (!err) err = encode_rows(&tm_v, v, BH, Sk, TmaCfg::KEYS);
+  if (err) return err;
+  return launch_tma<Tag, false>(tm_q, tm_k, tm_v, out, BH, Sq, Sk, causal,
+                                1, stream);
+}
+
+// bf16 qkv [B, S, 3 * heads * 64] -> out [B, S, heads * 64], non-causal,
+// both contiguous and 16-byte aligned, B, S and heads positive (the
+// caller checks).  Returns the first CUDA error, or 0.
+template <typename Tag>
+int launch_fused_qkv_tma(const void* qkv, void* out, int B, int S,
+                         int heads, cudaStream_t stream) {
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const int64_t D = static_cast<int64_t>(heads) * 64;
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode_fused_rows(&tm_q, q, B, S, heads, TmaCfg::QROWS);
+  if (!err) err = encode_fused_rows(&tm_k, q + D, B, S, heads, TmaCfg::KEYS);
+  if (!err)
+    err = encode_fused_rows(&tm_v, q + 2 * D, B, S, heads, TmaCfg::KEYS);
+  if (err) return err;
+  const int64_t BH = static_cast<int64_t>(B) * heads;
+  if (BH > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tma<Tag, true>(tm_q, tm_k, tm_v, out, static_cast<int>(BH),
+                               S, S, 0, heads, stream);
 }
 
 }  // namespace tc

@@ -217,6 +217,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       : "memory");
 }
 
+// the same for a 4-D tensor map at (c0, c1, c2, c3)
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // a warpgroup's register budget: all four warps give registers back to
 // the SM (dec) or wait for them (inc), N a multiple of 8 in [24, 256]
 template <int N>

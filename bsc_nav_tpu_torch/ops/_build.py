@@ -94,7 +94,8 @@ def kernels() -> ctypes.CDLL:
                 ("short_attention_qkv", [p, p, i, i, i, i, i, p]),
                 ("short_attention", [p, p, p, p, i, i, i, i, i, i, p]),
                 ("max_cosine_per_voxel", [p, p, p, p, p, i, i, i, i, p]),
-                ("joint_qkv_attention", [p, p, p, p, i, i, i, i, f, i, p]),
+                ("joint_qkv_attention", [p, p, p, p, p, i, i, i, i, f, i, p]),
+                ("joint_qk_norm", [p, p, p, p, i, i, i, i, f, i, p]),
                 ("mid_attention", [p, p, p, p, i, i, i, i, i, p]),
                 ("flash_attention", [p, p, p, p, i, i, i, i, i, i, p]),
                 ("layer_norm", [p, p, p, p, ctypes.c_longlong, i, f, i, p]),

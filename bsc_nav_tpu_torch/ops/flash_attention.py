@@ -16,19 +16,21 @@ through ``joint_qkv_dispatch`` / ``self_qkv_dispatch`` to K4
 ``use_joint_qkv_attention`` holds.  Each kernel chooses its device kernel
 by dtype:
 
-- bf16: one tensor-core tile (``csrc/attention_mma.cuh``) for K1, K3, K4,
-  K5 and K6, which rounds P to bf16 and is held to the plain versions by
-  ``flash_attention_bf16_tolerance``; K1 and K4 read q, k and v in place
-  from the fused [B, S, 3*D] rows (K4 from two streams, with its qk-norm
-  applied in shared memory) and are held to
-  ``short_attention_qkv_bf16_tolerance`` and, against K4's bf16 order
-  ``joint_qkv_attention_bf16_reference`` (q-hat and k-hat rounded to
-  bf16), ``joint_qkv_attention_bf16_tolerance``.
-- f32: K1, K3, K5 and K6 run a tensor-core tile
+- bf16: tensor-core tiles that round P to bf16 and are held to the plain
+  versions by ``flash_attention_bf16_tolerance``: K4, and K5 and K6 at
+  head_dim 64, on the TMA tile (``csrc/attention_tma.cuh``), K1, K3 and
+  the other head_dims on ``csrc/attention_mma.cuh``.  K1 reads q, k and v
+  in place from the fused [B, S, 3*D] rows and is held to
+  ``short_attention_qkv_bf16_tolerance``.  K4 first writes the joint fused
+  rows with its qk-norm applied (a pre-pass, ``joint_qk_norm``: q-hat and
+  k-hat rounded to bf16), then reads them in place; it is held to that
+  order's plain version ``joint_qkv_attention_bf16_reference`` by
+  ``joint_qkv_attention_bf16_tolerance``.
+- f32: K1, K3, K4, K5 and K6 run a tensor-core tile
   (``csrc/attention_tf32.cuh``) that takes every f32 product as three TF32
   products (a_lo b_hi + a_hi b_lo + a_hi b_hi), which keeps f32's
-  accuracy: they are held to their plain versions by 2e-5 abs, as
-  before.  K4 keeps its CUDA-core kernel (``csrc/joint_qkv_attention.cu``).
+  accuracy: they are held to their plain versions by 2e-5 abs (K4 after
+  its f32 pre-pass).
 
 Layouts follow the JAX package: ``attention``, ``short_attention``,
 ``mid_attention``, ``flash_attention`` and ``reference_attention`` take
@@ -459,6 +461,84 @@ def joint_qkv_attention_reference(qkv_x, qkv_c, heads: int, q_gamma_x,
     return out.transpose(1, 2).reshape(B, Sx + Sc, D).to(qkv_x.dtype)
 
 
+def joint_qk_norm_reference(qkv_x, qkv_c, heads: int, q_gamma_x,
+                            k_gamma_x, q_gamma_c, k_gamma_c,
+                            eps: float = 1e-6):
+    """Plain version of K4's pre-pass: the joint fused rows [B, Sx+Sc, 3D],
+    x rows first, in the input dtype -- each q and k head of each row RMS-
+    normalised over its 64 dims in f32 (eps inside the rsqrt) and
+    multiplied by its stream's gamma, unscaled, rounded once to the input
+    dtype; v copied."""
+
+    def stream(qkv, g_q, g_k):
+        B, S, threeD = qkv.shape
+        t = qkv.float().reshape(B, S, 3, heads, threeD // 3 // heads)
+        qk = t[:, :, :2]
+        g = torch.stack([g_q, g_k]).float()[:, None]   # [2, 1, hd]
+        qk = qk * torch.rsqrt(qk.square().mean(-1, keepdim=True) + eps) * g
+        return torch.cat([qk, t[:, :, 2:]], dim=2).reshape(B, S, threeD)
+
+    return torch.cat([stream(qkv_x, q_gamma_x, k_gamma_x),
+                      stream(qkv_c, q_gamma_c, k_gamma_c)],
+                     dim=1).to(qkv_x.dtype)
+
+
+def _joint_launch_args(name: str, qkv_x, qkv_c, heads: int, gammas):
+    """The checks K4 and its pre-pass make on a CUDA call, then (B, Sx, Sc,
+    the gammas as one f32 [4, 64] tensor on the card)."""
+    if qkv_x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv_x.device}")
+    B, Sx, threeD = qkv_x.shape
+    Sc = qkv_c.shape[1]
+    if threeD // 3 // heads != 64:
+        raise NotImplementedError(
+            f"{name}: head_dim {threeD // 3 // heads} (K4 takes 64)")
+    # an empty ctx stream (self_qkv_dispatch) is never read
+    _check_cuda_input(name, *((qkv_x, qkv_c) if Sc else (qkv_x,)))
+    gam = torch.stack(gammas).to(device=qkv_x.device,
+                                 dtype=torch.float32).contiguous()
+    return B, Sx, Sc, gam
+
+
+def _joint_shapes(name: str, qkv_x, qkv_c, heads: int) -> None:
+    B, Sx, threeD = qkv_x.shape
+    if (qkv_c.dim() != 3 or qkv_c.shape[0] != B or qkv_c.shape[2] != threeD
+            or threeD % (3 * heads)):
+        raise ValueError(f"{name}: qkv_x {tuple(qkv_x.shape)} and qkv_c "
+                         f"{tuple(qkv_c.shape)} are not [B, S, 3*D] with D "
+                         f"divisible by {heads}")
+
+
+def joint_qk_norm(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
+                  q_gamma_c, k_gamma_c, eps: float = 1e-6):
+    """K4's pre-pass alone: the joint fused rows [B, Sx+Sc, 3D] with the
+    per-stream qk-norm applied (``joint_qk_norm_reference``).
+
+    A CPU tensor takes ``joint_qk_norm_reference``.  A CUDA tensor launches
+    the pre-pass kernel of ``csrc/joint_qkv_attention.cu`` alone, on the
+    current stream without synchronising; K4 (``joint_qkv_attention``)
+    launches it itself.  For checks and timing."""
+    _joint_shapes("joint_qk_norm", qkv_x, qkv_c, heads)
+    gammas = (q_gamma_x, k_gamma_x, q_gamma_c, k_gamma_c)
+    if qkv_x.device.type == "cpu":
+        return joint_qk_norm_reference(qkv_x, qkv_c, heads, *gammas, eps=eps)
+    B, Sx, Sc, gam = _joint_launch_args("joint_qk_norm", qkv_x, qkv_c,
+                                        heads, gammas)
+    fused = torch.empty(B, Sx + Sc, qkv_x.shape[2], dtype=qkv_x.dtype,
+                        device=qkv_x.device)
+    rc = _build.kernels().joint_qk_norm_launch(
+        qkv_x.data_ptr(), qkv_c.data_ptr() if Sc else None, gam.data_ptr(),
+        fused.data_ptr(), B, Sx, Sc, heads, eps,
+        int(qkv_x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(qkv_x.device).cuda_stream)
+    _build.check(rc, "joint_qk_norm")
+    joint_qk_norm.launches += 1
+    return fused
+
+
+joint_qk_norm.launches = 0
+
+
 def joint_qkv_attention(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
                         q_gamma_c, k_gamma_c, eps: float = 1e-6):
     """MMDiT joint attention with per-stream RMS qk-norm:
@@ -466,42 +546,29 @@ def joint_qkv_attention(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
     [B, Sx+Sc, D] with x rows first.
 
     A CPU tensor takes ``joint_qkv_attention_reference``.  A CUDA tensor
-    launches kernel K4 (``csrc/joint_qkv_attention.cu``: bf16 on the
-    tensor-core tile, held to ``joint_qkv_attention_bf16_reference`` by
-    ``joint_qkv_attention_bf16_tolerance``; f32 on the CUDA cores) on the
-    current stream without synchronising, or raises for what it does not
-    take (head_dim other than 64, another dtype, a non-contiguous or
-    misaligned stream, B*heads past 65535 in f32)."""
-    B, Sx, threeD = qkv_x.shape
-    Sc = qkv_c.shape[1]
-    if (qkv_c.dim() != 3 or qkv_c.shape[0] != B or qkv_c.shape[2] != threeD
-            or threeD % (3 * heads)):
-        raise ValueError(f"joint_qkv_attention: qkv_x {tuple(qkv_x.shape)} "
-                         f"and qkv_c {tuple(qkv_c.shape)} are not [B, S, 3*D]"
-                         f" with D divisible by {heads}")
-    args = (qkv_x, qkv_c, heads, q_gamma_x, k_gamma_x, q_gamma_c, k_gamma_c)
+    launches kernel K4 (``csrc/joint_qkv_attention.cu``: the qk-norm
+    pre-pass into scratch joint fused rows, then the attention tile on
+    them; bf16 on the TMA tile, held to
+    ``joint_qkv_attention_bf16_reference`` by
+    ``joint_qkv_attention_bf16_tolerance``; f32 on the TF32 tile, within
+    2e-5 abs) on the current stream without synchronising, or raises for
+    what it does not take (head_dim other than 64, another dtype, a
+    non-contiguous or misaligned stream)."""
+    _joint_shapes("joint_qkv_attention", qkv_x, qkv_c, heads)
+    gammas = (q_gamma_x, k_gamma_x, q_gamma_c, k_gamma_c)
     if qkv_x.device.type == "cpu":
-        return joint_qkv_attention_reference(*args, eps=eps)
-    if qkv_x.device.type != "cuda":
-        raise ValueError(f"joint_qkv_attention: unsupported device "
-                         f"{qkv_x.device}")
-    D = threeD // 3
-    if D // heads != 64:
-        raise NotImplementedError(
-            f"joint_qkv_attention: head_dim {D // heads} (K4 takes 64)")
-    # an empty ctx stream (self_qkv_dispatch) is never read
-    _check_cuda_input("joint_qkv_attention", *((qkv_x, qkv_c) if Sc
-                                                else (qkv_x,)))
-    if qkv_x.dtype == torch.float32 and B * heads > 65535:
-        raise NotImplementedError(f"joint_qkv_attention: B*heads = "
-                                  f"{B * heads} over the f32 kernel's grid "
-                                  "limit of 65535")
-    gam = torch.stack([q_gamma_x, k_gamma_x, q_gamma_c, k_gamma_c]).to(
-        device=qkv_x.device, dtype=torch.float32).contiguous()
-    out = torch.empty(B, Sx + Sc, D, dtype=qkv_x.dtype, device=qkv_x.device)
+        return joint_qkv_attention_reference(qkv_x, qkv_c, heads, *gammas,
+                                             eps=eps)
+    B, Sx, Sc, gam = _joint_launch_args("joint_qkv_attention", qkv_x, qkv_c,
+                                        heads, gammas)
+    threeD = qkv_x.shape[2]
+    fused = torch.empty(B, Sx + Sc, threeD, dtype=qkv_x.dtype,
+                        device=qkv_x.device)
+    out = torch.empty(B, Sx + Sc, threeD // 3, dtype=qkv_x.dtype,
+                      device=qkv_x.device)
     rc = _build.kernels().joint_qkv_attention_launch(
         qkv_x.data_ptr(), qkv_c.data_ptr() if Sc else None, gam.data_ptr(),
-        out.data_ptr(), B, Sx, Sc, heads, eps,
+        fused.data_ptr(), out.data_ptr(), B, Sx, Sc, heads, eps,
         int(qkv_x.dtype == torch.bfloat16),
         torch.cuda.current_stream(qkv_x.device).cuda_stream)
     _build.check(rc, "joint_qkv_attention")
@@ -516,8 +583,8 @@ def joint_qkv_attention_bf16_reference(qkv_x, qkv_c, heads: int, q_gamma_x,
                                        k_gamma_x, q_gamma_c, k_gamma_c,
                                        eps: float = 1e-6):
     """Plain version of K4's bf16 path, [B, Sx+Sc, D] f32: q-hat and k-hat
-    of ``joint_normalised_qkv`` rounded to bf16, as the tensor-core tile
-    and the JAX package's composed ``joint_qkv_reference`` round them (the
+    of ``joint_normalised_qkv`` rounded to bf16, as K4's pre-pass and the
+    JAX package's composed ``joint_qkv_reference`` round them (the
     Pallas K4 and ``joint_qkv_attention_reference`` keep them in f32), then
     ``flash_attention_reference`` in f32 with P unrounded."""
     B, Sx, threeD = qkv_x.shape
@@ -550,14 +617,14 @@ def joint_qkv_attention_bf16_tolerance(qkv_x, qkv_c, heads: int, q_gamma_x,
     ``joint_qkv_attention`` on bf16 inputs, want being
     ``joint_qkv_attention_bf16_reference`` on the same arguments.
 
-    K4's tensor-core tile computes q-hat and k-hat in f32, rounds them to
-    bf16 and runs the tile of K3, K5 and K6 on them, so the bound is
+    K4's pre-pass computes q-hat and k-hat in f32 and rounds them to bf16,
+    and its tile is that of K5 and K6 on them, so the bound is
     ``flash_attention_bf16_tolerance`` on the rounded q-hat, k-hat and v,
     plus a term for q-hat and k-hat rounding otherwise than the plain
     version's.  With u = 2^-8, bf16's unit roundoff:
 
-    - the tile's f32 value of an element x of q-hat or k-hat (its own order
-      for the 64 squares, rsqrtf) lies within 2^-17 |x| of the plain
+    - the pre-pass's f32 value of an element x of q-hat or k-hat (its own
+      order for the 64 squares, rsqrtf) lies within 2^-17 |x| of the plain
       version's: 63 * 2^-24 on the sum of squares in either order, halved
       by the rsqrt, plus rsqrtf's two ulps and two products;
     - so the two round x alike unless x lies within 2^-16 |x| of a bf16

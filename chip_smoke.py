@@ -3,7 +3,7 @@
 one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --kernels K5,K6   # those kernels' cases alone
+    python3 chip_smoke.py --kernels K4,K5,K6   # those kernels' cases alone
 
 Phases, one line each (any failed check raises, so the script exits
 non-zero):
@@ -19,10 +19,10 @@ non-zero):
                 F.layer_norm for K7, cuDNN for K8; for K4, as context,
                 SDPA on the already-normalised q/k/v), the TFLOP/s reached
                 and the bound over the kernel's time, the device time alone
-                from a CUDA graph replay (and the library call's), for K5,
-                K6 and K8 the kernel each launch took (f32: the three-pass
-                TF32 tiles; bf16: attention_tma_kernel at head_dim 64,
-                conv3x3_s1_mma_kernel): K1 at
+                from a CUDA graph replay (and the library call's), for K4,
+                K5, K6 and K8 the kernel each launch took (f32: the three-pass
+                TF32 tiles; bf16: attention_tma_kernel for K4 and at
+                head_dim 64, conv3x3_s1_mma_kernel): K1 at
                 ViT-L's S 261, K3 at the CLIP towers' shapes, K4 at
                 SD3.5-medium's joint and self-attention at 512^2 and its
                 self-attention at 1024^2 (S 4096, checked on one batch
@@ -32,7 +32,9 @@ non-zero):
                 shapes (K7 and K8 are dispatched nowhere, as in the JAX
                 package); the device kernels SDPA runs in f32 at K1's and
                 K3's shapes and in bf16 at K5's and K6's main shapes, from
-                the profiler
+                the profiler; for K4 also its qk-norm pre-pass alone
+                against its plain version and by graph, and "pre-pass +
+                SDPA" on its rows for context
   slice f32     the full default Config() -- 680x680 RGB-D, 1000^2 x 200
                 grid, 131,080 slots x 10 tokens x 1024 -- through
                 Perception / VoxelTokenMemory with a random-init DINOv2
@@ -68,15 +70,17 @@ non-zero):
                 decoder, random bf16 weights from the seed, 3 images of
                 512^2, 28 steps, CFG 7.0, inside VoxelTokenMemory(Config())
                 over the 32 frames: voxel_localized("a sofa") twice, then
-                once under torch.profiler; 1,036 K4 launches per query
+                once under torch.profiler; 1,036 K4 launches per query,
+                all on attention_tma_kernel
   textq sd3-medium  the same with SD3-medium (no qk-norm, no dual
                 attention): the composed joint attention, 672 K5 launches
                 per query (all on attention_tma_kernel) and no K4; each
                 text query prints its host-clock times and its attention
                 kernels' share of the profiled device time
   textq sd35-1024  SD3.5-medium at its published 1024^2 (a 4685-token
-                joint sequence): 672 K6 (all on attention_tma_kernel) and
-                364 K4 (the dual self-attention at 4096 tokens) per query;
+                joint sequence): 672 K6 and 364 K4 (the dual
+                self-attention at 4096 tokens) per query, all on
+                attention_tma_kernel;
                 one timed and one profiled call
   textq int8    SD3.5-medium at 512^2 with the MMDiT token matmuls in W8A8
                 and T5-XXL quantized on the host (quantize_params_host), the
@@ -293,8 +297,9 @@ def tile_launches() -> tuple:
 
 def check_tile(fn, tag: str, tile: str, what: str) -> int:
     """fn() runs once: every launch that the wrapper ``tag`` (K1
-    "short_attention_qkv", K3 "short_attention", K5 "mid_attention", K6
-    "flash_attention", K8 "conv3x3_s1") counted in that call, at least
+    "short_attention_qkv", K3 "short_attention", K4 "joint_qkv_attention",
+    K5 "mid_attention", K6 "flash_attention", K8 "conv3x3_s1") counted in
+    that call, at least
     one, took ``tile``, and no other kernel of its kind (attention or
     conv) ran, by the launchers' own counts (``tile_launches``).  Returns
     how many there were."""
@@ -310,8 +315,8 @@ def check_tile(fn, tag: str, tile: str, what: str) -> int:
     return n
 
 
-# the tile each attention kernel runs, by dtype (K5 and K6 in bf16 at
-# head_dim 64: TMA_TILE); K8's kernels
+# the tile each attention kernel runs, by dtype (K4, and K5 and K6 at
+# head_dim 64, in bf16: TMA_TILE); K8's kernels
 F32_TILE, BF16_TILE, TMA_TILE = TILES[1], TILES[0], TILES[4]
 K8_TILES = {torch.float32: TILES[3], torch.bfloat16: TILES[2]}
 
@@ -526,6 +531,62 @@ def normalised_qkv(x, c, heads, g, eps=1e-6):
                  fa.joint_normalised_qkv(x, c, heads, *g, eps=eps))
 
 
+def k4_tile(dtype):
+    """The tile K4 runs in ``dtype``: TMA_TILE in bf16, F32_TILE in f32
+    (after its qk-norm pre-pass); in a tree from before the pre-pass
+    (no ``joint_qk_norm``), BF16_TILE in bf16 and None in f32 (its
+    CUDA-core kernel, counted by no launcher)."""
+    from bsc_nav_tpu_torch.ops import flash_attention as fa
+    if hasattr(fa, "joint_qk_norm"):
+        return TMA_TILE if dtype == torch.bfloat16 else F32_TILE
+    return BF16_TILE if dtype == torch.bfloat16 else None
+
+
+def k4_prepass(x, c, H, g, dtype) -> dict:
+    """K4's qk-norm pre-pass alone (``joint_qk_norm``) against its plain
+    version -- v exact; q-hat and k-hat within 2^-17 of the plain f32
+    value, so in bf16 equal or one ulp apart where that value rounds the
+    other way -- and its device time (graph) beside its bound (bytes), and
+    "pre-pass + SDPA" on its rows for context.  Empty where the tree has
+    no pre-pass."""
+    import torch.nn.functional as F
+
+    from bsc_nav_tpu_torch.ops import flash_attention as fa
+    if not hasattr(fa, "joint_qk_norm"):
+        return {}
+    D = x.shape[2] // 3
+    got = fa.joint_qk_norm(x, c, H, *g)
+    want = fa.joint_qk_norm_reference(x, c, H, *g)
+    check(torch.equal(got[..., 2 * D:], want[..., 2 * D:]),
+          f"K4 pre-pass {dtype}: v not copied exactly")
+    a, w = got[..., :2 * D].float(), want[..., :2 * D].float()
+    tol = (2.0 ** -17 * w.abs() if dtype == torch.float32
+           else torch.where(a == w, torch.zeros_like(w), bf16_ulp(w)))
+    err = (a - w).abs().max().item()
+    check(bool(((a - w).abs() <= tol).all()),
+          f"K4 pre-pass {dtype}: err {err}")
+    del a, w, tol, want
+    ms = graph_ms(lambda: fa.joint_qk_norm(x, c, H, *g))
+    b_ms, _ = bound(0.0, nbytes(x, c, got), dtype)
+
+    def then_sdpa():
+        q, k, v = fa._split_heads(fa.joint_qk_norm(x, c, H, *g), H)
+        return F.scaled_dot_product_attention(q, k, v)
+
+    with_sdpa = graph_ms(then_sdpa)
+    del got
+    return {"prepass_max_abs_err": err, "prepass_graph_ms": ms,
+            "prepass_bound_ms": b_ms, "prepass_sdpa_graph_ms": with_sdpa}
+
+
+# (case, B, heads, Sx, Sc, dtypes); head_dim 64
+K4_SHAPES = (("joint", 6, 24, 1024, 589, (torch.float32, torch.bfloat16)),
+             ("joint-no-t5", 6, 24, 1024, 154,
+              (torch.float32, torch.bfloat16)),
+             ("self", 6, 24, 1024, 0, (torch.float32, torch.bfloat16)),
+             ("self-1024px", 6, 24, 4096, 0, (torch.bfloat16,)))
+
+
 def k4_cases(dev, gen, cases):
     """K4 at the SD3.5-medium shapes: B 6 (3 images x CFG 2), 24 heads x
     64, 1024 latent rows plus 77 CLIP + 512 T5 context rows, 77 + 77 when
@@ -534,18 +595,14 @@ def k4_cases(dev, gen, cases):
     the plain version of its order, which rounds q-hat and k-hat to bf16.
     The S 4096 case is held to it on the first and the last batch row, and
     the plain version timed on the first: the plain logits of the whole
-    call would be 9.7 GB."""
+    call would be 9.7 GB.  Each case checks the tile its call took, and
+    times the qk-norm pre-pass alone (``k4_prepass``)."""
     import torch.nn.functional as F
 
     from bsc_nav_tpu_torch.ops import flash_attention as fa
 
-    B, H = 6, 24
-    D = H * 64
-    for case, Sx, Sc, dtypes in (
-            ("joint", 1024, 589, (torch.float32, torch.bfloat16)),
-            ("joint-no-t5", 1024, 154, (torch.float32, torch.bfloat16)),
-            ("self", 1024, 0, (torch.float32, torch.bfloat16)),
-            ("self-1024px", 4096, 0, (torch.bfloat16,))):
+    for case, B, H, Sx, Sc, dtypes in K4_SHAPES:
+        D = H * 64
         for dtype in dtypes:
             x = torch.randn(B, Sx, 3 * D, generator=gen, device=dev).to(dtype)
             c = torch.randn(B, Sc, 3 * D, generator=gen, device=dev).to(dtype)
@@ -574,6 +631,11 @@ def k4_cases(dev, gen, cases):
                 check(bool((diff <= tol).all()),
                       f"K4 {case} {dtype} rows {rows}: err {err}")
                 del want, tol, diff
+            tile = k4_tile(dtype)
+            if tile:
+                check_tile(lambda: fa.joint_qkv_attention(x, c, H, *g),
+                           "joint_qkv_attention", tile,
+                           f"K4 {case} {dtype}")
             xs, cs = x[:n], c[:n]
             ms = cuda_ms(lambda: fa.joint_qkv_attention(x, c, H, *g))
             plain = cuda_ms(lambda: plain_fn(xs, cs, H, *g),
@@ -583,16 +645,14 @@ def k4_cases(dev, gen, cases):
             sdpa = sdpa_ms(qn, kn, vn)
             sdpa_dev = graph_ms(
                 lambda: F.scaled_dot_product_attention(qn, kn, vn))
-            # the tile without the qk-norm on the same rows: K1's FusedQKV
-            # policy over the two streams concatenated, a split of K4's
-            # time into its row addressing and its norm
-            fused, fused_s = None, ""
-            if dtype == torch.bfloat16:
-                cat = torch.cat([x, c], 1)
-                fused = graph_ms(lambda: fa.short_attention_qkv(cat, H))
-                fused_s = (f"; the tile without the qk-norm on the same "
-                           f"rows (K1's FusedQKV, graph) {fused:.4f} ms")
-                del cat
+            del qn, kn, vn
+            pre = k4_prepass(x, c, H, g, dtype)
+            pre_s = (f"; the pre-pass alone (graph) "
+                     f"{pre['prepass_graph_ms']:.4f} ms (bound "
+                     f"{pre['prepass_bound_ms']:.4f} ms, bytes; "
+                     f"max_abs_err {pre['prepass_max_abs_err']:.3g}), "
+                     f"pre-pass + SDPA on its rows (graph) "
+                     f"{pre['prepass_sdpa_graph_ms']:.4f} ms" if pre else "")
             S = Sx + Sc
             flops = attn_flops(B, H, S, S, 64)
             b_ms, b_by = bound(flops, nbytes(x, c, got, *g), dtype)
@@ -606,10 +666,10 @@ def k4_cases(dev, gen, cases):
                 f"{' (batch row 0)' if n < B else ''} bound {b_ms:.4f} ms "
                 f"({b_by}); replayed from a CUDA graph: kernel "
                 f"{dev_ms:.4f} ms ({flops / dev_ms / 1e9:.1f} TFLOP/s, "
-                f"{b_ms / dev_ms:.3f} of the bound); no PyTorch call "
-                f"applies the qk-norm -- for context only, SDPA on the "
-                f"already-normalised q/k/v {sdpa:.4f} ms, graph "
-                f"{sdpa_dev:.4f} ms{fused_s}")
+                f"{b_ms / dev_ms:.3f} of the bound); {tile}{pre_s}; no "
+                f"PyTorch call applies the qk-norm -- for context only, "
+                f"SDPA on the already-normalised q/k/v {sdpa:.4f} ms, graph "
+                f"{sdpa_dev:.4f} ms")
             cases.append({"kernel": "K4", "case": case, "B": B, "heads": H,
                           "Sx": Sx, "Sc": Sc, "head_dim": 64,
                           "dtype": str(dtype)[6:], "max_abs_err": err,
@@ -619,10 +679,10 @@ def k4_cases(dev, gen, cases):
                           "bound_ms": b_ms, "bound_by": b_by,
                           "library_ms": None, "tflops": flops / ms / 1e9,
                           "bound_share": b_ms / ms, "graph_ms": dev_ms,
+                          "tile": tile, **pre,
                           "sdpa_on_normalised_ms": sdpa,
-                          "sdpa_on_normalised_graph_ms": sdpa_dev,
-                          "tile_without_norm_graph_ms": fused})
-            del x, c, got, qn, kn, vn, xs, cs
+                          "sdpa_on_normalised_graph_ms": sdpa_dev})
+            del x, c, got, xs, cs
             torch.cuda.empty_cache()
 
 
@@ -1444,15 +1504,14 @@ def phase_textq(dev, name, cfg, vcfg, world, imagination, seed, per_query,
         check(float(imgs.float().std()) > 0, f"{name}: flat images")
     peak = torch.cuda.max_memory_allocated() / 1e9
     img_stats = (float(imgs.float().mean()), float(imgs.float().std()))
-    # every K5 and K6 launch of the queries (bf16, head_dim 64) took the
-    # TMA tile, and nothing else did
-    n_long = n_queries * (per_query.get("K5", 0) + per_query.get("K6", 0))
+    # every K4, K5 and K6 launch of the queries (bf16, head_dim 64) took
+    # the TMA tile, and nothing else did
+    n_long = n_queries * sum(per_query.get(k, 0) for k in ("K4", "K5", "K6"))
     took = dict(zip(TILES, (a - b for a, b in zip(tile_launches(), tiles))))
     check(took[TMA_TILE] == n_long,
-          f"{name}: {n_long} K5/K6 launches, tiles launched {took}")
-    if n_long:
-        log(name, f"all {n_long} K5/K6 launches of the {n_queries} "
-            f"queries took {TMA_TILE}")
+          f"{name}: {n_long} K4/K5/K6 launches, tiles launched {took}")
+    log(name, f"all {n_long} K4/K5/K6 launches of the {n_queries} "
+        f"queries took {TMA_TILE}")
 
     # T5 alone (cond + uncond prompts), CUDA events: the profiler's kernel
     # names cannot tell its GEMMs from the MMDiT's
@@ -1784,7 +1843,8 @@ def kernel_cases_only(names, seed) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run = {"K5": lambda d, g, c: long_attention_cases(d, g, c, ("K5",)),
+    run = {"K4": k4_cases,
+           "K5": lambda d, g, c: long_attention_cases(d, g, c, ("K5",)),
            "K6": lambda d, g, c: long_attention_cases(d, g, c, ("K6",)),
            "K7": layer_norm_cases, "K8": conv_cases}
     check(set(names) <= set(run), f"--kernels {names}: only {sorted(run)}")
@@ -1808,8 +1868,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="",
-                    help="only the kernel cases of these kernels (of K5, "
-                    "K6, K7, K8, comma separated): build, check, time, "
+                    help="only the kernel cases of these kernels (of K4, "
+                    "K5, K6, K7, K8, comma separated): build, check, time, "
                     "print their cases as JSON, and stop -- a measurement "
                     "run, not the smoke")
     args = ap.parse_args(argv)
@@ -1928,7 +1988,13 @@ def main(argv=None) -> int:
               **tiles),
         entry("joint_qkv_attention", "joint_qkv_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:550", 3,
-              main_case("K4", "bfloat16", case="joint")),
+              main_case("K4", "bfloat16", case="joint"),
+              float32=main_case("K4", case="joint"),
+              device_kernels=["joint_qkv_norm_kernel (the qk-norm "
+                              "pre-pass, joint_qkv_attention.cu)",
+                              "the tile on its rows"],
+              tiles={"bfloat16": csrc + "attention_tma.cuh",
+                     "float32": csrc + "attention_tf32.cuh"}),
         entry("mid_attention", "mid_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:215", 4,
               main_case("K5", "bfloat16", case="sd3-medium-512"),

@@ -1,6 +1,8 @@
-"""Kernel K4 ``joint_qkv_attention`` (its plain version on the CPU, and the
-arithmetic order of its bf16 tensor-core tile) and the MMDiT attention
-dispatch against the JAX package.
+"""Kernel K4 ``joint_qkv_attention`` (its plain version on the CPU, its
+qk-norm pre-pass's plain version, and the arithmetic order of its two
+device kernels: the pre-pass, then the bf16 TMA tile or the f32 three-pass
+TF32 tile on the joint fused rows) and the MMDiT attention dispatch
+against the JAX package.
 
 The JAX kernel runs in Pallas interpret mode, as the JAX package's own
 tests run it on the CPU.  Gammas are drawn per stream and per q/k, so a
@@ -16,7 +18,7 @@ import torch
 from bsc_nav_tpu.ops import flash_attention as jfa
 from bsc_nav_tpu_torch.ops import flash_attention as tfa
 
-from torch_parity import bf16_ulp, tensor_core_tile
+from torch_parity import bf16_ulp, tensor_core_tile, tf32x3_tile
 
 HEADS, HD = 4, 64
 
@@ -152,16 +154,28 @@ def test_gate_is_the_jax_rule_without_the_tpu_test(S, heads, hd, qk_norm,
 
 
 
+def _k4_rows(x, c, g, dtype):
+    """K4's pre-pass (csrc/joint_qkv_attention.cu) by its plain version:
+    the joint fused rows in ``dtype`` (bf16: q-hat and k-hat computed in
+    f32 and rounded once), split into q, k, v [B, H, S, hd]."""
+    rows = tfa.joint_qk_norm_reference(_torch(x, dtype), _torch(c, dtype),
+                                       HEADS, *map(torch.from_numpy, g))
+    return tfa._split_heads(rows, HEADS)
+
+
 def _k4_tile(x, c, g, drop_tile=None):
-    """K4's bf16 order (csrc/attention_mma.cuh, JointQKV): the per-stream
-    qk-norm in f32 on the bf16 inputs, q-hat and k-hat rounded to bf16,
-    then the tile -- 64-key tiles, scores scaled after the dot, P rounded
-    to bf16 -- back to [B, Sx+Sc, D]."""
-    q, k, v = tfa.joint_normalised_qkv(
-        _torch(x, "bfloat16"), _torch(c, "bfloat16"), HEADS,
-        *map(torch.from_numpy, g))
-    out = tensor_core_tile(q.to(torch.bfloat16), k.to(torch.bfloat16), v,
+    """K4's bf16 order: the pre-pass, then the TMA tile
+    (csrc/attention_tma.cuh) on its rows -- 128-key tiles, scores scaled
+    after the dot, P rounded to bf16 -- back to [B, Sx+Sc, D]."""
+    out = tensor_core_tile(*_k4_rows(x, c, g, "bfloat16"), keys=128,
                            drop_tile=drop_tile)
+    return out.transpose(1, 2).reshape(x.shape[0], -1, HEADS * HD)
+
+
+def _k4_tf32(x, c, g, **kw):
+    """K4's f32 order: the pre-pass in f32, then the three-pass TF32 tile
+    (csrc/attention_tf32.cuh, FusedQKV) on its rows, [B, Sx+Sc, D]."""
+    out = tf32x3_tile(*_k4_rows(x, c, g, "float32"), **kw)
     return out.transpose(1, 2).reshape(x.shape[0], -1, HEADS * HD)
 
 
@@ -187,9 +201,78 @@ def _rounding_divergence(tx, tc_, tg):
     return out.transpose(1, 2).reshape(tx.shape[0], -1, HEADS * HD)
 
 
-@pytest.mark.parametrize("B,Sx,Sc", K4_CASES,
-                         ids=["ragged", "q-tile-spans-streams", "self",
-                              "odd-batch"])
+K4_IDS = ["ragged", "q-tile-spans-streams", "self", "odd-batch"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sx,Sc", K4_CASES, ids=K4_IDS)
+def test_qk_norm_reference_is_the_normalised_rows(B, Sx, Sc, dtype):
+    """``joint_qk_norm_reference`` (the pre-pass's plain version) lays out
+    ``joint_normalised_qkv`` as joint fused rows, x rows first: q-hat and
+    k-hat within 2^-17 of their value (the sums of squares in another
+    order) before the one rounding to the input dtype -- in bf16 equal but
+    where that value lies near a rounding midpoint, and there within one
+    bf16 ulp -- and v copied exactly."""
+    x, c, g = _inputs(B, Sx, Sc, seed=50 + Sx, dtype=dtype)
+    tx, tc_ = _torch(x, dtype), _torch(c, dtype)
+    tg = [torch.from_numpy(a) for a in g]
+    rows = tfa.joint_qk_norm_reference(tx, tc_, HEADS, *tg)
+    assert rows.dtype == tx.dtype and rows.shape == (B, Sx + Sc, 3 * HEADS
+                                                     * HD)
+    got = tfa._split_heads(rows.float(), HEADS)
+    want = tfa.joint_normalised_qkv(tx, tc_, HEADS, *tg)
+    assert torch.equal(got[2], want[2])
+    for a, w in zip(got[:2], want[:2]):
+        tol = 2.0 ** -17 * w.abs()
+        if dtype == "bfloat16":
+            tol = torch.where(w.to(torch.bfloat16).float() == a,
+                              torch.zeros_like(w), bf16_ulp(w))
+            w = w.to(torch.bfloat16).float()
+        assert bool(((a - w).abs() <= tol).all()), (a - w).abs().max()
+    # each stream took its own gammas: x's rows differ under ctx's
+    swapped = tfa.joint_qk_norm_reference(tx, tc_, HEADS, tg[2], tg[3],
+                                          tg[0], tg[1])
+    assert not torch.equal(swapped[:, :Sx], rows[:, :Sx])
+
+
+@pytest.mark.parametrize("B,Sx,Sc", K4_CASES, ids=K4_IDS)
+def test_tf32x3_order_holds_k4_bound(B, Sx, Sc):
+    """K4's f32 order (the pre-pass in f32, then the three-pass TF32 tile
+    on its rows) within the f32 bound, 2e-5 abs, of the JAX package's
+    Pallas K4 in interpret mode and of the port's plain version."""
+    x, c, g = _inputs(B, Sx, Sc, seed=60 + Sx)
+    got = _k4_tf32(x, c, g)
+    pallas = torch.from_numpy(np.array(jfa.joint_qkv_attention(
+        jnp.asarray(x), jnp.asarray(c), HEADS, *map(jnp.asarray, g),
+        interpret=True)))
+    port = tfa.joint_qkv_attention_reference(
+        torch.from_numpy(x), torch.from_numpy(c), HEADS,
+        *map(torch.from_numpy, g))
+    for want in (pallas, port):
+        diff = (got - want).abs()
+        assert diff.max().item() <= 2e-5, diff.max().item()
+        assert diff.max().item() > 0       # not the plain version itself
+
+
+@pytest.mark.parametrize("fault", ["one-tf32-pass", "lost-key-tile",
+                                   "swapped-gammas"])
+def test_k4_f32_bound_catches_a_fault(fault):
+    """The 2e-5 bound fails K4's f32 order with one TF32 product per f32
+    product, one 64-key tile (keys 64-127) left out, or the two streams'
+    gammas exchanged, against the Pallas K4."""
+    B, Sx, Sc = K4_CASES[0]
+    x, c, g = _inputs(B, Sx, Sc, seed=61)
+    want = torch.from_numpy(np.array(jfa.joint_qkv_attention(
+        jnp.asarray(x), jnp.asarray(c), HEADS, *map(jnp.asarray, g),
+        interpret=True)))
+    assert (_k4_tf32(x, c, g) - want).abs().max().item() <= 2e-5
+    bad = (_k4_tf32(x, c, g, passes=1) if fault == "one-tf32-pass"
+           else _k4_tf32(x, c, g, drop_tile=1) if fault == "lost-key-tile"
+           else _k4_tf32(x, c, [g[2], g[3], g[0], g[1]]))
+    assert (bad - want).abs().max().item() > 2e-5
+
+
+@pytest.mark.parametrize("B,Sx,Sc", K4_CASES, ids=K4_IDS)
 def test_bf16_tolerance_holds_the_tile_for_k4(B, Sx, Sc):
     """``joint_qkv_attention_bf16_tolerance`` holds the tile's order, and
     the JAX package's composed ``joint_qkv_reference`` in bf16, which
@@ -228,9 +311,9 @@ def test_bf16_tolerance_holds_the_tile_for_k4(B, Sx, Sc):
                          ids=["S227", "S1613"])
 def test_k4_bf16_tolerance_catches_a_fault(B, Sx, Sc, fault):
     """The bound is tight enough that the same order fails it with one
-    64-key tile (keys 64-127) left out, or with the two streams' gammas
+    128-key tile (keys 128-255) left out, or with the two streams' gammas
     exchanged, at a short sequence and at the 512^2 query's joint length
-    (26 key tiles)."""
+    (13 key tiles)."""
     x, c, g = _inputs(B, Sx, Sc, seed=31, dtype="bfloat16")
     tx, tc_ = _torch(x, "bfloat16"), _torch(c, "bfloat16")
     tg = [torch.from_numpy(a) for a in g]

@@ -14,6 +14,7 @@ installed.  On a machine with an NVIDIA GPU and nvcc:
 tensor takes the plain version and launches nothing.
 """
 
+import ctypes
 import pathlib
 
 import numpy as np
@@ -88,6 +89,26 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+# the launchers' counts of each tensor-core kernel (csrc/mma_bf16.cuh
+# TileKind): attention_wgmma_kernel, attention_tf32_kernel,
+# conv3x3_s1_mma_kernel, conv3x3_s1_tf32_kernel, attention_tma_kernel
+TILE_NAMES = ("attention_wgmma_kernel", "attention_tf32_kernel",
+              "conv3x3_s1_mma_kernel", "conv3x3_s1_tf32_kernel",
+              "attention_tma_kernel")
+
+
+def _tile_launches(fn) -> dict:
+    """fn() runs once; how many launches of each of TILE_NAMES it made, by
+    the launchers' own counts (``bsc_tile_launches``)."""
+    lib = _build.kernels()
+    arr = (ctypes.c_longlong * len(TILE_NAMES)).in_dll(lib,
+                                                      "bsc_tile_launches")
+    before = tuple(arr)
+    fn()
+    torch.cuda.synchronize()
+    return {n: a - b for n, a, b in zip(TILE_NAMES, tuple(arr), before)}
+
+
 def _check_sims(got, want, atol):
     got, want = got.cpu().numpy(), want.cpu().numpy()
     np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
@@ -112,6 +133,9 @@ def test_cpu_tensors_take_the_plain_versions():
     n4 = tfa.joint_qkv_attention.launches
     torch.testing.assert_close(tfa.joint_qkv_attention(x, c, 2, *g),
                                tfa.joint_qkv_attention_reference(x, c, 2, *g))
+    n4n = tfa.joint_qk_norm.launches
+    torch.testing.assert_close(tfa.joint_qk_norm(x, c, 2, *g),
+                               tfa.joint_qk_norm_reference(x, c, 2, *g))
     q, k = _bhsd(1, 2, 5, 16, 8), _bhsd(1, 2, 700, 16, 9)
     n5, n6 = tfa.mid_attention.launches, tfa.flash_attention.launches
     torch.testing.assert_close(tfa.mid_attention(q, k, k),
@@ -131,6 +155,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert tsim.max_cosine_per_voxel.launches == n2
     assert tfa.short_attention.launches == n3
     assert tfa.joint_qkv_attention.launches == n4
+    assert tfa.joint_qk_norm.launches == n4n
     assert tfa.mid_attention.launches == n5
     assert tfa.flash_attention.launches == n6
     assert tln.layer_norm.launches == n7
@@ -218,10 +243,11 @@ def test_k1_f32_tf32_tile_edges(cuda, B, S, heads, hd):
 
 @pytest.mark.cuda
 def test_k1_k4_take_the_tile_in_bf16_only(cuda):
-    """By dtype alone: bf16 launches the wgmma tile (K1 with its FusedQKV
-    policy, K4 with JointQKV, K3 with Contiguous); f32 launches the TF32
-    tile for K1 (FusedQKV) and K3 (Contiguous) and K4's CUDA-core kernel;
-    one kernel each."""
+    """By dtype alone: bf16 launches the wgmma tile for K1 (FusedQKV
+    policy) and K3 (Contiguous), and K4's qk-norm pre-pass then the TMA
+    tile; f32 launches the TF32 tile for K1 (FusedQKV) and K3
+    (Contiguous), and K4's pre-pass then the TF32 tile (FusedQKV); one
+    kernel each, two for K4."""
     qkv = _qkv(2, 77, 2, 64, seed=5).to(cuda)
     x, c, g = _joint(1, 100, 77, 2, seed=5)
     x, c = x.to(cuda), c.to(cuda)
@@ -237,16 +263,68 @@ def test_k1_k4_take_the_tile_in_bf16_only(cuda):
         k3 = device_kernels(lambda: tfa.short_attention(
             q.to(dtype), k.to(dtype), v.to(dtype), causal=True))
         k3 = [n for n in k3 if "short_attention" in n]
-        assert len(k1) == 1 and len(k4) == 1 and len(k3) == 1, (k1, k4, k3)
+        assert len(k1) == 1 and len(k4) == 2 and len(k3) == 1, (k1, k4, k3)
+        assert "joint_qkv_norm_kernel" in k4[0], k4
         if tile:
             assert "attention_wgmma_kernel" in k1[0] and "FusedQKV" in k1[0]
-            assert "attention_wgmma_kernel" in k4[0] and "JointQKV" in k4[0]
+            assert "attention_tma_kernel" in k4[1], k4
             assert "attention_wgmma_kernel" in k3[0] and "Contiguous" in k3[0]
         else:
-            for name, policy in ((k1[0], "FusedQKV"), (k3[0], "Contiguous")):
+            for name, policy in ((k1[0], "FusedQKV"), (k3[0], "Contiguous"),
+                                 (k4[1], "FusedQKV")):
                 assert "attention_tf32_kernel" in name, name
                 assert policy in name and "float" in name, name
-            assert "joint_qkv_kernel" in k4[0], k4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tile", [
+    (torch.bfloat16, "attention_tma_kernel"),
+    (torch.float32, "attention_tf32_kernel")])
+@pytest.mark.parametrize("B,Sx,Sc,heads", [(2, 100, 77, 2), (1, 200, 0, 3),
+                                           (1, 4096, 0, 2)],
+                         ids=["Sx-not-a-multiple-of-128", "Sc-0", "S4096"])
+def test_k4_takes_the_tma_tile_in_bf16_and_the_tf32_tile_in_f32(
+        cuda, B, Sx, Sc, heads, dtype, tile):
+    """By the launchers' counts: each K4 call launches one attention tile,
+    the TMA tile in bf16 and the TF32 tile in f32, and no other."""
+    x, c, g = _joint(B, Sx, Sc, heads, seed=7)
+    x, c = x.to(cuda, dtype), c.to(cuda, dtype)
+    g = [t.to(cuda) for t in g]
+    if Sc == 0:
+        c = x[:, :0]
+    before = tfa.joint_qkv_attention.launches
+    took = _tile_launches(lambda: tfa.joint_qkv_attention(x, c, heads, *g))
+    assert tfa.joint_qkv_attention.launches == before + 1
+    assert took == {n: int(n == tile) for n in TILE_NAMES}, took
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sx,Sc,heads", [(6, 1024, 589, 24),
+                                           (2, 100, 77, 2), (3, 130, 0, 5),
+                                           (2, 1, 1, 1)])
+def test_k4_qk_norm_prepass_matches_plain(cuda, B, Sx, Sc, heads, dtype):
+    """K4's pre-pass alone (``joint_qk_norm``) against its plain version:
+    v copied exactly; q-hat and k-hat (rsqrtf, sums of squares in another
+    order) within 2^-17 of the plain f32 value, so in bf16 equal but where
+    that value rounds the other way, and there within one bf16 ulp."""
+    x, c, g = _joint(B, Sx, Sc, heads, seed=9)
+    x, c = x.to(cuda, dtype), c.to(cuda, dtype)
+    g = [t.to(cuda) for t in g]
+    if Sc == 0:
+        c = x[:, :0]
+    before = tfa.joint_qk_norm.launches
+    got = tfa.joint_qk_norm(x, c, heads, *g)
+    assert tfa.joint_qk_norm.launches == before + 1
+    want = tfa.joint_qk_norm_reference(x, c, heads, *g)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, Sx + Sc, 3 * heads * 64)
+    D = heads * 64
+    assert torch.equal(got[..., 2 * D:], want[..., 2 * D:])
+    a, w = got[..., :2 * D].float(), want[..., :2 * D].float()
+    tol = (2.0 ** -17 * w.abs() if dtype == torch.float32
+           else torch.where(a == w, torch.zeros_like(w), bf16_ulp(w)))
+    assert bool(((a - w).abs() <= tol).all()), (a - w).abs().max().item()
 
 
 @pytest.mark.cuda
@@ -390,11 +468,12 @@ def test_k3_f32_tf32_tile_edges(cuda, B, H, Sq, Sk, hd, causal):
     (6, 1024, 0, 24),                   # MMDiT-X self-attention
     (2, 37, 5, 2), (1, 3, 70, 3), (2, 65, 0, 1)])
 def test_k4_matches_plain(cuda, B, Sx, Sc, heads, dtype):
-    """f32 (the CUDA cores): the same f32 qk-norm and softmax, sums in
-    another order (and rsqrtf against torch.rsqrt): 2e-5 abs on outputs
-    below ~3.  bf16 (the tensor-core tile) rounds q-hat, k-hat and P to
-    bf16: ``joint_qkv_attention_bf16_tolerance`` against the plain version
-    of that order, ``joint_qkv_attention_bf16_reference``."""
+    """f32 (the pre-pass, then the three-pass TF32 tile): the same f32
+    qk-norm and softmax, sums in another order (and rsqrtf against
+    torch.rsqrt): 2e-5 abs on outputs below ~3.  bf16 (the pre-pass, then
+    the TMA tile) rounds q-hat, k-hat and P to bf16:
+    ``joint_qkv_attention_bf16_tolerance`` against the plain version of
+    that order, ``joint_qkv_attention_bf16_reference``."""
     x, c, g = _joint(B, Sx, Sc, heads, seed=Sx + Sc)
     x, c = x.to(cuda, dtype), c.to(cuda, dtype)
     g = [t.to(cuda) for t in g]
@@ -413,7 +492,7 @@ def test_k4_matches_plain(cuda, B, Sx, Sc, heads, dtype):
     assert bool((diff <= tol).all()), diff.max().item()
 
 
-# K4's edges on the bf16 tile: the joint sequence at 512^2 (its q tile of
+# K4's edges on its tiles: the joint sequence at 512^2 (its q tile of
 # rows 1024-1151 straddles the streams), Sx < 128 (the first q tile does),
 # Sc 0 (the self-attention: ctx never read), S 1, a lone ctx row, odd B
 # and head counts, and B*heads past a grid dimension's 65535
@@ -444,6 +523,28 @@ def test_k4_bf16_tensor_core_tile_edges(cuda, B, Sx, Sc, heads):
                                                          heads * 64)
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= tol).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sx,Sc,heads", K4_EDGES)
+def test_k4_f32_tf32_tile_edges(cuda, B, Sx, Sc, heads):
+    """K4 in f32 through its wrapper at the same edges, within 2e-5 abs of
+    ``joint_qkv_attention_reference``; any B*heads (the CUDA-core kernel
+    this replaced took at most 65535)."""
+    x, c, g = _joint(B, Sx, Sc, heads, seed=40 + Sx + Sc)
+    x, c = x.to(cuda), c.to(cuda)
+    g = [t.to(cuda) for t in g]
+    if Sc == 0:
+        c = x[:, :0]
+    before = tfa.joint_qkv_attention.launches
+    got = tfa.joint_qkv_attention(x, c, heads, *g)
+    assert tfa.joint_qkv_attention.launches == before + 1
+    want = tfa.joint_qkv_attention_reference(x, c, heads, *g)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, Sx + Sc,
+                                                        heads * 64)
+    diff = (got - want).abs()
+    assert bool((diff <= 2e-5).all()), diff.max().item()
 
 
 @pytest.mark.cuda
@@ -484,11 +585,11 @@ def test_k4_refuses_what_it_does_not_take(cuda):
         tfa.joint_qkv_attention(x, c[..., :-3], 2, *g)
     with pytest.raises(NotImplementedError, match="head_dim"):
         tfa.joint_qkv_attention(x, c, 4, *(t[:32] for t in g))
-    # f32 keeps the CUDA-core kernel's 2-D grid; bf16 takes any B*heads
-    # (test_k4_bf16_tensor_core_tile_edges)
-    big = torch.zeros(65536, 1, 3 * 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="65535"):
-        tfa.joint_qkv_attention(big, big[:, :0], 1, *g)
+    # the pre-pass alone refuses the same
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.joint_qk_norm(x[:, ::2], c, 2, *g)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        tfa.joint_qk_norm(x, c, 4, *(t[:32] for t in g))
 
 
 @pytest.mark.cuda

@@ -7,16 +7,18 @@ frames, whose points all fail the min-depth gate), a detector's boxes
 become located instances in ``long_memory_dict``, and image prompts are
 localized against the store.  A host detector (``detect``) runs inline
 per frame; one with ``detect_batch`` (``ClipPatchDetector``) runs once per
-flush.  A text prompt goes through the imagination (``DiffusionImagination``:
+flush, and one with ``detect_batch_instances`` (``YoloWorldDetector``)
+feeds the long-term memory from the device once per flush: forward,
+decode, NMS and backprojection on the card, one small copy to the host.
+A text prompt goes through the imagination (``DiffusionImagination``:
 SD3.5-medium with CLIP-L/G and T5 conditioning) and the text-query steps
 of ``memory.pipeline``, the imagined images staying on the device; an
 imagination that is a plain callable (no ``imagine_core``) renders images
 on the host, which then take the image query, as in the JAX package.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for, each
-an item of ROADMAP.md Queue 1: a detector's device feed
-(``detect_batch_instances``, YOLO-World; item 2), batched queries (item
-3), persistence (item 4) and segmented stores (item 6).
+an item of ROADMAP.md Queue 1: batched queries (item 3), persistence
+(item 4) and segmented stores (item 6).
 """
 
 from __future__ import annotations
@@ -106,9 +108,6 @@ class VoxelTokenMemory:
                  store_dtype=torch.float32,
                  segmented: bool = False,
                  text_query_split: Optional[bool] = None):
-        if hasattr(detector, "detect_batch_instances"):
-            raise _not_ported("a detector's device feed "
-                              "(detect_batch_instances, YOLO-World)", "2")
         if segmented:
             raise _not_ported("the segmented store", "6")
         self.cfg = cfg
@@ -166,7 +165,18 @@ class VoxelTokenMemory:
         zero-depth frames."""
         B = self.perception.batch_size
         H, W = self.cfg.sensor.height, self.cfg.sensor.width
-        if self._queue and hasattr(self.detector, "detect_batch"):
+        if self._queue and hasattr(self.detector, "detect_batch_instances"):
+            # the device long-term feed: forward -> decode -> NMS ->
+            # backprojection on the device, one small copy back
+            new = self.detector.detect_batch_instances(
+                np.stack([f[0] for f in self._queue]),
+                np.stack([f[1] for f in self._queue]),
+                np.stack([self._host_cam_to_world(f[2])
+                          for f in self._queue]), self.cfg)
+            if new:
+                self.long_memory_dict.extend(new)
+                self.long_memory_integration()
+        elif self._queue and hasattr(self.detector, "detect_batch"):
             all_dets = self.detector.detect_batch(
                 np.stack([f[0] for f in self._queue]))
             for (_, depth_f, pose_f), dets in zip(self._queue, all_dets):

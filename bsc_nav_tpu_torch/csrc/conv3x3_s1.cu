@@ -5,8 +5,9 @@
 // Replaces: bsc_nav_tpu/ops/conv2d.py `conv3x3_s1` (`_kernel`).  The JAX
 // package dispatches it nowhere (YOLO-World uses lax.conv; the kernel is a
 // measured tie on the TPU and cannot compile YOLOv8x's widths 160 and 320);
-// the port keeps it as an op, dispatched nowhere either, and measures it
-// against cuDNN at YOLOv8x's C2f shapes.
+// the port sends YOLO-World's f32 3x3 stride-1 convs here
+// (models/yolo_world.py conv_bn_act, BN folded at load), where it beats
+// cuDNN f32, and measures both dtypes against cuDNN at the model's shapes.
 //
 // Bound on the H100: arithmetic.  40x40x640->640 at B 8 is
 // 2*B*H*W*C*CO*9 = 94 GFLOP against 40 MB of bf16 x, w and y -- ~2,300

@@ -1,5 +1,5 @@
-"""Load ViT and CLIP weights into the torch modules, and the MMDiT, VAE
-and T5 weights into the port's dict trees.
+"""Load ViT and CLIP weights into the torch modules, and the MMDiT, VAE,
+T5 and YOLO-World weights into the port's dict trees.
 
 Two sources, one key scheme: the JAX params tree (nested dicts and lists,
 ``bsc_nav_tpu/models/vit.py`` layout, linear ``w`` stored
@@ -11,7 +11,9 @@ exactly the modules' ``state_dict()`` keys, so loading is a strict
 hold int8 ``w_q`` / ``w_s`` leaves (``clip.quantize_params``); the towers
 that do are built quantized.  The MMDiT, VAE and T5 keep the JAX tree
 itself (nested dicts and lists of tensors), so their loaders only rebuild
-the tree from the dotted keys and move each leaf to the device.
+the tree from the dotted keys and move each leaf to the device; the
+YOLO-World loader then folds each 3x3 stride-1 conv's BN into K8's
+operands (``yolo_world.fold_params``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from bsc_nav_tpu_torch.models.mmdit import MMDiTConfig
 from bsc_nav_tpu_torch.models.t5 import T5Config
 from bsc_nav_tpu_torch.models.vae import VAEConfig
 from bsc_nav_tpu_torch.models.vit import ViT, ViTConfig
+from bsc_nav_tpu_torch.models import yolo_world
 
 
 def flatten_params(params: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -197,3 +200,26 @@ def load_t5_xxl_npz(path: str, cfg: T5Config, dtype=torch.float32,
                     device="cuda") -> dict:
     """The T5 encoder tree of ``t5_xxl.npz``."""
     return t5_from_jax_params(_npz_tree(path), cfg, dtype, device)
+
+
+def yolo_world_from_jax_params(params: Any, cfg: "yolo_world.YoloWorldConfig",
+                               dtype=torch.float32, device="cuda") -> dict:
+    """The port's YOLO-World tree from a JAX ``yolo_world.init_params`` /
+    ``convert_ultralytics`` tree or a ``quantize_params`` tree (numpy
+    leaves; int8 ``w_q`` with f32 ``w_s`` kept), folded for K8."""
+    if params["stem0"]["w"].shape[-1] != cfg.ch(64):
+        raise ValueError(f"yolo_world: stem width "
+                         f"{params['stem0']['w'].shape[-1]}, the config "
+                         f"has {cfg.ch(64)}")
+    if len(params["c2f_2"]["m"]) != cfg.n(3):
+        raise ValueError(f"yolo_world: {len(params['c2f_2']['m'])} "
+                         f"bottlenecks in c2f_2, the config has {cfg.n(3)}")
+    return yolo_world.fold_params(_tree(params, dtype,
+                                        resolve_device(device)))
+
+
+def load_yolo_world_npz(path: str, cfg: "yolo_world.YoloWorldConfig",
+                        dtype=torch.float32, device="cuda") -> dict:
+    """The YOLO-World tree of the ``yolov8x_worldv2.npz`` that
+    ``save_params_npz`` writes from ``convert_ultralytics``."""
+    return yolo_world_from_jax_params(_npz_tree(path), cfg, dtype, device)

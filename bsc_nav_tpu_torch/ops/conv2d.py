@@ -1,15 +1,18 @@
 """3x3 stride-1 'SAME' NHWC convolution: kernel K8, its plain version and
-the conv + BatchNorm fold.
+the conv + BatchNorm fold; and the "SAME" NHWC convolution of any other
+shape, on cuDNN.
 
 Counterpart of ``bsc_nav_tpu/ops/conv2d.py`` ``conv3x3_s1`` / ``fold_bn``,
 which the JAX package keeps as a measured result on the TPU and dispatches
-nowhere (its YOLO stack uses ``lax.conv``).  The port keeps it the same
-way: no model calls ``conv3x3_s1``; ``chip_smoke.py`` holds it against
-its plain version and against cuDNN (``F.conv2d``) on the card.  Unlike
-the TPU kernel it takes any C, CO, H and W, YOLOv8x's widths 160 and 320
-included.  Both dtypes run on the tensor cores: bf16 products directly,
-f32 products as three TF32 products each (f32's error, not one TF32
-product's).
+nowhere (its YOLO stack uses ``lax.conv``).  The port dispatches it: the
+YOLO-World detector (``models/yolo_world.py``) sends every 3x3 stride-1
+conv with f32 activations to K8, its BN folded once at load, and every
+other conv to ``conv2d_same`` (cuDNN with TF32 off), where K8 measured
+faster than cuDNN in f32 and slower in bf16 (PERF.md section 6).  Unlike
+the TPU kernel it takes any C, CO, H and W, YOLOv8x's widths 80, 160 and
+320 included.  Both dtypes run on the tensor cores: bf16 products
+directly, f32 products as three TF32 products each (f32's error, not one
+TF32 product's).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from bsc_nav_tpu_torch.ops import _build
+from bsc_nav_tpu_torch.ops.quant import same_padding
 
 
 def conv3x3_s1_reference(x, w9, bias, act: str = "silu"):
@@ -85,3 +89,27 @@ def fold_bn(w_hwio, bn_scale, bn_bias, bn_mean, bn_var, eps: float = 1e-3):
     b = (bn_bias - bn_mean * s).to(torch.float32)
     k, _, C, CO = w.shape
     return w.reshape(k * k, C, CO), b
+
+
+def conv2d_same(x, w_hwio, stride: int = 1):
+    """x [B, H, W, C], w [kh, kw, C, CO] in x's dtype -> [B, oh, ow, CO] in
+    x's dtype: ``lax.conv_general_dilated(..., "SAME", ("NHWC", "HWIO",
+    "NHWC"))``, XLA's padding included (an odd total pads one more at the
+    high end).  One ``F.conv2d`` on the channels-last view; on a CUDA
+    tensor cuDNN runs it with TF32 off for this call alone, so f32 stays
+    f32 whatever the process's flags say (the other cuDNN flags keep
+    their values).  Not a kernel of the port: the JAX package leaves these
+    convs to XLA."""
+    kh, kw = w_hwio.shape[:2]
+    (ht, hb), (wl, wr) = (same_padding(x.shape[1], kh, stride),
+                          same_padding(x.shape[2], kw, stride))
+    pad = (ht, wl)
+    if (ht, wl) != (hb, wr):
+        x, pad = F.pad(x, (0, 0, wl, wr, ht, hb)), (0, 0)
+    xc = x.permute(0, 3, 1, 2)                  # NCHW view, NHWC memory
+    wc = w_hwio.permute(3, 2, 0, 1)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        y = F.conv2d(xc, wc, stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1).contiguous()

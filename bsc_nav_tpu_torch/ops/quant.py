@@ -1,7 +1,8 @@
-"""int8 W8A8 linear: symmetric per-output-channel int8 weights times
-dynamic per-row int8 activations, accumulated in int32.
+"""int8 W8A8 linear and convolution: symmetric per-output-channel int8
+weights times dynamic int8 activations (a scale per row for the linear,
+per sample for the convolution), accumulated in int32.
 
-Counterpart of ``bsc_nav_tpu/ops/quant.py:35-67``.  Quantized leaves are
+Counterpart of ``bsc_nav_tpu/ops/quant.py``.  Quantized leaves are
 plain dicts ``{"w_q" int8 [fi, fo], "w_s" f32 [fo], "b"?}`` and ``linear``
 dispatches on the presence of ``"w_q"``, as in the JAX package.
 
@@ -14,8 +15,10 @@ sizes (|sum| <= 127^2 * fan_in < 2^53), so both sides give the same int32
 sums.  The activation scale divides (``xf / xs``), as the JAX source
 writes it.
 
-``conv_q8`` and ``quantize_conv_weight`` wait for YOLO-World (ROADMAP.md
-Queue 1 item 2).
+``conv_q8`` (``lax.conv`` on int8 in the JAX package) is the same product
+on the im2col rows of the quantized input: [B * oh * ow, kh * kw * C] x
+[kh * kw * C, CO].  YOLOv8x's quantized leaves all give more than 16 rows
+and widths in multiples of 8 at full width.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 
 
 def quantize_weight(p: Mapping[str, torch.Tensor]) -> dict:
@@ -43,7 +47,7 @@ def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     N = wq.shape[1]
     if M <= 16 or K % 8 or N % 8:
         raise NotImplementedError(
-            f"linear_q8: int8 GEMM [{M}, {K}] x [{K}, {N}] on {xq.device} "
+            f"int8 GEMM [{M}, {K}] x [{K}, {N}] on {xq.device} "
             "needs M > 16 and K, N multiples of 8 (torch._int_mm)")
     return torch._int_mm(xq, wq.contiguous())
 
@@ -76,3 +80,59 @@ def linear(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
     b = p.get("b")
     y = torch.addmm(b.to(ct), x2, w) if b is not None else x2 @ w
     return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+
+def quantize_conv_weight(p: Mapping[str, torch.Tensor]) -> dict:
+    """Conv leaf {"w": [kh, kw, ci, co], **rest} -> {"w_q" int8, "w_s" f32
+    [co], **rest}: per-output-channel symmetric scaling; the BN statistics
+    and bias pass through untouched."""
+    w = p["w"].to(torch.float32)
+    s = torch.clamp(w.abs().amax(dim=(0, 1, 2)), min=1e-12) / 127.0
+    q = {k: v for k, v in p.items() if k != "w"}
+    q["w_q"] = torch.round(w / s).to(torch.int8)
+    q["w_s"] = s
+    return q
+
+
+def same_padding(size: int, k: int, stride: int) -> tuple:
+    """(low, high) padding of one spatial axis under XLA's "SAME": the
+    output has ceil(size / stride) positions and an odd total pads one more
+    at the high end (a 3x3 stride-2 conv of an even size pads (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def im2col_same(x: torch.Tensor, kh: int, kw: int, stride: int
+                ) -> torch.Tensor:
+    """[B, H, W, C] -> [B, oh, ow, kh * kw * C]: each output position's
+    window under "SAME" padding with zeros, taps in (kh, kw, C) order,
+    the order of an HWIO weight flattened."""
+    if kh == kw == 1 and stride == 1:
+        return x
+    (ht, hb), (wl, wr) = (same_padding(x.shape[1], kh, stride),
+                          same_padding(x.shape[2], kw, stride))
+    xp = F.pad(x, (0, 0, wl, wr, ht, hb))
+    cols = xp.unfold(1, kh, stride).unfold(2, kw, stride)  # B,oh,ow,C,kh,kw
+    B, oh, ow = cols.shape[:3]
+    return cols.permute(0, 1, 2, 4, 5, 3).reshape(B, oh, ow, -1)
+
+
+def conv_q8(x: torch.Tensor, p: Mapping[str, torch.Tensor],
+            stride: int = 1) -> torch.Tensor:
+    """NHWC "SAME" conv with int8 products summed in int32; returns the f32
+    pre-affine output (the caller applies the BN or bias and the
+    activation).  The activation scale is one per sample, max |x| over
+    (H, W, C) / 127 (a scale per pixel is not expressible as a conv); the
+    weights take quantize_conv_weight's scale per output channel."""
+    xf = x.to(torch.float32)
+    xs = torch.clamp(xf.abs().amax(dim=(1, 2, 3), keepdim=True),
+                     min=1e-12) / 127.0
+    xq = torch.round(xf / xs).to(torch.int8)
+    kh, kw, C, CO = p["w_q"].shape
+    cols = im2col_same(xq, kh, kw, stride)
+    B, oh, ow, K = cols.shape
+    y = _int8_matmul(cols.reshape(B * oh * ow, K).contiguous(),
+                     p["w_q"].reshape(K, CO))
+    y = y.reshape(B, oh, ow, CO).to(torch.float32)
+    return y * xs * p["w_s"].to(torch.float32)

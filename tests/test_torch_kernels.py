@@ -989,3 +989,87 @@ def test_slice_on_card_matches_cpu(cuda):
     for f in ("slot_pos", "feat_count"):
         assert torch.equal(getattr(gs, f)[:V].cpu(), getattr(cs, f)[:V]), f
     np.testing.assert_allclose(gsc, csc, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_yolo_forward_takes_k8_for_every_f32_3x3_stride1_conv(cuda):
+    """YOLO_TEST's widths at 128^2 on the card launch K8 once per 3x3
+    stride-1 conv (36: 12 in the backbone's C2f blocks, 3 in each of the
+    four C2fAttn blocks, 4 in each of the three heads), the int8-neck
+    tree only the backbone's 12; the logits hold the CPU's (plain
+    versions) within 1e-4 of each level's max |logit| (K8's f32 bound,
+    1e-4 of max |out| a conv, on logits of O(1)).  128^2, not YOLO_TEST's
+    64^2: at 64^2 the stride-32 level of 2 frames has 8 pixels, and
+    torch._int_mm takes more than 16 rows."""
+    import dataclasses
+    from bsc_nav_tpu_torch.models import yolo_world as Y
+    cfg = dataclasses.replace(Y.YOLO_TEST, img_size=128)
+    cpu = Y.init_params(cfg, torch.Generator().manual_seed(0),
+                        text_dim=48, device="cpu")
+    for hp in cpu["head"]:
+        hp["logit_bias"] = torch.tensor(0.0)
+    to = lambda t: (t.to(cuda) if isinstance(t, torch.Tensor) else
+                    {k: to(v) for k, v in t.items()} if isinstance(t, dict)
+                    else [to(v) for v in t])
+    card = to(cpu)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.uniform(size=(2, 128, 128, 3)).astype(
+        np.float32))
+    text = torch.from_numpy(rng.normal(size=(5, 48)).astype(np.float32))
+    text = text / text.norm(dim=-1, keepdim=True)
+    want = Y.forward(cpu, img, text, cfg)
+    for params, n in ((card, 36), (Y.quantize_params(card), 12)):
+        before = tconv.conv3x3_s1.launches
+        got = Y.forward(params, img.to(cuda), text.to(cuda), cfg)
+        torch.cuda.synchronize()
+        assert tconv.conv3x3_s1.launches - before == n
+        if n == 36:
+            for (gb, gc), (wb, wc) in zip(got, want):
+                for g, w in ((gb, wb), (gc, wc)):
+                    assert float((g.cpu() - w).abs().max()) <= (
+                        1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_conv2d_same_stays_f32_with_the_tf32_flag_on(cuda):
+    """cuDNN's route turns TF32 off for its call: with the process flag on
+    (PyTorch's default), a 1x1 and a 3x3 stride-2 f32 conv hold an f32
+    bound (1e-5 relative to the terms' magnitudes) that one TF32 product
+    (~5e-4) would break; the flag is left as it was."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(2, 20, 20, 96)).astype(
+        np.float32)).to(cuda)
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for k, s in ((1, 1), (3, 2)):
+            w = torch.from_numpy((rng.normal(size=(k, k, 96, 64))
+                                  / np.sqrt(k * k * 96)).astype(
+                np.float32)).to(cuda)
+            got = tconv.conv2d_same(x, w, s).double().cpu()
+            want = tconv.conv2d_same(x.double().cpu(), w.double().cpu(), s)
+            mag = tconv.conv2d_same(x.double().abs().cpu(),
+                                    w.double().abs().cpu(), s)
+            assert float(((got - want).abs() / mag).max()) < 1e-5
+            assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (1, 1)])
+def test_conv_q8_on_the_card_equals_the_cpu(cuda, k, stride):
+    """conv_q8 (im2col + torch._int_mm on the card, the exact float64
+    product on the CPU): equal codes, exact int32 sums, the same f32
+    epilogue: equal outputs."""
+    from bsc_nav_tpu_torch.ops import quant as tq
+    rng = np.random.default_rng(k + stride)
+    x = torch.from_numpy(rng.normal(size=(2, 10, 10, 32)).astype(np.float32))
+    p = tq.quantize_conv_weight({"w": torch.from_numpy(
+        (rng.normal(size=(k, k, 32, 24)) / np.sqrt(k * k * 32)).astype(
+            np.float32))})
+    want = tq.conv_q8(x, p, stride)
+    got = tq.conv_q8(x.to(cuda), {n: t.to(cuda) for n, t in p.items()},
+                     stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)

@@ -191,12 +191,3 @@ def test_clip_patch_detector_feed_matches_jax(spin):
     assert len(jmem.long_memory_dict) > 3
     _same_instances(tmem.long_memory_dict, jmem.long_memory_dict, 1e-4)
 
-
-def test_device_feed_detectors_are_refused(spin):
-    cfg, env, _ = spin
-    yolo_like = types.SimpleNamespace(detect_batch_instances=None)
-    vcfg = tv.ViTConfig(img_size=28, patch_size=14, dim=32, depth=1, heads=2)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tsm.VoxelTokenMemory(
-            cfg, env, tsm.Perception.create(cfg, vcfg, device="cpu"),
-            detector=yolo_like)

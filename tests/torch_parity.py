@@ -369,3 +369,42 @@ def store_from_jax(jstate, device="cpu") -> VoxelStoreState:
     return VoxelStoreState(**{
         f: torch.from_numpy(np.array(getattr(jstate, f))).to(device)
         for f in VoxelStoreState.__dataclass_fields__})
+
+
+def randomize_stats(params, seed):
+    """Conv BN statistics, the BN-contrastive head's statistics, logit
+    scales and biases from the seed, in place (numpy leaves)."""
+    rng = np.random.default_rng(seed)
+
+    def fill(node):
+        if isinstance(node, dict):
+            if "bn_var" in node:
+                co = node["bn_var"].shape[0]
+                node["bn_scale"] = rng.uniform(0.5, 1.5, co).astype(np.float32)
+                node["bn_bias"] = (0.1 * rng.normal(size=co)).astype(
+                    np.float32)
+                node["bn_mean"] = (0.1 * rng.normal(size=co)).astype(
+                    np.float32)
+                node["bn_var"] = rng.uniform(0.5, 2.0, co).astype(np.float32)
+            for v in node.values():
+                fill(v)
+        elif isinstance(node, list):
+            for v in node:
+                fill(v)
+
+    fill(params)
+    for hp in params["head"]:
+        hp["logit_scale"] = np.float32(rng.uniform(1.0, 2.0))
+        hp["logit_bias"] = np.float32(rng.uniform(-1.0, 0.0))
+    return params
+
+
+def yolo_numpy_params(cfg, seed, text_dim):
+    """JAX ``yolo_world.init_params`` as numpy leaves, with the statistics
+    of ``randomize_stats``: conv BN statistics (so that K8's fold is not
+    the identity) and the head's statistics, logit scales and biases (so
+    that confidences do not all tie at sigmoid(-10))."""
+    from bsc_nav_tpu.models import yolo_world as JY
+    params = numpy_tree(JY.init_params(cfg, jax.random.PRNGKey(seed),
+                                       text_dim=text_dim))
+    return randomize_stats(params, seed)

@@ -15,10 +15,15 @@ SD3.5-medium with CLIP-L/G and T5 conditioning) and the text-query steps
 of ``memory.pipeline``, the imagined images staying on the device; an
 imagination that is a plain callable (no ``imagine_core``) renders images
 on the host, which then take the image query, as in the JAX package.
+``voxel_localized_batch`` pools each distinct prompt once and localizes
+all of them in one Q-query scan of the store, a region radius per query;
+``save`` / ``load_memory`` write and read the reference's on-disk bundle
+(``memory.persistence``), and a loaded memory takes its single-floor
+height range from ``memory.floors``.  The store may be f32, bf16 or int8,
+and the encoder int8 W8A8 (``encoder_int8``).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for, each
-an item of ROADMAP.md Queue 1: batched queries (item 3), persistence
-(item 4) and segmented stores (item 6).
+Not ported yet, and raising ``NotImplementedError`` when asked for:
+segmented stores (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -34,11 +39,13 @@ import torch
 from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch import geometry as G
 from bsc_nav_tpu_torch import resolve_device
+from bsc_nav_tpu_torch.memory import floors as F
 from bsc_nav_tpu_torch.memory import longterm as LT
+from bsc_nav_tpu_torch.memory import persistence as P
 from bsc_nav_tpu_torch.memory.pipeline import (
     make_build_step, make_query_step, make_text_pool_step,
-    make_text_query_step)
-from bsc_nav_tpu_torch.memory.query import localize
+    make_text_query_step, pooled_query)
+from bsc_nav_tpu_torch.memory.query import localize, localize_batch
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import vit
 from bsc_nav_tpu_torch.models.weights import load_dinov2_npz
@@ -52,13 +59,16 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass
 class Perception:
-    """The encoder and the two pipelines, shared across scenes.
-    ``vit_params`` is the ViT module holding the weights."""
+    """The encoder and the pipelines, shared across scenes.
+    ``vit_params`` is the ViT module holding the weights (int8 W8A8 block
+    matmuls when ``cfg.models.encoder_int8``); ``pool_step(params,
+    images_uint8)`` gives a prompt's pooled query vector."""
 
     vit_params: vit.ViT
     vit_cfg: vit.ViTConfig
     build_step: Callable
     query_step: Callable
+    pool_step: Optional[Callable] = None
     batch_size: int = 8
     compute_dtype: torch.dtype = torch.float32
     device: torch.device = torch.device("cpu")
@@ -70,8 +80,6 @@ class Perception:
                device="cuda") -> "Perception":
         dev = resolve_device(device)
         vit_cfg = vit_cfg or vit.CONFIGS[cfg.models.encoder]
-        if cfg.models.encoder_int8:
-            raise _not_ported("the int8 W8A8 encoder (encoder_int8)", "5")
         if vit_params is None:
             weights = (os.path.join(cfg.models.weights_dir,
                                     cfg.models.encoder + ".npz")
@@ -85,11 +93,20 @@ class Perception:
                           f"{cfg.models.encoder} params", file=sys.stderr)
                 gen = torch.Generator(device=dev).manual_seed(seed)
                 vit_params = vit.init_params(vit_cfg, gen, device=dev)
+        if cfg.models.encoder_int8:
+            # serving-only W8A8 (JAX spatial_memory.py:79-83): build,
+            # query and pool steps all run the int8 leaves
+            vit_params = vit.quantize_params(vit_params)
+
+        def pool_step(params, images_uint8):
+            return pooled_query(cfg, params, images_uint8, compute_dtype)
+
         return Perception(
             vit_params=vit_params,
             vit_cfg=vit_cfg,
             build_step=make_build_step(cfg, vit_cfg, compute_dtype),
             query_step=make_query_step(cfg, vit_cfg, compute_dtype),
+            pool_step=pool_step,
             batch_size=batch_size,
             compute_dtype=compute_dtype,
             device=dev,
@@ -105,6 +122,7 @@ def state_to_pose_vec(agent_state) -> np.ndarray:
 class VoxelTokenMemory:
     def __init__(self, cfg: Config, env, perception: Perception,
                  detector=None, imagination=None,
+                 memory_path: Optional[str] = None,
                  store_dtype=torch.float32,
                  segmented: bool = False,
                  text_query_split: Optional[bool] = None):
@@ -121,7 +139,10 @@ class VoxelTokenMemory:
         # the single step; None chooses as the JAX package does
         self.text_query_split = text_query_split
         self.last_imagined = None        # device images of the last one
+        self.memory_save_path = memory_path or os.path.join(
+            cfg.memory_path, cfg.sim.scene_name)
         self.device = perception.device
+        self.store_dtype = store_dtype
         self.state = init_store(cfg.memory, store_dtype=store_dtype,
                                 device=self.device)
         self._generator = torch.Generator(
@@ -131,6 +152,7 @@ class VoxelTokenMemory:
         self._base_tf = G.base_axes_transform()
         self._base2cam = G.base_to_cam_transform(cfg.sensor.sensor_height)
         self.long_memory_dict: List[dict] = []
+        self.base_height: List[float] = []   # agent heights while mapping
 
         self.load_single_floor = cfg.agent.load_single_floor
         self.floor_min_height: Optional[int] = None
@@ -357,11 +379,106 @@ class VoxelTokenMemory:
 
     def voxel_localized_batch(self, prompts, K: int = 100,
                               region_radii=None, curr_grid=None):
-        raise _not_ported("batched queries (localize_batch)", "3")
+        """Localize several prompts in one Q-query scan of the store (JAX
+        ``spatial_memory.py:469-565``).  Each prompt is a str (rendered
+        by ``imaginary``), an image [H, W, 3] or an image group
+        [N, H, W, 3]; a repeated prompt (the same str, or the same array
+        object) is pooled once.  ``region_radii`` gives one radius per
+        prompt (np.inf: unrestricted) around ``curr_grid`` [3] or per
+        prompt [Q, 3]; the single-floor mask applies as in
+        ``voxel_localized``.  Returns one (best_pos [1, 3],
+        top_k_positions, top_k_similarity) tuple per prompt."""
+        self.flush()
+        pooled, cache = [], {}
+        for p in prompts:
+            key = p if isinstance(p, str) else id(p)
+            if key not in cache:
+                arr = np.asarray(self.imaginary(p) if isinstance(p, str)
+                                 else p)
+                imgs = (arr[None] if arr.ndim == 3 else arr)[:, :, :, :3]
+                cache[key] = self.perception.pool_step(
+                    self.perception.vit_params,
+                    torch.from_numpy(np.ascontiguousarray(
+                        imgs.astype(np.uint8))).to(self.device))
+            pooled.append(cache[key])
 
+        Q = len(prompts)
+        radii = (np.full(Q, np.inf, np.float32) if region_radii is None
+                 else np.asarray(region_radii, np.float32))
+        grids = None
+        if curr_grid is not None:
+            grids = np.asarray(curr_grid, np.int32)
+            if grids.ndim == 1:
+                grids = np.broadcast_to(grids, (Q, 3))
+        if grids is None and np.isfinite(radii).any():
+            raise ValueError("finite region_radii need curr_grid")
+        kwargs = {}
+        if self.load_single_floor and self.floor_min_height is not None:
+            kwargs.update(use_floor=True, floor_range=torch.tensor(
+                [self.floor_min_height, self.floor_max_height],
+                dtype=torch.int32, device=self.device))
+        if np.isfinite(radii).any():
+            kwargs.update(
+                use_region=True,
+                curr_grid=torch.from_numpy(np.ascontiguousarray(grids)).to(
+                    self.device),
+                region_radii=torch.from_numpy(radii).to(self.device))
+        positions, scores = localize_batch(self.state, torch.stack(pooled),
+                                           top_k=K, **kwargs)
+        positions = positions.cpu().numpy()
+        scores = scores.cpu().numpy()
+        out = []
+        for q in range(Q):
+            live = scores[q] > -np.inf
+            pos, sc = positions[q][live], scores[q][live]
+            out.append((pos[:1], pos, sc) if len(pos) else
+                       (np.zeros((0, 3), int), np.zeros((0, 3), int), sc))
+        return out
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
     def save(self, path: Optional[str] = None) -> None:
-        raise _not_ported("memory persistence (save)", "4")
+        """Flush, then write the reference's bundle (``memory.persistence
+        .save_reference_format``) to ``path`` or ``memory_save_path``."""
+        self.flush()
+        P.save_reference_format(
+            self.state, path or self.memory_save_path, self.cfg.memory,
+            original_pos=np.asarray(self.Env.original_state.position),
+            base_height=self.base_height,
+            long_memory=self.long_memory_dict)
 
     def load_memory(self, init_state=None, build_map: bool = False,
                     path: Optional[str] = None) -> None:
-        raise _not_ported("memory persistence (load_memory)", "4")
+        """Reset the environment and, unless ``build_map``, load the bundle
+        at ``path`` or ``memory_save_path`` (JAX ``spatial_memory.py:678-
+        710``): the store, the long-term memory, the mapping heights and
+        the origin, the frame chain rebased to the saved origin, and the
+        single-floor range when ``load_single_floor``."""
+        path = path or self.memory_save_path
+        self.Env.reset(init_state=init_state, build_map=build_map)
+        if build_map:
+            return
+        self.state, meta = P.load_reference_format(
+            path, self.cfg.memory, store_dtype=self.store_dtype,
+            device=self.device)
+        self.long_memory_dict = list(meta["long_memory"])
+        self.base_height = list(meta["base_height"])
+        self.Env.original_state.position = np.asarray(meta["original_pos"])
+        # rebase the frame chain to the saved build-start pose (identity
+        # rotation: build_map keeps the grid axis-aligned), so that further
+        # frames and detections land in the loaded map's coordinates
+        pose0 = torch.from_numpy(np.concatenate(
+            [np.asarray(meta["original_pos"], np.float32),
+             np.asarray([0, 0, 0, 1], np.float32)]))
+        inv_init = G.initial_base_inverse(
+            pose0, torch.as_tensor(self._base_tf, dtype=torch.float32))
+        self.state.inv_init_base_tf.copy_(inv_init)
+        self._inv_init_host = inv_init.numpy().astype(np.float64)
+        if self.load_single_floor and len(self.base_height):
+            n = int(self.state.num_voxels)
+            heights = self.state.slot_pos[:n, 2].cpu().numpy()
+            agent_h = float(self.Env.agent.get_state().position[1])
+            _, self.floor_min_height, self.floor_max_height = (
+                F.current_floor_range(self.base_height, agent_h, heights,
+                                      self.cfg.memory.cell_size))

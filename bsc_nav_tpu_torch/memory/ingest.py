@@ -1,6 +1,8 @@
 """Batched RGB-D frame ingestion into the voxel token store.
 
-Counterpart of ``bsc_nav_tpu/memory/ingest.py`` (dist policy).  Points
+Counterpart of ``bsc_nav_tpu/memory/ingest.py`` (dist policy; f32, bf16
+and int8 stores -- an int8 store takes each written token as per-row
+absmax codes, its scale in ``feat_scale``).  Points
 carry a global frame-major ``order`` index, and every conflict between
 points that touch the same voxel is resolved as the sequential reference
 loop would: first-touch slot assignment in arrival order, append-then-
@@ -41,7 +43,8 @@ import torch
 
 from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch import geometry as G
-from bsc_nav_tpu_torch.memory.store import VoxelStoreState, linear_voxel_id
+from bsc_nav_tpu_torch.memory.store import (
+    VoxelStoreState, linear_voxel_id, quantize_rows)
 
 _BIG = torch.iinfo(torch.int64).max
 
@@ -237,7 +240,14 @@ def ingest_frames(
     cache_won = valid & (cache_best[target] == order)
     wrow = torch.where(cache_won, slot_g * K + write_k, V * K)
 
-    state.feats[wrow] = token.to(state.feats.dtype)
+    if state.feats.dtype == torch.int8:
+        # per-token absmax codes (JAX ingest.py:352-362); the scale cancels
+        # in the cosine, so feat_norm holds the int8 row's norm
+        stored, tok_norm, scale = quantize_rows(token.to(torch.float32))
+        state.feat_scale[wrow] = scale
+    else:
+        stored = token.to(state.feats.dtype)
+    state.feats[wrow] = stored
     state.feat_norm[wrow] = tok_norm
     state.feat_dist[wrow] = radial_sq
 

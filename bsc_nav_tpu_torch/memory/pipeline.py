@@ -7,13 +7,14 @@ Counterpart of ``bsc_nav_tpu/memory/pipeline.py``:
   text_query_step: text -> imagined images -> the query step
   text_pool_step: text -> imagined images -> pooled token (the split
       text query's first half; ``query.localize`` is the second)
+  query_batch_step: Q groups of N images -> one ViT forward -> Q pooled
+      tokens -> one Q-query store scan -> top-K per query
 
 PyTorch runs eagerly, so each "step" is a plain function; kernels are
 queued on the current CUDA stream and nothing synchronises until a caller
 reads a result, so the imagined images never leave the device between
 the diffusion sampler and the encoder.  The carry is ``(state,
-generator)``; the state is updated in place.  The batched-query step is
-queued in ROADMAP.md.
+generator)``; the state is updated in place.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import torch
 
 from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch.memory.ingest import ingest_frames
-from bsc_nav_tpu_torch.memory.query import gaussian_center_pool, localize
+from bsc_nav_tpu_torch.memory.query import (
+    gaussian_center_pool, localize, localize_batch)
 from bsc_nav_tpu_torch.memory.store import VoxelStoreState
 from bsc_nav_tpu_torch.models import vit
 
@@ -63,7 +65,7 @@ def make_build_step(cfg: Config, vit_cfg: vit.ViTConfig,
     return build_step
 
 
-def _pooled_query(cfg: Config, vit_params: vit.ViT, images_uint8,
+def pooled_query(cfg: Config, vit_params: vit.ViT, images_uint8,
                   compute_dtype) -> torch.Tensor:
     """uint8 images -> the center-Gaussian pooled DINOv2 token [D]."""
     q = (cfg.query.query_height, cfg.query.query_width)
@@ -84,7 +86,7 @@ def make_query_step(cfg: Config, vit_cfg: vit.ViTConfig,
                    region_radius: float = 0.0,
                    use_floor: bool = False,
                    floor_range: Optional[torch.Tensor] = None):
-        pooled = _pooled_query(cfg, params, images_uint8, compute_dtype)
+        pooled = pooled_query(cfg, params, images_uint8, compute_dtype)
         return localize(
             state, pooled, top_k=top_k, use_region=use_region,
             curr_grid=curr_grid, region_radius=region_radius,
@@ -113,7 +115,7 @@ def make_text_query_step(cfg: Config, vit_cfg: vit.ViTConfig, imagination,
                         floor_range: Optional[torch.Tensor] = None):
         imgs = imagination.imagine_core(ids, ids_uncond, t5_ids,
                                         t5_ids_uncond, noise)
-        pooled = _pooled_query(cfg, vit_params, imgs, compute_dtype)
+        pooled = pooled_query(cfg, vit_params, imgs, compute_dtype)
         positions, scores = localize(
             state, pooled, top_k=top_k, use_region=use_region,
             curr_grid=curr_grid, region_radius=region_radius,
@@ -134,6 +136,47 @@ def make_text_pool_step(cfg: Config, vit_cfg: vit.ViTConfig, imagination,
                        t5_ids_uncond, noise: Optional[torch.Tensor] = None):
         imgs = imagination.imagine_core(ids, ids_uncond, t5_ids,
                                         t5_ids_uncond, noise)
-        return _pooled_query(cfg, vit_params, imgs, compute_dtype), imgs
+        return pooled_query(cfg, vit_params, imgs, compute_dtype), imgs
 
     return text_pool_step
+
+
+def make_query_batch_step(cfg: Config, vit_cfg: vit.ViTConfig,
+                          compute_dtype=torch.float32):
+    """Returns (state, params, images_uint8 [Q, N, H, W, 3], top_k) ->
+    (positions [Q, top_k, 3], scores [Q, top_k]) (JAX ``pipeline.py:181-
+    203``): the Q*N images in one ViT forward (K1 at batch Q*N), pooled
+    per query, localized in one Q-query scan of the store."""
+
+    def query_batch_step(state: VoxelStoreState, params: vit.ViT,
+                         images_uint8, top_k: int = 100):
+        Qn, Ni = images_uint8.shape[0], images_uint8.shape[1]
+        q = (cfg.query.query_height, cfg.query.query_width)
+        flat = images_uint8.reshape((Qn * Ni,) + tuple(images_uint8.shape[2:]))
+        x = vit.preprocess(flat, out_hw=q).to(compute_dtype)
+        tokens = params.forward_features(x)["x_norm_patchtokens"]
+        grouped = tokens.reshape(Qn, Ni, tokens.shape[1], tokens.shape[2])
+        pooled = torch.stack([gaussian_center_pool(g) for g in grouped])
+        return localize_batch(state, pooled, top_k=top_k)
+
+    return query_batch_step
+
+
+@torch.no_grad()
+def token_similarity_map(params: vit.ViT, query_img: torch.Tensor,
+                         ref_img: torch.Tensor, vit_cfg: vit.ViTConfig,
+                         cfg: Config) -> torch.Tensor:
+    """Cosine between a query image's mean patch token and every patch of
+    a reference image (uint8 [H, W, 3] each) -> [nh, nw] f32 (JAX
+    ``pipeline.py:206-225``)."""
+    q = (cfg.query.query_height, cfg.query.query_width)
+    qt = params.forward_features(
+        vit.preprocess(query_img[None], out_hw=q))["x_norm_patchtokens"]
+    rt = params.forward_features(
+        vit.preprocess(ref_img[None], out_hw=q))["x_norm_patchtokens"]
+    qv = qt[0].mean(dim=0)
+    qv = qv / torch.linalg.norm(qv).clamp_min(1e-12)
+    rn = rt[0] / torch.linalg.norm(rt[0], dim=-1,
+                                   keepdim=True).clamp_min(1e-12)
+    return (rn @ qv).reshape(q[0] // vit_cfg.patch_size,
+                             q[1] // vit_cfg.patch_size)

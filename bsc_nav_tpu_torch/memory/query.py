@@ -2,8 +2,8 @@
 
 Counterpart of ``bsc_nav_tpu/memory/query.py``: cosine scan over every
 stored token (kernel K2 on the card), per-voxel max, region and floor
-masks, top-K.  ``localize_batch`` (many queries in one store pass) is
-queued in ROADMAP.md.
+masks, top-K; ``localize_batch`` localizes Q queries in one pass over the
+store (K2's Q-query form), with a region radius per query.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Optional, Tuple
 import torch
 
 from bsc_nav_tpu_torch.memory.store import VoxelStoreState
-from bsc_nav_tpu_torch.ops.similarity import max_cosine
+from bsc_nav_tpu_torch.ops.similarity import (
+    max_cosine, max_cosine_per_voxel_batch)
 
 
 def gaussian_center_pool(tokens: torch.Tensor) -> torch.Tensor:
@@ -69,4 +70,44 @@ def localize(
     per_voxel = torch.where(mask, per_voxel,
                             torch.full_like(per_voxel, float("-inf")))
     scores, idx = torch.topk(per_voxel, top_k)
+    return state.slot_pos[idx], scores
+
+
+def localize_batch(
+    state: VoxelStoreState,
+    queries: torch.Tensor,                       # [Q, D] pooled features
+    top_k: int = 100,
+    use_floor: bool = False,
+    floor_range: Optional[torch.Tensor] = None,  # [2] int (min_h, max_h)
+    use_region: bool = False,
+    curr_grid: Optional[torch.Tensor] = None,    # [Q, 3] int per query
+    region_radii: Optional[torch.Tensor] = None,  # [Q] f32, inf = no mask
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-K voxels for every query in one store pass: (positions
+    [Q, top_k, 3] int32, scores [Q, top_k] f32).  The single-floor mask
+    as in ``localize``, and a region mask per query around its own
+    ``curr_grid`` row, an inf radius leaving that query unrestricted (JAX
+    ``query.py:102-146``)."""
+    V1 = state.feat_count.shape[0]
+    dev = state.feats.device
+    qn = queries.to(torch.float32)
+    qn = qn / torch.linalg.norm(qn, dim=-1, keepdim=True).clamp_min(1e-12)
+    per_voxel = max_cosine_per_voxel_batch(
+        state.feats, state.feat_norm, state.feat_count,
+        qn.contiguous())                                        # [Q, V1]
+    mask = (torch.arange(V1, device=dev) < state.num_voxels)[None]
+    if use_floor:
+        h = state.slot_pos[:, 2]
+        fr = floor_range.to(dev)
+        mask = mask & ((h >= fr[0]) & (h <= fr[1]))[None]
+    if use_region:
+        d2 = ((state.slot_pos.to(torch.float32)[None, :, :]
+               - curr_grid.to(device=dev, dtype=torch.float32)[:, None, :])
+              ** 2).sum(dim=-1)                                 # [Q, V1]
+        r2 = region_radii.to(device=dev, dtype=torch.float32).square()[:, None]
+        mask = mask & torch.where(torch.isfinite(r2), d2 <= r2,
+                                  torch.ones_like(d2, dtype=torch.bool))
+    per_voxel = torch.where(mask, per_voxel,
+                            torch.full_like(per_voxel, float("-inf")))
+    scores, idx = torch.topk(per_voxel, top_k, dim=-1)
     return state.slot_pos[idx], scores

@@ -7,8 +7,10 @@ and flat layout.  Token (slot, k) lives at row ``slot*K + k`` of the
 masked scatters write to instead of dropping.  Garbage rows hold
 undefined values and are never read as data.
 
-The int8 store (``quantize_feat_rows``, ``quantize_store``) is queued in
-ROADMAP.md; ``init_store`` takes float32 and bfloat16 rows.
+Rows are float32, bfloat16 or int8.  An int8 store holds per-row absmax
+codes (``quantize_feat_rows``) with their scales in ``feat_scale`` [V1*K]
+and the int8 row's norm in ``feat_norm``, so the scale cancels in the
+cosine; ``quantize_store`` converts a float store, on its device.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ class VoxelStoreState:
     # --- token cache, flat [V1*K, D] ---------------------------------------
     feats: torch.Tensor        # [V1*K, D] store dtype
     feat_norm: torch.Tensor    # [V1*K] f32   (||stored token||)
-    feat_scale: torch.Tensor   # [1] f32      (int8 dequant scales; unused)
+    feat_scale: torch.Tensor   # [V1*K | 1] f32 (int8 dequant scales)
     feat_dist: torch.Tensor    # [V1*K] f32   (squared radial distance)
     feat_count: torch.Tensor   # [V1] int32   (tokens held, <= K)
 
@@ -72,10 +74,9 @@ def padded_rows(cfg: MemoryConfig) -> int:
 
 def init_store(cfg: MemoryConfig, store_dtype=torch.float32,
                device="cuda") -> VoxelStoreState:
-    if store_dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"store dtype {store_dtype}: the int8 store is queued in "
-            "ROADMAP.md (Queue 1 item 4); float32 and bfloat16 are ported")
+    if store_dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"store dtype {store_dtype}: float32, bfloat16 or "
+                         "int8")
     if cfg.replacement != "dist":
         raise NotImplementedError(
             f"replacement={cfg.replacement!r}: the surprise policy is "
@@ -94,7 +95,8 @@ def init_store(cfg: MemoryConfig, store_dtype=torch.float32,
     return VoxelStoreState(
         feats=zeros((V1 * K, D), store_dtype),
         feat_norm=zeros((V1 * K,), torch.float32),
-        feat_scale=zeros((1,), torch.float32),
+        feat_scale=zeros((V1 * K if store_dtype == torch.int8 else 1,),
+                         torch.float32),
         feat_dist=zeros((V1 * K,), torch.float32),
         feat_count=zeros((V1,), torch.int32),
         rgb_sum=zeros((V1, 3), torch.float32),
@@ -110,6 +112,45 @@ def init_store(cfg: MemoryConfig, store_dtype=torch.float32,
         inv_init_base_tf=torch.eye(4, dtype=torch.float32, device=dev),
         initialized=zeros((), torch.bool),
     )
+
+
+def quantize_rows(f: torch.Tensor):
+    """Token rows [N, D] f32 -> (int8 codes, int8-row norms, scales), the
+    per-row symmetric absmax int8 of JAX ``ingest.py:352-362`` and
+    ``store.py:131-149``: scale = max(max |f|, 1e-12) / 127, codes
+    round(f / scale) (a true division, ties to even) clipped to +-127, and
+    the codes' norm.  XLA folds the division by the constant 127 into a
+    product with its f32 reciprocal, and so does this.  The codes' sum of
+    squares is exact in f32 for D <= 1040; its root is taken in f64 and
+    rounded once, so it is correctly rounded on every host (PyTorch's
+    vectorised f32 ``sqrt`` is not on AVX-512)."""
+    absmax = f.abs().amax(dim=-1)
+    scale = absmax.clamp_min(1e-12) * torch.tensor(
+        1.0 / 127.0, dtype=torch.float32, device=f.device)
+    q = torch.round(f / scale[:, None]).clamp(-127, 127)
+    norm = torch.sqrt((q * q).sum(dim=-1).double()).float()
+    return q.to(torch.int8), norm, scale
+
+
+def quantize_feat_rows(feats: torch.Tensor, feat_norm: torch.Tensor):
+    """[VK, D] float token rows -> (int8 rows, int8-row norms, scales),
+    as JAX ``quantize_feat_rows``: rows never written (norm 0) keep norm
+    0."""
+    qi, norm, scale = quantize_rows(feats.to(torch.float32))
+    return qi, torch.where(feat_norm > 0, norm, torch.zeros_like(norm)), scale
+
+
+def quantize_store(state: VoxelStoreState) -> VoxelStoreState:
+    """The int8 form of a float store, on its device (JAX
+    ``quantize_store``): feats, feat_norm and feat_scale are replaced in
+    the returned state, the other fields are shared with ``state``.
+    Ingest into the result takes the int8 write branch.  An int8 store is
+    returned as it is."""
+    if state.feats.dtype == torch.int8:
+        return state
+    qi, norm, scale = quantize_feat_rows(state.feats, state.feat_norm)
+    return dataclasses.replace(state, feats=qi, feat_norm=norm,
+                               feat_scale=scale)
 
 
 def store_nbytes(cfg: MemoryConfig, store_dtype=torch.float32) -> int:
@@ -133,6 +174,27 @@ def occupied_positions(state: VoxelStoreState
     V1 = state.slot_pos.shape[0]
     valid = torch.arange(V1, device=state.slot_pos.device) < state.num_voxels
     return state.slot_pos, valid
+
+
+def token_cache_view(state: VoxelStoreState):
+    """(feats [V1, K, D], norms [V1, K], dists [V1, K]) views of the flat
+    store."""
+    V1 = state.feat_count.shape[0]
+    K = state.feats.shape[0] // V1
+    D = state.feats.shape[1]
+    return (state.feats.view(V1, K, D), state.feat_norm.view(V1, K),
+            state.feat_dist.view(V1, K))
+
+
+def dequantized_feats(state: VoxelStoreState) -> torch.Tensor:
+    """The token cache as f32 [V1, K, D]: the rows widened, times their
+    scales for an int8 store."""
+    V1 = state.feat_count.shape[0]
+    K = state.feats.shape[0] // V1
+    f = state.feats.to(torch.float32)
+    if state.feats.dtype == torch.int8:
+        f = f * state.feat_scale[:, None]
+    return f.view(V1, K, -1)
 
 
 def fused_rgb(state: VoxelStoreState) -> torch.Tensor:

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from bsc_nav_tpu_torch import resolve_device
-from bsc_nav_tpu_torch.ops.quant import linear_q8, quantize_weight
+from bsc_nav_tpu_torch.ops.quant import (linear_q8, quantize_weight,
+                                         weight_scale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +111,7 @@ def quantize_params(params: Dict[str, Any],
         for blk in params["blocks"]]
     if quantize_embed:
         e = params["embed"].to(torch.float32)
-        s = torch.clamp(e.abs().amax(dim=0), min=1e-12) / 127.0
+        s = weight_scale(e.abs().amax(dim=0))
         out["embed"] = {"w_q": torch.round(e / s).to(torch.int8), "w_s": s}
     else:
         out["embed"] = params["embed"]

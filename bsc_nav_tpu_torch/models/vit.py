@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Dict, Optional
 
 import numpy as np
@@ -29,7 +30,7 @@ from torch import nn
 
 from bsc_nav_tpu_torch import resolve_device
 from bsc_nav_tpu_torch.ops.flash_attention import attention_from_qkv
-from bsc_nav_tpu_torch.ops.quant import linear_q8
+from bsc_nav_tpu_torch.ops.quant import linear_q8, quantize_weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +153,9 @@ def interpolate_pos_embed(pos: torch.Tensor, grid_hw) -> torch.Tensor:
                       grid.reshape(1, gh * gw, -1).to(pos.dtype)], dim=1)
 
 
+_BLOCK_LINEAR = re.compile(r"^blocks\.\d+\.(qkv|proj|fc1|fc2)\.w$")
+
+
 # --------------------------------------------------------------------------
 # modules (parameter names = the JAX params tree)
 # --------------------------------------------------------------------------
@@ -213,18 +217,19 @@ class LayerNorm(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None):
+    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device=None,
+                 quantized=False):
         super().__init__()
         d = cfg.dim
         hidden = int(cfg.dim * cfg.mlp_ratio)
         self.cfg = cfg
         self.ln1 = LayerNorm(d, cfg.ln_eps, dtype, device)
-        self.qkv = Linear(d, 3 * d, cfg.qkv_bias, dtype, device)
-        self.proj = Linear(d, d, True, dtype, device)
+        self.qkv = Linear(d, 3 * d, cfg.qkv_bias, dtype, device, quantized)
+        self.proj = Linear(d, d, True, dtype, device, quantized)
         self.ln2 = LayerNorm(d, cfg.ln_eps, dtype, device)
         fc1_out = 2 * hidden if cfg.ffn == "swiglu" else hidden
-        self.fc1 = Linear(d, fc1_out, True, dtype, device)
-        self.fc2 = Linear(hidden, d, True, dtype, device)
+        self.fc1 = Linear(d, fc1_out, True, dtype, device, quantized)
+        self.fc2 = Linear(hidden, d, True, dtype, device, quantized)
         if cfg.layerscale:
             self.ls1 = _param((d,), dtype, device)
             self.ls2 = _param((d,), dtype, device)
@@ -254,13 +259,17 @@ class Block(nn.Module):
 
 class ViT(nn.Module):
     """DINOv2-style encoder.  Parameters are created empty; fill them with
-    ``init_params`` or the loaders in ``models.weights``."""
+    ``init_params`` or the loaders in ``models.weights``.  ``quantized``
+    makes every block's qkv / proj / fc1 / fc2 an int8 leaf
+    (``quantize_params``)."""
 
-    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device="cuda"):
+    def __init__(self, cfg: ViTConfig, dtype=torch.float32, device="cuda",
+                 quantized: bool = False):
         super().__init__()
         dev = resolve_device(device)
         d = cfg.dim
         self.cfg = cfg
+        self.quantized = quantized
         self.patch_embed = Linear(cfg.patch_size ** 2 * 3, d, True, dtype,
                                   dev)
         self.cls_token = _param((1, 1, d), dtype, dev)
@@ -269,7 +278,7 @@ class ViT(nn.Module):
                           if cfg.num_registers else None)
         self.norm = LayerNorm(d, cfg.ln_eps, dtype, dev)
         self.blocks = nn.ModuleList(
-            Block(cfg, dtype, dev) for _ in range(cfg.depth))
+            Block(cfg, dtype, dev, quantized) for _ in range(cfg.depth))
 
     @torch.no_grad()
     def forward_features(self, images: torch.Tensor
@@ -328,3 +337,24 @@ def init_params(cfg: ViTConfig, generator: torch.Generator,
         else:                       # cls_token, pos_embed, reg_token
             normal_(p, 0.02)
     return model
+
+
+@torch.no_grad()
+def quantize_params(model: ViT) -> ViT:
+    """A new ViT whose block matmuls (qkv / proj / fc1 / fc2) are int8
+    W8A8 leaves served by ``ops.quant.linear_q8`` (JAX ``vit.py:159-
+    175``); the patch embedding, layer norms, layer scales and tokens are
+    copied as they are.  ``model`` is left unchanged."""
+    if model.quantized:
+        raise ValueError("quantize_params: model is already quantized")
+    out = ViT(model.cfg, dtype=model.cls_token.dtype,
+              device=model.cls_token.device, quantized=True)
+    sd = {}
+    for name, t in model.state_dict().items():
+        if _BLOCK_LINEAR.match(name):
+            q = quantize_weight({"w": t})
+            sd[name + "_q"], sd[name + "_s"] = q["w_q"], q["w_s"]
+        else:
+            sd[name] = t
+    out.load_state_dict(sd, strict=True)
+    return out

@@ -94,6 +94,7 @@ def kernels() -> ctypes.CDLL:
                 ("short_attention_qkv", [p, p, i, i, i, i, i, p]),
                 ("short_attention", [p, p, p, p, i, i, i, i, i, i, p]),
                 ("max_cosine_per_voxel", [p, p, p, p, p, i, i, i, i, p]),
+                ("max_cosine_batch", [p, p, p, p, p, i, i, i, i, i, p]),
                 ("joint_qkv_attention", [p, p, p, p, p, i, i, i, i, f, i, p]),
                 ("joint_qk_norm", [p, p, p, p, i, i, i, i, f, i, p]),
                 ("mid_attention", [p, p, p, p, i, i, i, i, i, p]),

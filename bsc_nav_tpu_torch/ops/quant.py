@@ -29,10 +29,20 @@ import torch
 import torch.nn.functional as F
 
 
+def weight_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """max(absmax, 1e-12) / 127 as a true division on every device, as the
+    JAX package's eager quantizers compute it: PyTorch divides a CUDA
+    tensor by a Python scalar as a product with the scalar's f32
+    reciprocal, which differs in the last bit for some scales (and then
+    moves the codes rounded at a half)."""
+    a = torch.clamp(absmax, min=1e-12)
+    return a / torch.full_like(a, 127.0)
+
+
 def quantize_weight(p: Mapping[str, torch.Tensor]) -> dict:
     """{"w": [fi, fo], "b"?} -> {"w_q" int8, "w_s" f32 [fo], "b"?}."""
     w = p["w"].to(torch.float32)
-    s = torch.clamp(w.abs().amax(dim=0), min=1e-12) / 127.0
+    s = weight_scale(w.abs().amax(dim=0))
     q = {"w_q": torch.round(w / s).to(torch.int8), "w_s": s}
     if p.get("b") is not None:
         q["b"] = p["b"]
@@ -87,7 +97,7 @@ def quantize_conv_weight(p: Mapping[str, torch.Tensor]) -> dict:
     [co], **rest}: per-output-channel symmetric scaling; the BN statistics
     and bias pass through untouched."""
     w = p["w"].to(torch.float32)
-    s = torch.clamp(w.abs().amax(dim=(0, 1, 2)), min=1e-12) / 127.0
+    s = weight_scale(w.abs().amax(dim=(0, 1, 2)))
     q = {k: v for k, v in p.items() if k != "w"}
     q["w_q"] = torch.round(w / s).to(torch.int8)
     q["w_s"] = s

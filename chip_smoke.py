@@ -3,15 +3,21 @@
 queries once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --kernels K4,K5,K6   # those kernels' cases alone
+    python3 chip_smoke.py --kernels K2,K4,K5   # those kernels' cases alone
 
 Phases, one line each (any failed check raises, so the script exits
 non-zero):
 
   build         compile bsc_nav_tpu_torch/csrc/*.cu with nvcc for sm_90a,
                 one nvcc per source, all started together
-  kernels       K1-K8 against their plain PyTorch versions on the card, at
-                the main paths' shapes, with both times (CUDA events, median
+  kernels       K1-K8 and K2b (K2's Q-query scan) against their plain
+                PyTorch versions on the card, at
+                the main paths' shapes (K2 on f32 and bf16 rows; K2b at
+                Q 1, 3, 16 on f32, bf16 and int8 rows, beside the GEMM
+                composition: a single query on int8 rows is K2b at Q 1;
+                its bound at the card's rate for the products' type, the
+                CUDA cores' f32 FMA time beside it), with
+                both times (CUDA events, median
                 of 20 runs), the bound reckoned from each case's bytes and
                 operations (f32 products at a third of the TF32 rate, three
                 TF32 products each), and one PyTorch call computing the same
@@ -47,6 +53,29 @@ non-zero):
                 tile (attention_tf32_kernel)
   slice bf16    the same with bf16 weights, compute and store (K1 on the
                 wgmma tile)
+  batch         after each slice, on its store: voxel_localized_batch for
+                the robot's sweep (one prompt at radii 30/40/50 around the
+                first query's best voxel), 16 distinct 3-image prompts and
+                a Q 17 call (two K2b launches); each query's top-K against
+                its own voxel_localized call (uncounted), K1 +depth per
+                distinct prompt, K2b +ceil(Q/16); batched against single
+                times
+  int8          after the f32 slice: the 32 frames into an int8 store with
+                the same encoder (equal, byte for byte and to the bit, to
+                quantize_store of the f32 store over the live rows), the 3
+                queries on K2b at Q 1, the int8 scan within the f32 dot
+                bound of its plain version, the top-K overlap with the f32
+                store
+  persist       save_npz / load_npz of an int8 store of 653,780 rows x
+                1024 (0.67 GB of codes) and of the 32-frame int8 store:
+                every field array-equal, the same top-K (uncounted: the
+                path launches no kernel); save / load s
+  int8 encoder  Perception with encoder_int8 (ViT-L block matmuls on
+                linear_q8): a flush of 8 frames and a query, K1 launches
+                as in f32, every qkv/proj/fc1/fc2 call on linear_q8; with
+                layer scales 1, the pooled token on the card against the
+                same int8 encoder on the CPU (2e-3 of max |value|, cos
+                0.9999), which the f32 encoder's pool must miss
   slice-parity  small_test_config() and a tiny ViT (head_dim 16, routed to
                 K3 as in the JAX package): the same frames and injected
                 draws on the CPU (plain versions) and on the card (kernels);
@@ -117,9 +146,11 @@ Without CUDA it exits 1 and prints no result.  JAX is never imported.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -139,6 +170,11 @@ CLIP_TOL = 1e-4         # unit features and scores, f32 CLIP on card vs CPU
 # unit feature by up to a few 1e-3 (tests/test_torch_clip.py INT8_TOL)
 INT8_TOL, INT8_MIN_COS = 1e-2, 0.9995
 K2_TOL = 2e-5           # abs, beside 1e-5 rel (zero-norm rows / 1e-12)
+# K2 on int8 rows and its Q-query scan are held to the f32 dot bound of
+# tests/test_torch_similarity.py (k2_bound).  A batched query on a bf16
+# store rounds its query to bf16 where the single query keeps f32: that
+# moves a cosine by at most 2^-9 (sum |r_i||dq_i| <= 2^-9 |r||q|), so a
+# bf16 store's batch is held to its single queries within PARITY_TOL + 2^-9
 K4_TOL = 2e-5           # f32 abs; bf16: see BF16_ATTN_TOL
 # K1, K3, K5 and K6 in bf16 round P to bf16 on the tensor cores: they take
 # flash_attention_bf16_tolerance (K1 on its split heads); K4 also rounds
@@ -159,6 +195,9 @@ TEXTQ_V_TOL, TEXTQ_LAT_TOL = 5e-4, 2e-3
 # the tensor cores (495 TFLOP/s / 3; 67 outside them); HBM rate
 TF32_FLOPS, HBM_BYTES_PER_S = 495e12, 3.35e12
 PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3, torch.bfloat16: 989e12}
+F32_CUDA_CORE_FLOPS = 67e12     # f32 FMAs outside the tensor cores
+K2_STORE = (131_080, 10, 1024)  # the default store: V1, K, D
+PERSIST_ROWS = 653_780          # K2's kernel case's live rows
 
 
 def log(phase: str, msg: str) -> None:
@@ -217,27 +256,38 @@ def host_ms(fn, n: int = 200) -> float:
     return ms
 
 
+# the kernels' names in the order of ``wrappers``; K2b is K2's Q-query
+# scan (its own entry point and count)
+NAMES = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K2b")
+
+
 def wrappers() -> tuple:
-    """The wrappers of K1-K8, each holding its launch count."""
+    """The wrappers of K1-K8 and K2b, each holding its launch count."""
     from bsc_nav_tpu_torch.ops import conv2d, layernorm, similarity
     from bsc_nav_tpu_torch.ops import flash_attention as fa
     return (fa.short_attention_qkv, similarity.max_cosine_per_voxel,
             fa.short_attention, fa.joint_qkv_attention, fa.mid_attention,
-            fa.flash_attention, layernorm.layer_norm, conv2d.conv3x3_s1)
+            fa.flash_attention, layernorm.layer_norm, conv2d.conv3x3_s1,
+            similarity.max_cosine_per_voxel_batch)
 
 
 def counts() -> tuple:
-    """Launch counts of (K1, ..., K8)."""
+    """Launch counts of (K1, ..., K8, K2b)."""
     return tuple(f.launches for f in wrappers())
 
 
 def launches(**n) -> tuple:
-    """A (K1, ..., K8) count tuple from keywords: launches(K1=24, K2=1)."""
-    return tuple(n.get(f"K{i}", 0) for i in range(1, 9))
+    """A count tuple in ``NAMES``' order from keywords:
+    launches(K1=24, K2=1)."""
+    return tuple(n.get(k, 0) for k in NAMES)
 
 
 def fmt(c) -> str:
-    return ", ".join(f"K{i} {n}" for i, n in enumerate(c, 1))
+    return ", ".join(f"{k} {n}" for k, n in zip(NAMES, c))
+
+
+def add(a, b) -> tuple:
+    return tuple(x + y for x, y in zip(a, b))
 
 
 def since(before):
@@ -354,6 +404,141 @@ def sdpa_ms(q, k, v, causal=False) -> float:
 # phase: kernels
 # ---------------------------------------------------------------------------
 
+def k2_bound(f, norms, cnt, qs):
+    """Per voxel, how far two f32 evaluations of its max cosine may lie
+    apart (tests/test_torch_similarity.py ``_dot_bound``): 2 gamma_{D+1}
+    sum_i |r_i||q_i| / max(norm, 1e-12) over its live rows, plus 1e-5;
+    qs [Q, D] as the kernel holds them -> [Q, V1]."""
+    from bsc_nav_tpu_torch.ops.similarity import masked_norms
+    V1, D = cnt.shape[0], f.shape[1]
+    K = f.shape[0] // V1
+    u = 2.0 ** -24
+    gamma = (D + 1) * u / (1 - (D + 1) * u)
+    absdot = (f.float().abs() @ qs.float().abs().T).T          # [Q, VK]
+    mnorm = masked_norms(norms, cnt, K)
+    rows = torch.where(mnorm > 0, 2 * gamma * absdot / mnorm.clamp_min(1e-12),
+                       torch.zeros_like(absdot))
+    return 1e-5 + rows.reshape(-1, V1, K).amax(dim=-1)
+
+
+def k2_check(got, want, bound, what) -> float:
+    """Equal -inf pattern, live voxels within ``bound``; the max error."""
+    check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+          f"{what}: -inf pattern differs")
+    live = torch.isfinite(want)
+    diff = (got[live] - want[live]).abs()
+    check(bool((diff <= bound[live]).all()),
+          f"{what}: {int((diff > bound[live]).sum())} voxels outside the "
+          "f32 dot bound")
+    return diff.max().item()
+
+
+def gemm_scan(f, norms, cnt, qs):
+    """The library composition of a Q-query scan, timed beside the kernel:
+    one GEMM of the rows against the queries in the store dtype (int8
+    rows copied to bf16 first, bf16 out), then the count mask, the divide
+    and the max over each voxel's K rows."""
+    from bsc_nav_tpu_torch.ops.similarity import _per_voxel_max
+    rows = f.to(torch.bfloat16) if f.dtype == torch.int8 else f
+    dots = torch.mm(rows, qs.to(rows.dtype).T).T.float()
+    return _per_voxel_max(dots, norms, cnt)
+
+
+def k2_cases(dev, gen, cases):
+    """K2 at the default store (V1 131,080 x 10 x 1024, random counts) on
+    f32 and bf16 rows, then the Q-query scan K2b at Q 1, 3 and 16 on f32,
+    bf16 and int8 rows (the int8 store by quantize_feat_rows; a single
+    query on int8 rows is K2b at Q 1), against its plain version and the
+    GEMM composition."""
+    from bsc_nav_tpu_torch.memory.store import quantize_feat_rows
+    from bsc_nav_tpu_torch.ops import similarity as sim
+
+    V1, K, D = K2_STORE
+    feats = torch.randn(V1 * K, D, generator=gen, device=dev)
+    norms = torch.linalg.norm(feats, dim=1)
+    cnt = torch.randint(0, K + 1, (V1,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    q = torch.randn(D, generator=gen, device=dev)
+    q = q / torch.linalg.norm(q)
+    qs = torch.randn(16, D, generator=gen, device=dev)
+    qs = qs / torch.linalg.norm(qs, dim=1, keepdim=True)
+    live = int(cnt.sum())
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        if dtype == torch.int8:
+            f, n, _ = quantize_feat_rows(feats, norms)
+        else:
+            f, n = feats.to(dtype), norms
+        name = str(dtype)[6:]
+        if dtype != torch.int8:
+            got = sim.max_cosine_per_voxel(f, n, cnt, q)
+            want = sim.reference_max_cosine(f, n, cnt, q)
+            tol = f"{K2_TOL} abs + 1e-5 rel"
+            err = k2_check(got, want, K2_TOL + 1e-5 * want.abs(),
+                           f"K2 {name}")
+            ms = cuda_ms(lambda: sim.max_cosine_per_voxel(f, n, cnt, q))
+            plain = cuda_ms(lambda: sim.reference_max_cosine(f, n, cnt, q))
+            store_bytes = nbytes(f)
+            # the scan reads only live rows (k < count): count what this
+            # store's counts need -- rows and their norms, counts, q,
+            # output; the f32 query makes every product an f32 product
+            b_ms, b_by = bound(2.0 * D * live,
+                               live * (D * f.element_size() + 4)
+                               + nbytes(cnt, q, got), torch.float32)
+            log("kernels", f"K2 max_cosine_per_voxel V1={V1} K={K} D={D} "
+                f"{name} store {store_bytes / 1e9:.2f} GB ({live:,} live "
+                f"rows): max_abs_err {err:.3g} (tol: {tol}) kernel "
+                f"{ms:.4f} ms plain {plain:.4f} ms bound {b_ms:.4f} ms "
+                f"({b_by}); no one PyTorch call computes a per-voxel max "
+                f"over a count mask")
+            cases.append({"kernel": "K2", "V1": V1, "K": K, "D": D,
+                          "dtype": name, "store_bytes": store_bytes,
+                          "live_rows": live, "max_abs_err": err,
+                          "tol": tol, "ms": ms, "plain_ms": plain,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None})
+        # the queries as K2b holds them: rounded to the store dtype, bf16
+        # for int8 rows; an int8 or bf16 row times a bf16 query is exact
+        # in f32, the bf16 tensor cores' product
+        qdt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+        for Q in (1, 3, 16):
+            qq = qs[:Q].contiguous()
+            got = sim.max_cosine_per_voxel_batch(f, n, cnt, qq)
+            want = sim.reference_max_cosine_batch(f, n, cnt, qq)
+            err = k2_check(got, want, k2_bound(f, n, cnt, qq.to(qdt)),
+                           f"K2-batch {name} Q {Q}")
+            ms = cuda_ms(lambda: sim.max_cosine_per_voxel_batch(
+                f, n, cnt, qq))
+            plain = cuda_ms(lambda: sim.reference_max_cosine_batch(
+                f, n, cnt, qq))
+            lib = cuda_ms(lambda: gemm_scan(f, n, cnt, qq))
+            # bytes: live rows and norms, counts, queries, [Q, V1] out;
+            # operations: 2 Q D a live row at the card's rate for the
+            # products' type (f32: three TF32 products; bf16 and int8
+            # rows: bf16); beside it the design's own limit, the same
+            # operations on the CUDA cores' f32 FMAs, which K2b uses
+            flops = 2.0 * D * Q * live
+            b_ms, b_by = bound(flops, live * (D * f.element_size() + 4)
+                               + nbytes(cnt, qq, got), qdt)
+            t_fma = flops / F32_CUDA_CORE_FLOPS * 1e3
+            log("kernels", f"K2-batch max_cosine_per_voxel_batch {name} "
+                f"Q={Q}: max_abs_err {err:.3g} (tol: the f32 dot bound) "
+                f"kernel {ms:.4f} ms ({ms / Q:.4f} a query; "
+                f"{b_ms / ms:.3f} of the bound) plain {plain:.4f} ms GEMM "
+                f"composition {lib:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
+                f"the design's limit, CUDA-core f32 FMAs, {t_fma:.4f} ms")
+            cases.append({"kernel": "K2b", "dtype": name, "Q": Q,
+                          "live_rows": live, "max_abs_err": err,
+                          "tol": "f32 dot bound", "ms": ms,
+                          "plain_ms": plain, "bound_ms": b_ms,
+                          "bound_by": b_by, "cuda_core_fma_ms": t_fma,
+                          "library_ms": lib,
+                          "library": "GEMM + mask + max (torch.mm in the "
+                                     "store dtype; int8 via a bf16 copy)"})
+        del f, n, got, want
+    del feats, norms, cnt, q, qs
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(dev, gen):
     import torch.nn.functional as F
 
@@ -368,46 +553,7 @@ def phase_kernels(dev, gen):
                               ).to(dtype)
             cases.append(k1_case(qkv, H, dtype, {"B": B, "S": S}))
             del qkv
-    V1, K, D = 131_080, 10, 1024
-    feats = torch.randn(V1 * K, D, generator=gen, device=dev)
-    norms = torch.linalg.norm(feats, dim=1)
-    cnt = torch.randint(0, K + 1, (V1,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    q = torch.randn(D, generator=gen, device=dev)
-    q = q / torch.linalg.norm(q)
-    for dtype in (torch.float32, torch.bfloat16):
-        f = feats.to(dtype)
-        got = sim.max_cosine_per_voxel(f, norms, cnt, q)
-        want = sim.reference_max_cosine(f, norms, cnt, q)
-        check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
-              f"K2 {dtype}: -inf pattern differs")
-        live = torch.isfinite(want)
-        diff = (got[live] - want[live]).abs()
-        err = diff.max().item()
-        check(bool((diff <= K2_TOL + 1e-5 * want[live].abs()).all()),
-              f"K2 {dtype}: err {err}")
-        ms = cuda_ms(lambda: sim.max_cosine_per_voxel(f, norms, cnt, q))
-        plain = cuda_ms(lambda: sim.reference_max_cosine(f, norms, cnt, q))
-        store_bytes = nbytes(f)
-        # the scan reads only live rows (k < count): count what this
-        # store's counts need -- rows and their norms, counts, q, output
-        live = int(cnt.sum())
-        b_ms, b_by = bound(2.0 * D * live,
-                           live * (D * f.element_size() + 4)
-                           + nbytes(cnt, q, got), dtype)
-        log("kernels", f"K2 max_cosine_per_voxel V1={V1} K={K} D={D} "
-            f"{str(dtype)[6:]} store {store_bytes / 1e9:.2f} GB ({live:,} "
-            f"live rows): max_abs_err {err:.3g} (tol {K2_TOL} abs + 1e-5 "
-            f"rel) kernel {ms:.4f} ms plain {plain:.4f} ms bound "
-            f"{b_ms:.4f} ms ({b_by}); no one PyTorch call computes a "
-            f"per-voxel max over a count mask")
-        cases.append({"kernel": "K2", "V1": V1, "K": K, "D": D,
-                      "dtype": str(dtype)[6:], "store_bytes": store_bytes,
-                      "live_rows": live, "max_abs_err": err, "tol": K2_TOL,
-                      "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": None})
-        del f, got, want
-    del feats, norms, cnt, q
+    k2_cases(dev, gen, cases)
 
     # K3 at the CLIP towers' shapes: the vision tower at B 12 (check_around's
     # 12 views), the causal text tower at B 22 (a prompt and the 21 labels),
@@ -1023,9 +1169,435 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
     result = {"dtype": str(dtype)[6:], "num_voxels": nv,
               "flush_ms": flush_ms, "query_ms": query_ms,
               "peak_gb": peak, "k1_tile": tile}
-    del mem, perception, params
+    return result, mem
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside do not count: the checks that hold a path's result
+    against a plain version or another call run here."""
+    saved = counts()
+    try:
+        yield
+    finally:
+        for f, n in zip(wrappers(), saved):
+            f.launches = n
+
+
+def live_tops(out):
+    """A voxel_localized tuple's (positions, scores) as numpy."""
+    return np.asarray(out[1]), np.asarray(out[2], np.float64)
+
+
+def topk_agree(a, b, tol, what) -> float:
+    """Two top-K results of one store agree: as many live voxels, sorted
+    scores within ``tol`` (each voxel's score within tol moves the k-th
+    score by at most tol), and every voxel above the k-th score + 2 tol in
+    one is in the other's top-K.  Returns the max score difference."""
+    (pa, sa), (pb, sb) = live_tops(a), live_tops(b)
+    check(len(sa) == len(sb) > 0, f"{what}: {len(sa)} / {len(sb)} live")
+    err = float(np.abs(np.sort(sa) - np.sort(sb)).max())
+    check(err <= tol, f"{what}: score err {err} > {tol}")
+    for (p1, s1), p2 in (((pa, sa), pb), ((pb, sb), pa)):
+        sure = set(map(tuple, p1[s1 > s1.min() + 2 * tol]))
+        check(sure <= set(map(tuple, p2)), f"{what}: top-K sets differ")
+    return err
+
+
+def goal_prompts(frames, n):
+    """n distinct image prompts of 3 views each from the spin's frames."""
+    return [np.stack([frames[(2 * i + j) % len(frames)][0]["rgb"][:, :, :3]
+                      for j in range(3)]) for i in range(n)]
+
+
+def phase_batch(dev, mem, cfg, vcfg, world):
+    """Batched queries on the slice's store: the robot's growing-radius
+    sweep (one prompt at radii 30, 40, 50 around the first query's best
+    voxel), 16 distinct image prompts, and a Q 17 call past the 16-query
+    chunk; each result against its own ``voxel_localized`` call.  The
+    single calls are the checks' yardstick: their launches do not count."""
+    name = f"batch {str(mem.state.feats.dtype)[6:]}"
+    env, frames, queries = world
+    K, depth = cfg.query.top_k, vcfg.depth
+    tol = PARITY_TOL + (2.0 ** -9 if mem.state.feats.dtype
+                        == torch.bfloat16 else 0.0)
+
+    def single(prompt, radius=np.inf, grid=None):
+        with uncounted():
+            before = counts()
+            out = mem.voxel_localized(prompt, K=K, region_radius=radius,
+                                      curr_grid=grid)
+            check(since(before) == launches(K1=depth, K2=1),
+                  f"{name}: single query launched {fmt(since(before))}")
+        return out
+
+    def batched(prompts, radii=None, grid=None, distinct=None):
+        before = counts()
+        t0 = time.perf_counter()
+        out = mem.voxel_localized_batch(prompts, K=K, region_radii=radii,
+                                        curr_grid=grid)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = launches(K1=depth * (distinct or len(prompts)),
+                        K2b=-(-len(prompts) // 16))
+        check(since(before) == want, f"{name}: Q {len(prompts)} launched "
+              f"{fmt(since(before))} (want {fmt(want)})")
+        return out, ms
+
+    first = single(queries[0])
+    best = first[0][0]
+    radii = [30.0, 40.0, 50.0]
+    t0 = time.perf_counter()
+    sweep_singles = [single(queries[0], r, best) for r in radii]
+    sweep_single_ms = (time.perf_counter() - t0) * 1e3
+    sweep, sweep_ms = batched([queries[0]] * 3, radii, best, distinct=1)
+    errs = []
+    for r, b, s_ in zip(radii, sweep, sweep_singles):
+        errs.append(topk_agree(s_, b, tol, f"{name} sweep r {r}"))
+        d2 = ((np.asarray(b[1]) - best) ** 2).sum(axis=1)
+        check(bool((d2 <= r * r).all()), f"{name}: voxel outside r {r}")
+
+    goals = goal_prompts(frames, 16)
+    t0 = time.perf_counter()
+    goal_singles = [single(g) for g in goals]
+    goal_single_ms = (time.perf_counter() - t0) * 1e3
+    multi, multi_ms = batched(goals)
+    for i, (b, s_) in enumerate(zip(multi, goal_singles)):
+        errs.append(topk_agree(s_, b, tol, f"{name} goal {i}"))
+    q17, q17_ms = batched(goals + [queries[0]])
+    for i, (b, s_) in enumerate(zip(q17, goal_singles + [first])):
+        errs.append(topk_agree(s_, b, tol, f"{name} Q17 {i}"))
+    err = max(errs)
+    log(name, f"sweep (1 prompt x 3 radii {radii}) {sweep_ms:.2f} ms "
+        f"batched against {sweep_single_ms:.2f} ms for 3 single queries; "
+        f"16 goals {multi_ms:.2f} ms batched against {goal_single_ms:.2f} "
+        f"ms for 16 single queries; Q 17 {q17_ms:.2f} ms (K2b +2); "
+        f"top-{K} sets equal to the single queries', max score err "
+        f"{err:.3g} (tol {tol:.3g}); no voxel outside its radius")
+    return {"dtype": str(mem.state.feats.dtype)[6:], "sweep_ms": sweep_ms,
+            "sweep_single_ms": sweep_single_ms, "goals16_ms": multi_ms,
+            "goals16_single_ms": goal_single_ms, "q17_ms": q17_ms,
+            "max_score_err": err, "tol": tol}
+
+
+def phase_int8(dev, mem32, cfg, vcfg, world):
+    """The same 32 frames into an int8 store with the f32 slice's encoder,
+    then the 3 image queries on it (a single query on int8 rows is K2b at
+    Q 1).  Returns the agent and what the checks need."""
+    from bsc_nav_tpu_torch.agents.spatial_memory import VoxelTokenMemory
+
+    env, frames, queries = world
+    depth = vcfg.depth
+    mem = VoxelTokenMemory(cfg, env, mem32.perception,
+                           store_dtype=torch.int8)
+    flush_ms = []
+    for i in range(N_FRAMES // BATCH):
+        before = counts()
+        t0 = time.perf_counter()
+        for obs, pose in frames[i * BATCH:(i + 1) * BATCH]:
+            mem.push_frame(obs, pose)
+        torch.cuda.synchronize()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        check(since(before) == launches(K1=depth),
+              f"int8 flush {i}: {fmt(since(before))}")
+    tops, query_ms = [], []
+    for imgs in queries:
+        before = counts()
+        t0 = time.perf_counter()
+        tops.append(mem.voxel_localized(imgs, K=cfg.query.top_k))
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        check(since(before) == launches(K1=depth, K2b=1),
+              f"int8 query: {fmt(since(before))} (want K2b at Q 1)")
+        check(len(tops[-1][1]) > 0 and bool(np.isfinite(tops[-1][2]).all()),
+              "int8 query: empty or non-finite top-K")
+    return mem, tops, flush_ms, query_ms
+
+
+def int8_checks(mem8, mem32, tops8, world, cases):
+    """The int8 ingest equals quantize_store of the f32 store over the
+    live rows, byte for byte (feats) and to the bit (feat_scale,
+    feat_norm); the int8 scan (K2b at Q 1) within the f32 dot bound of its
+    plain version; the top-K overlap with the f32 store's."""
+    from bsc_nav_tpu_torch.memory.store import quantize_store
+    from bsc_nav_tpu_torch.ops import similarity as sim
+
+    s8, s32 = mem8.state, mem32.state
+    nv = int(s32.num_voxels)
+    check(int(s8.num_voxels) == nv, "int8 store: another voxel count")
+    for f in ("slot_pos", "feat_count"):
+        check(torch.equal(getattr(s8, f)[:nv], getattr(s32, f)[:nv]),
+              f"int8 store: {f} differs from the f32 store's")
+    check(torch.equal(s8.slot_map, s32.slot_map), "int8 store: slot_map")
+    q = quantize_store(s32)
+    K = s32.feats.shape[0] // s32.feat_count.shape[0]
+    live = (torch.arange(K, device=s8.feats.device)[None, :]
+            < s8.feat_count[:nv, None]).reshape(-1)
+    rows = int(live.sum())
+    for f in ("feats", "feat_scale", "feat_norm"):
+        a, b = getattr(s8, f)[:nv * K][live], getattr(q, f)[:nv * K][live]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)   # to the bit
+        check(torch.equal(a, b), f"int8 ingest {f} != quantize_store's")
+    qv = mem8.perception.pool_step(mem8.perception.vit_params,
+                                   torch.from_numpy(world[2][0]).to(
+                                       s8.feats.device))
+    qv = (qv / torch.linalg.norm(qv)).contiguous()
+    got = sim.max_cosine_per_voxel(s8.feats, s8.feat_norm, s8.feat_count,
+                                   qv)
+    want = sim.reference_max_cosine(s8.feats, s8.feat_norm, s8.feat_count,
+                                    qv)
+    err = k2_check(got, want, k2_bound(
+        s8.feats, s8.feat_norm, s8.feat_count,
+        qv.to(torch.bfloat16).float()[None])[0], "int8 scan on the store")
+    overlap = []
+    for imgs, t8 in zip(world[2], tops8):
+        t32 = mem32.voxel_localized(imgs, K=len(t8[1]))
+        overlap.append(len(set(map(tuple, t8[1]))
+                           & set(map(tuple, t32[1]))) / max(len(t8[1]), 1))
+    scans = [(f"K2 {c['dtype']}", c) for c in cases if c["kernel"] == "K2"]
+    scans += [(f"K2b Q 1 {c['dtype']}", c) for c in cases
+              if c["kernel"] == "K2b" and c["Q"] == 1]
+    log("int8", f"{nv} voxels, {rows:,} live rows: the int8 ingest equals "
+        f"quantize_store of the f32 store byte for byte (feats) and to the "
+        f"bit (feat_scale, feat_norm); the int8 scan (K2b at Q 1) against "
+        f"its plain version on the store max_abs_err {err:.3g} (the f32 dot "
+        f"bound); top-{len(tops8[0][1])} overlap with the f32 store's "
+        f"{[round(o, 3) for o in overlap]}; single-query scans at the "
+        f"kernel case (ms, bound): " + ", ".join(
+            f"{d} {c['ms']:.4f} / {c['bound_ms']:.4f}" for d, c in scans))
+    return {"live_rows": rows, "k2_int8_err": err, "overlap": overlap}
+
+
+def phase_persist(dev, cfg, seed, mem8):
+    """save_npz then load_npz of an int8 store of 65,378 full voxels
+    (653,780 rows x 1024, 0.67 GB of codes: the kernel case's live size),
+    and of the 32-frame int8 store: every field array-equal, and a query
+    gives the same top-K.  Persistence launches no kernel: the queries
+    that compare the saved store with the loaded one do not count.  Files
+    go to a temporary directory under the repository's build/."""
+    import tempfile
+
+    from bsc_nav_tpu_torch.memory import persistence
+    from bsc_nav_tpu_torch.memory.query import localize
+    from bsc_nav_tpu_torch.memory.store import (
+        VoxelStoreState, init_store, quantize_feat_rows)
+    from bsc_nav_tpu_torch.ops import _build
+
+    m = cfg.memory
+    K, D, G, H = m.cache_size, m.token_dim, m.grid_size, m.num_height_cells
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    st = init_store(m, torch.int8, device=dev)
+    n = PERSIST_ROWS // K
+    rows = n * K
+    qi, qn, sc = quantize_feat_rows(
+        torch.randn(rows, D, generator=gen, device=dev),
+        torch.ones(rows, device=dev))
+    st.feats[:rows], st.feat_norm[:rows], st.feat_scale[:rows] = qi, qn, sc
+    del qi, qn, sc
+    st.feat_dist[:rows] = torch.rand(rows, generator=gen, device=dev)
+    st.feat_count[:n] = K
+    stride = G * G * H // n
+    lin = (torch.arange(n, device=dev) * stride + torch.randint(
+        0, stride, (n,), generator=gen, device=dev))
+    st.slot_pos[:n] = torch.stack([lin // (G * H), (lin // H) % G, lin % H],
+                                  dim=1).to(torch.int32)
+    st.slot_map[lin] = torch.arange(n, dtype=torch.int32, device=dev)
+    st.rgb_sum[:n] = 255 * torch.rand(n, 3, generator=gen, device=dev)
+    st.weight[:n] = torch.rand(n, generator=gen, device=dev)
+    st.cv_map.copy_(torch.randint(0, 256, st.cv_map.shape, generator=gen,
+                                  device=dev).to(torch.uint8))
+    st.max_height.copy_(torch.randint(-1, H, st.max_height.shape,
+                                      generator=gen, device=dev).int())
+    st.num_voxels.fill_(n)
+    st.initialized.fill_(True)
+    q = torch.randn(D, generator=gen, device=dev)
+    fields = VoxelStoreState.__dataclass_fields__
+    out = {"voxels": n, "rows": rows, "feats_gb": rows * D / 1e9}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        path = os.path.join(tmp, "store.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        persistence.save_npz(st, path)
+        out["save_s"] = time.perf_counter() - t0
+        out["file_gb"] = os.path.getsize(path) / 1e9
+        t0 = time.perf_counter()
+        ld = persistence.load_npz(path, m, store_dtype=torch.int8,
+                                  device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        for f in fields:
+            check(torch.equal(getattr(ld, f), getattr(st, f)),
+                  f"persist: {f} differs after the round trip")
+        with uncounted():
+            a, b = (localize(s_, q, top_k=cfg.query.top_k)
+                    for s_ in (st, ld))
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              "persist: the loaded store answers another top-K")
+        del ld
+        # the 32-frame int8 store: its live prefix and full maps round-trip
+        s8 = mem8.state
+        nv = int(s8.num_voxels)
+        path = os.path.join(tmp, "spin.npz")
+        persistence.save_npz(s8, path)
+        ld = persistence.load_npz(path, m, store_dtype=torch.int8,
+                                  device=dev)
+        prefix = {"slot_pos": nv, "feat_count": nv, "rgb_sum": nv,
+                  "weight": nv, "feats": nv * K, "feat_norm": nv * K,
+                  "feat_scale": nv * K, "feat_dist": nv * K}
+        for f in fields:
+            if f in ("feat_sum", "feat_obs"):
+                continue           # size-1 under the dist policy
+            a, b = getattr(ld, f), getattr(s8, f)
+            if f in prefix:
+                a, b = a[:prefix[f]], b[:prefix[f]]
+            check(torch.equal(a, b), f"persist: the spin store's {f}")
+        qv = torch.randn(D, generator=gen, device=dev)
+        with uncounted():
+            a, b = (localize(s_, qv, top_k=cfg.query.top_k)
+                    for s_ in (s8, ld))
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              "persist: the spin store answers another top-K")
+    log("persist", f"int8 store of {n:,} voxels ({rows:,} rows, "
+        f"{out['feats_gb']:.2f} GB of codes): save_npz {out['save_s']:.1f} s "
+        f"({out['file_gb']:.2f} GB compressed), load_npz "
+        f"{out['load_s']:.1f} s; every field array-equal, the same top-"
+        f"{cfg.query.top_k}; the 32-frame int8 store ({nv} voxels) too")
+    del st
     torch.cuda.empty_cache()
-    return result
+    return out
+
+
+def phase_int8_encoder(dev, cfg, vcfg, world, params32):
+    """Perception.create with encoder_int8 (random-init ViT-L, the f32
+    slice's weights quantized): one flush of 8 frames and one query; every
+    block matmul through linear_q8, K1 launches as in f32."""
+    import dataclasses as dc
+
+    from bsc_nav_tpu_torch.agents.spatial_memory import (
+        Perception, VoxelTokenMemory)
+    from bsc_nav_tpu_torch.models import vit
+
+    env, frames, queries = world
+    qcfg = cfg.replace(models=dc.replace(cfg.models, encoder_int8=True))
+    perc = Perception.create(qcfg, vit_params=params32, batch_size=BATCH,
+                             device=dev)
+    check(perc.vit_params.quantized, "encoder_int8: the ViT is not int8")
+    calls = [0]
+    linear_q8 = vit.linear_q8
+
+    def counted(x, p):
+        calls[0] += 1
+        return linear_q8(x, p)
+
+    vit.linear_q8 = counted
+    try:
+        mem = VoxelTokenMemory(qcfg, env, perc)
+        before = counts()
+        t0 = time.perf_counter()
+        for obs, pose in frames[:BATCH]:
+            mem.push_frame(obs, pose)
+        torch.cuda.synchronize()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        check(since(before) == launches(K1=vcfg.depth),
+              f"int8 encoder flush: {fmt(since(before))}")
+        check(calls[0] == 4 * vcfg.depth,
+              f"int8 encoder flush: {calls[0]} linear_q8 calls")
+        before = counts()
+        t0 = time.perf_counter()
+        out = mem.voxel_localized(queries[0], K=cfg.query.top_k)
+        query_ms = (time.perf_counter() - t0) * 1e3
+        check(since(before) == launches(K1=vcfg.depth, K2=1),
+              f"int8 encoder query: {fmt(since(before))}")
+        check(calls[0] == 8 * vcfg.depth,
+              f"int8 encoder query: {calls[0]} linear_q8 calls in all")
+        check(len(out[1]) > 0 and bool(np.isfinite(out[2]).all()),
+              "int8 encoder query: empty or non-finite top-K")
+    finally:
+        vit.linear_q8 = linear_q8
+    return perc, mem, {"flush_ms": flush_ms, "query_ms": query_ms,
+                       "linear_q8_calls": calls[0]}
+
+
+def int8_encoder_checks(dev, cfg, params32, world, res):
+    """The int8 encoder's pooled query token on the card against the same
+    int8 encoder on the CPU (plain versions), from the f32 slice's weights
+    with layer scales of 1: random init has 1e-5, which keeps the blocks'
+    matmuls from reaching the pooled token (as in
+    tests/test_torch_batch_query.py).  The weights are quantized once, on
+    the card, and the CPU runs the same int8 leaves.  The two sides' f32
+    activations differ by sums in other orders, which may flip an
+    activation code at a rounding boundary: the pools are held within
+    2e-3 of their max |value| and to a cosine of 0.9999, the CPU test's
+    bound, and the f32 encoder's pool on the card must lie outside that
+    bound, so that it tells the two paths apart.  The CPU's own
+    quantize_params must give the card's leaves, bit for bit (the weight
+    scales are a true division on both, ``quant.weight_scale``); counted
+    beside it, the scales where the card's ``x / 127.0`` differs from that
+    division."""
+    import dataclasses as dc
+
+    from bsc_nav_tpu_torch.agents.spatial_memory import Perception
+    from bsc_nav_tpu_torch.models import vit
+
+    qcfg = cfg.replace(models=dc.replace(cfg.models, encoder_int8=True))
+    sd = {k: torch.ones_like(v) if k.split(".")[-1] in ("ls1", "ls2")
+          else v for k, v in params32.state_dict().items()}
+    p = vit.ViT(params32.cfg, device=dev)
+    p.load_state_dict(sd)
+    x = torch.from_numpy(world[2][0]).to(dev)
+    perc = Perception.create(qcfg, vit_params=p, device=dev)
+    got = perc.pool_step(perc.vit_params, x).double().cpu()
+    plain = Perception.create(cfg, vit_params=p, device=dev).pool_step(
+        p, x).double().cpu()
+    q8 = {k: v.cpu() for k, v in perc.vit_params.state_dict().items()}
+    amax = p.blocks[0].qkv.w.abs().amax(dim=0).clamp(min=1e-12)
+    n_recip = int((amax / 127.0 != amax / torch.full_like(amax, 127.0)
+                   ).sum())
+    del p, perc
+    torch.cuda.empty_cache()
+    cpu = vit.ViT(params32.cfg, device="cpu", quantized=True)
+    cpu.load_state_dict(q8)
+    want = Perception.create(cfg, vit_params=cpu, device="cpu").pool_step(
+        cpu, x.cpu()).double()
+    p_cpu = vit.ViT(params32.cfg, device="cpu")
+    p_cpu.load_state_dict({k: v.cpu() for k, v in sd.items()})
+    own = vit.quantize_params(p_cpu).state_dict()
+    differ = {t: sum(int((q8[k] != own[k]).sum()) for k in q8
+                     if k.endswith(t)) for t in ("w_q", "w_s")}
+    sizes = {t: sum(q8[k].numel() for k in q8 if k.endswith(t))
+             for t in ("w_q", "w_s")}
+    del cpu, p_cpu, own
+
+    def cos(a, b):
+        return float(a @ b / torch.linalg.norm(a) / torch.linalg.norm(b))
+
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    err_f32 = float((plain - want).abs().max()) / scale
+    c, c_f32 = cos(got, want), cos(plain, want)
+    check(math.isfinite(err) and err <= 2e-3 and c >= 0.9999,
+          f"int8 encoder: card against CPU {err:.3g} of max |value|, "
+          f"cos {c}")
+    check(err_f32 > 2e-3, f"int8 encoder: the f32 pool lies {err_f32:.3g} "
+          "of max |value| from the int8 pool, inside the bound")
+    check(not any(differ.values()), f"int8 encoder: the CPU's quantize_"
+          f"params differs from the card's in {differ} leaf elements")
+    res.update(pooled_err_vs_cpu=err, pooled_cos_vs_cpu=c,
+               f32_pool_err=err_f32, f32_pool_cos=c_f32,
+               cpu_quantize_differs=differ, leaves=sizes,
+               scalar_div_differs=n_recip, scales_tried=amax.numel())
+    log("int8 encoder", f"ViT-L with int8 qkv/proj/fc1/fc2 (linear_q8, "
+        f"{res['linear_q8_calls']} calls): flush of {BATCH} frames "
+        f"{res['flush_ms']:.2f} ms, query ({QUERY_IMAGES} images) "
+        f"{res['query_ms']:.2f} ms; with layer scales 1, the pooled token "
+        f"on the card against the same int8 leaves on the CPU: {err:.3g} "
+        f"of max |value|, cos {c:.8f} (bound 2e-3, 0.9999); the f32 "
+        f"encoder's pool {err_f32:.3g}, cos {c_f32:.8f}; the CPU's own "
+        f"quantize_params gives the card's {sizes['w_q']:,} codes and "
+        f"{sizes['w_s']:,} scales bit for bit; on the card, block 0 qkv's "
+        f"absmax / 127.0 (a Python scalar) differs from that true division "
+        f"in {n_recip} of {amax.numel()} scales")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2203,7 +2775,7 @@ def kernel_cases_only(names, seed) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    run = {"K4": k4_cases,
+    run = {"K2": k2_cases, "K4": k4_cases,
            "K5": lambda d, g, c: long_attention_cases(d, g, c, ("K5",)),
            "K6": lambda d, g, c: long_attention_cases(d, g, c, ("K6",)),
            "K7": layer_norm_cases, "K8": conv_cases}
@@ -2228,8 +2800,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="",
-                    help="only the kernel cases of these kernels (of K4, "
-                    "K5, K6, K7, K8, comma separated): build, check, time, "
+                    help="only the kernel cases of these kernels (of K2, "
+                    "K4, K5, K6, K7, K8, comma separated; K2 includes its "
+                    "Q-query scan): build, check, time, "
                     "print their cases as JSON, and stop -- a measurement "
                     "run, not the smoke")
     args = ap.parse_args(argv)
@@ -2274,14 +2847,57 @@ def main(argv=None) -> int:
     log("slice", f"rendered {N_FRAMES} frames + {N_QUERIES}x{QUERY_IMAGES} "
         f"query views at {cfg.sensor.width}x{cfg.sensor.height} in "
         f"{time.perf_counter() - t0:.1f} s")
-    # each main path runs with the counts set to 0 just before it
-    reset_counts()
-    slices = [phase_slice(dev, dt, cfg, vcfg, world, args.seed)
-              for dt in (torch.float32, torch.bfloat16)]
-    spine = counts()
+    # each main path runs with the counts set to 0 just before it and is
+    # read just after: the spine (slice f32, bf16), batched queries on
+    # each slice's store, the int8 store and persistence, the int8 encoder
+    spine = batch_path = launches()
+    slices, batches = [], []
+    for dt in (torch.float32, torch.bfloat16):
+        reset_counts()
+        result, mem = phase_slice(dev, dt, cfg, vcfg, world, args.seed)
+        spine = add(spine, counts())
+        slices.append(result)
+        reset_counts()
+        batches.append(phase_batch(dev, mem, cfg, vcfg, world))
+        batch_path = add(batch_path, counts())
+        if dt == torch.float32:
+            reset_counts()
+            mem8, tops8, flush8, query8 = phase_int8(dev, mem, cfg, vcfg,
+                                                     world)
+            int8_path = counts()
+            with uncounted():
+                int8 = int8_checks(mem8, mem, tops8, world, cases)
+            int8.update(flush_ms=flush8, query_ms=query8)
+            params32 = mem.perception.vit_params
+        del mem
+        torch.cuda.empty_cache()
     log("slice", f"launches on the memory spine: {fmt(spine)}")
     check(spine[0] > 0 and spine[1] > 0 and not any(spine[2:]),
           f"memory spine launches {fmt(spine)}")
+    # per store: the sweep (1 prompt, 1 launch), 16 goals (1) and Q 17 (2)
+    log("batch", f"launches on the batched-query path: {fmt(batch_path)}")
+    check(batch_path == launches(K1=2 * 34 * vcfg.depth, K2b=8),
+          f"batched-query launches {fmt(batch_path)}")
+    log("int8", f"launches on the int8-store path: {fmt(int8_path)}")
+    check(int8_path == launches(K1=(N_FRAMES // BATCH + N_QUERIES)
+                                * vcfg.depth, K2b=N_QUERIES),
+          f"int8-store launches {fmt(int8_path)}")
+    reset_counts()
+    persist = phase_persist(dev, cfg, args.seed, mem8)
+    persist_path = counts()
+    del mem8
+    check(persist_path == launches(),
+          f"persist launches {fmt(persist_path)} (want none)")
+    reset_counts()
+    perc8, mem8e, enc = phase_int8_encoder(dev, cfg, vcfg, world, params32)
+    enc_path = counts()
+    log("int8 encoder", f"launches on the path: {fmt(enc_path)}")
+    check(enc_path == launches(K1=2 * vcfg.depth, K2=1),
+          f"int8 encoder launches {fmt(enc_path)}")
+    with uncounted():
+        enc = int8_encoder_checks(dev, cfg, params32, world, enc)
+    del perc8, mem8e, params32
+    torch.cuda.empty_cache()
     parity_err = phase_parity(dev, args.seed)
 
     reset_counts()
@@ -2317,8 +2933,9 @@ def main(argv=None) -> int:
                    if m.split(".")[0] in ("jax", "jaxlib", "bsc_nav_tpu"))
     check(not stray, f"imported {stray[:5]}")
 
-    paths = {"spine": spine, "clip": clip_path, "yolo": yolo_path,
-             **textq_paths}
+    paths = {"spine": spine, "batch": batch_path, "int8": int8_path,
+             "persist": persist_path, "int8-encoder": enc_path,
+             "clip": clip_path, "yolo": yolo_path, **textq_paths}
 
     def main_case(kernel, dtype="float32", **match):
         match = match or {"B": 8}
@@ -2351,7 +2968,15 @@ def main(argv=None) -> int:
               "bsc_nav_tpu/ops/flash_attention.py:422", 0, main_case("K1"),
               **tiles),
         entry("max_cosine_per_voxel", "max_cosine.cu",
-              "bsc_nav_tpu/ops/similarity.py:56", 1, main_case("K2")),
+              "bsc_nav_tpu/ops/similarity.py:56", 1, main_case("K2"),
+              bfloat16=main_case("K2", "bfloat16"),
+              int8="the Q-query kernel at Q 1 (max_cosine_per_voxel_batch)"),
+        entry("max_cosine_per_voxel_batch", "max_cosine.cu",
+              "bsc_nav_tpu/ops/similarity.py:121 (XLA einsum in the JAX "
+              "package; no pallas_call)", 8, main_case("K2b", Q=16),
+              by_dtype={d: [main_case("K2b", d, Q=Q) for Q in (1, 3, 16)]
+                        for d in ("float32", "bfloat16", "int8")},
+              library="GEMM + mask + max"),
         entry("short_attention", "short_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:364", 2,
               main_case("K3", case="vision"),
@@ -2389,7 +3014,9 @@ def main(argv=None) -> int:
                                   for n in ("f32", "int8-neck")},
               dispatched="YOLO-World's f32 3x3 stride-1 convs "
                          "(models/yolo_world.conv_bn_act)"),
-    ], "slices": slices, "slice_parity_max_err": parity_err, "clip": clip,
+    ], "slices": slices, "batch": batches, "int8": int8,
+        "persist": persist, "int8_encoder": enc,
+        "slice_parity_max_err": parity_err, "clip": clip,
         "clip_parity": clip_parity, "yolo": yolo, "yolo_parity": yolo_parity,
         "textq": textq,
         "textq_parity": textq_parity}), flush=True)

@@ -18,6 +18,7 @@ from bsc_nav_tpu.env.fake import BoxScene as JBoxScene
 from bsc_nav_tpu.env.fake import FakeNavEnv as JFakeNavEnv
 from bsc_nav_tpu.env.pathfinding import AgentState as JAgentState
 from bsc_nav_tpu.env.pathfinding import Quat as JQuat
+from bsc_nav_tpu.memory import floors as jfloors
 from bsc_nav_tpu.models import sentencepiece as jsp
 from bsc_nav_tpu.models import tokenizer as jtok
 from bsc_nav_tpu.models.detector import (
@@ -27,6 +28,7 @@ from bsc_nav_tpu_torch.agents.matchers import ColorViewScorer
 from bsc_nav_tpu_torch.agents.spatial_memory import Perception
 from bsc_nav_tpu_torch.env.fake import BoxScene, FakeNavEnv
 from bsc_nav_tpu_torch.env.pathfinding import AgentState, Quat
+from bsc_nav_tpu_torch.memory import floors as tfloors
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import sentencepiece as tsp
 from bsc_nav_tpu_torch.models import tokenizer as ttok
@@ -56,6 +58,89 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
     assert int(n) >= 25 and bad.strip() == "[]", out.stdout
+
+
+def test_port_imports_without_sklearn_or_h5py():
+    """The card machine has neither: every module of the port imports with
+    both blocked, and the floors copy and the npz snapshot still run."""
+    code = (
+        "import sys\n"
+        "sys.modules['sklearn'] = None\n"
+        "sys.modules['h5py'] = None\n"
+        "import importlib, pkgutil, tempfile, os\n"
+        "import bsc_nav_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, 'bsc_nav_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from bsc_nav_tpu_torch.config import small_test_config\n"
+        "from bsc_nav_tpu_torch.memory import floors, persistence, store\n"
+        "print(floors.detect_floors([0.0, 0.1, 3.0, 3.1, 3.05]))\n"
+        "cfg = small_test_config().memory\n"
+        "s = store.init_store(cfg, device='cpu')\n"
+        "p = os.path.join(tempfile.mkdtemp(), 's.npz')\n"
+        "persistence.save_npz(s, p)\n"
+        "persistence.load_npz(p, cfg, device='cpu')\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+def _height_sets():
+    """Seeded base-height samples: one to four floors with jitter, noise
+    points, heights exactly eps apart (ties, on both of sklearn's
+    neighbour algorithms: brute force up to 11 points, a KD tree beyond),
+    a border point within eps of two clusters' cores, and fewer than 5
+    samples."""
+    rng = np.random.default_rng(0)
+    sets = []
+    for n_floors in (1, 2, 3, 4):
+        for n in (6, 11, 12, 25, 60):
+            floors = np.sort(rng.choice(np.arange(-3.0, 9.0, 2.6), n_floors,
+                                        replace=False))
+            h = rng.choice(floors, n) + rng.normal(0, 0.08, n)
+            h[: max(1, n // 10)] = rng.uniform(-4, 10, max(1, n // 10))
+            sets.append(h)
+    for base in (0.0, 0.3, 1.7, -2.2):
+        step = 0.4
+        sets.append(base + step * np.arange(8))            # brute, chained
+        sets.append(base + step * np.arange(15))           # KD tree
+        sets.append(np.r_[base + np.zeros(6), base + step, base + 2 * step
+                          + np.zeros(6)])                  # border at eps
+        sets.append(np.r_[np.full(7, base), base + 0.4, base + 0.8,
+                          np.full(7, base + 1.2)])
+    sets += [np.array([1.0]), np.array([0.0, 0.4]), np.array([0.0, 0.5]),
+             np.array([2.0, 2.1, 5.0, 5.39]), np.array([])]
+    sets.append(np.r_[np.zeros(10), np.full(10, 0.79), [0.4]])
+    # 0.0 is a border point (3 neighbours of 4 needed) within eps of a
+    # core of each of two clusters: it joins the one expanded first
+    a, b = np.r_[np.full(10, -0.5), -0.3], np.r_[np.full(10, 0.5), 0.3]
+    sets += [np.r_[a, b, 0.0], np.r_[b, a, 0.0], np.r_[0.0, b, a]]
+    return sets
+
+
+def test_floors_copy_matches_jax():
+    """The numpy DBSCAN of the floors copy gives sklearn's labels (the JAX
+    module's), so equal floor heights and ranges, on every height set."""
+    from sklearn.cluster import DBSCAN
+    for i, h in enumerate(_height_sets()):
+        h = list(map(float, h))
+        if h:
+            arr = np.asarray(h).reshape(-1, 1)
+            want = DBSCAN(eps=0.4, min_samples=max(1, len(h) // 5)).fit(
+                arr).labels_
+            np.testing.assert_array_equal(
+                tfloors.dbscan_1d(h, 0.4, max(1, len(h) // 5)), want,
+                err_msg=f"set {i}")
+        assert tfloors.detect_floors(h) == jfloors.detect_floors(h), i
+        occ = np.random.default_rng(i).integers(0, 90, size=200)
+        for agent_h in (-1.0, 0.05, 3.0, 7.5):
+            assert tfloors.current_floor_range(h, agent_h, occ, 0.1) == \
+                jfloors.current_floor_range(h, agent_h, occ, 0.1), (i, agent_h)
+    assert tfloors.floor_ranges([0.0, 3.0, 6.0], (2, 80), 0.1) == \
+        jfloors.floor_ranges([0.0, 3.0, 6.0], (2, 80), 0.1)
+    assert tfloors.current_floor_range([], 1.0, np.array([]), 0.1) == \
+        jfloors.current_floor_range([], 1.0, np.array([]), 0.1)
 
 
 @pytest.mark.parametrize("make", ["Config", "small_test_config"])

@@ -23,6 +23,7 @@ import torch
 
 from bsc_nav_tpu_torch.config import small_test_config
 from bsc_nav_tpu_torch.memory import pipeline as tpipe
+from bsc_nav_tpu_torch.memory import store as tstore
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import vit as tv
 from bsc_nav_tpu_torch.ops import _build
@@ -123,8 +124,13 @@ def test_cpu_tensors_take_the_plain_versions():
                                tfa.short_attention_qkv_reference(qkv, 2))
     store = _store(5, 3, 8)
     n2 = tsim.max_cosine_per_voxel.launches
+    n2b = tsim.max_cosine_per_voxel_batch.launches
     torch.testing.assert_close(tsim.max_cosine_per_voxel(*store),
                                tsim.reference_max_cosine(*store))
+    qs = torch.stack([store[3]] * 17)
+    torch.testing.assert_close(
+        tsim.max_cosine_per_voxel_batch(*store[:3], qs),
+        tsim.reference_max_cosine_batch(*store[:3], qs))
     q, k, v = _qkv(2, 9, 2, 16).reshape(2, 9, 3, 2, 16).unbind(2)
     n3 = tfa.short_attention.launches
     torch.testing.assert_close(tfa.short_attention(q, k, v, causal=True),
@@ -153,6 +159,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                tconv.conv3x3_s1_reference(x, w, w[0, 0]))
     assert tfa.short_attention_qkv.launches == n1
     assert tsim.max_cosine_per_voxel.launches == n2
+    assert tsim.max_cosine_per_voxel_batch.launches == n2b
     assert tfa.short_attention.launches == n3
     assert tfa.joint_qkv_attention.launches == n4
     assert tfa.joint_qk_norm.launches == n4n
@@ -386,6 +393,90 @@ def test_k2_matches_plain(cuda, V1, K, D, dtype):
     want = tsim.reference_max_cosine(f, n, c, q)
     torch.cuda.synchronize()
     _check_sims(got, want, 2e-5)
+
+
+def _int8_store(V1, K, D, seed):
+    """``_store``'s rows as an int8 store: per-row absmax codes and the
+    int8 rows' norms (``quantize_feat_rows``)."""
+    f, n, c, q = _store(V1, K, D, seed=seed)
+    qi, qn, _ = tstore.quantize_feat_rows(f, n)
+    return qi, qn, c, q
+
+
+def _scan_store(dtype, V1, K, D, seed, dev):
+    if dtype == torch.int8:
+        store = _int8_store(V1, K, D, seed)
+    else:
+        store = _store(V1, K, D, seed=seed)
+        store[0] = store[0].to(dtype)
+    return [t.to(dev) for t in store]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V1,K,D", [(1001, 10, 1024), (37, 4, 32),
+                                    (8, 3, 16)])
+def test_k2_int8_matches_plain(cuda, V1, K, D):
+    """int8 codes widened exactly, the query rounded to bf16 on both
+    sides, every product exact in f32; the dots summed in another order:
+    2e-5 abs.  The card takes the Q-query kernel at Q = 1: one launch of
+    it, none of K2's single-query kernel."""
+    f, n, c, q = _scan_store(torch.int8, V1, K, D, 6, cuda)
+    before = (tsim.max_cosine_per_voxel.launches,
+              tsim.max_cosine_per_voxel_batch.launches)
+    got = tsim.max_cosine_per_voxel(f, n, c, q)
+    assert (tsim.max_cosine_per_voxel.launches,
+            tsim.max_cosine_per_voxel_batch.launches) == (before[0],
+                                                           before[1] + 1)
+    want = tsim.reference_max_cosine(f, n, c, q)
+    torch.cuda.synchronize()
+    _check_sims(got, want, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("Q", [1, 3, 16, 17])
+@pytest.mark.parametrize("V1,K,D", [(1001, 10, 1024), (37, 4, 32)])
+def test_k2_batch_matches_plain(cuda, V1, K, D, Q, dtype):
+    """The Q-query scan against its plain version, the GEMM composition,
+    on the same rows and the same queries rounded to the store dtype:
+    f32 dots summed in another order, 2e-5 abs; one launch per 16
+    queries."""
+    f, n, c, _ = _scan_store(dtype, V1, K, D, Q, cuda)
+    rng = np.random.default_rng(Q)
+    qs = rng.normal(size=(Q, D)).astype(np.float32)
+    qs = torch.from_numpy(qs / np.linalg.norm(qs, axis=1,
+                                              keepdims=True)).to(cuda)
+    before = tsim.max_cosine_per_voxel_batch.launches
+    got = tsim.max_cosine_per_voxel_batch(f, n, c, qs)
+    assert tsim.max_cosine_per_voxel_batch.launches == before + -(-Q // 16)
+    want = tsim.reference_max_cosine_batch(f, n, c, qs)
+    torch.cuda.synchronize()
+    assert got.shape == (Q, V1)
+    _check_sims(got, want, 2e-5)
+
+
+@pytest.mark.cuda
+def test_k2_batch_refuses_what_it_does_not_take(cuda):
+    f, n, c, q = _scan_store(torch.float32, 8, 2, 32, 0, cuda)
+    qs = torch.stack([q, q])
+    with pytest.raises(ValueError, match="aligned"):
+        tsim.max_cosine_per_voxel_batch(
+            torch.zeros(1 + f.numel(), device=cuda)[1:].view(f.shape),
+            n, c, qs)
+    with pytest.raises(ValueError, match="aligned"):
+        tsim.max_cosine_per_voxel_batch(
+            torch.zeros(1 + f.numel(), dtype=torch.int8,
+                        device=cuda)[1:].view(f.shape), n, c, qs)
+    with pytest.raises(ValueError, match="D = 8"):
+        tsim.max_cosine_per_voxel_batch(
+            torch.zeros(16, 8, dtype=torch.int8, device=cuda), n, c,
+            qs[:, :8].contiguous())
+    with pytest.raises(ValueError, match="Q >= 1"):
+        tsim.max_cosine_per_voxel_batch(f, n, c, qs[:0])
+    with pytest.raises(ValueError, match="contiguous"):
+        tsim.max_cosine_per_voxel_batch(f, n, c, torch.zeros(
+            32, 2, device=cuda).T)
 
 
 @pytest.mark.cuda
@@ -942,9 +1033,16 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
             torch.ones(8, device=cuda),
             torch.ones(4, dtype=torch.int32, device=cuda),
             torch.ones(16, device=cuda))
-    with pytest.raises(NotImplementedError, match="int8"):
+    # int8 rows take the Q-query kernel at Q = 1: zero codes score 0
+    out = tsim.max_cosine_per_voxel(
+        torch.zeros(8, 16, dtype=torch.int8, device=cuda),
+        torch.ones(8, device=cuda),
+        torch.ones(4, dtype=torch.int32, device=cuda),
+        torch.ones(16, device=cuda))
+    assert torch.equal(out.cpu(), torch.zeros(4))
+    with pytest.raises(NotImplementedError, match="float16"):
         tsim.max_cosine_per_voxel(
-            torch.zeros(8, 16, dtype=torch.int8, device=cuda),
+            torch.zeros(8, 16, dtype=torch.float16, device=cuda),
             torch.ones(8, device=cuda),
             torch.ones(4, dtype=torch.int32, device=cuda),
             torch.ones(16, device=cuda))
@@ -1073,3 +1171,20 @@ def test_conv_q8_on_the_card_equals_the_cpu(cuda, k, stride):
                      stride)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 3072), (3, 3, 64, 80)])
+def test_weight_quantize_on_the_card_equals_the_cpu(cuda, shape):
+    """quantize_weight / quantize_conv_weight on the card give the CPU's
+    leaves bit for bit: the scale is a true division on both
+    (``quant.weight_scale``), where a CUDA division by the Python scalar
+    127.0 is a product with its reciprocal."""
+    from bsc_nav_tpu_torch.ops import quant as tq
+    fn = tq.quantize_weight if len(shape) == 2 else tq.quantize_conv_weight
+    rng = np.random.default_rng(len(shape))
+    w = torch.from_numpy((rng.normal(size=shape) * 0.02).astype(np.float32))
+    want = fn({"w": w})
+    got = fn({"w": w.to(cuda)})
+    for k in ("w_q", "w_s"):
+        assert torch.equal(got[k].cpu(), want[k]), k

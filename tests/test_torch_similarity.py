@@ -141,3 +141,83 @@ def test_bf16_bound_catches_a_fault(fault):
         bad_fb, *map(torch.from_numpy, (norms, bad_counts, q))).numpy()
     with pytest.raises(AssertionError, match="outside the f32 dot bound"):
         _check(got, want, fb.float().numpy(), norms, counts, q)
+
+
+def _int8_rows(feats, norms):
+    """JAX's int8 store rows of ``feats``: per-row absmax codes and the
+    int8-row norms (``quantize_feat_rows``)."""
+    from bsc_nav_tpu.memory.store import quantize_feat_rows
+    qi, qn, _ = quantize_feat_rows(jnp.asarray(feats), jnp.asarray(norms))
+    return np.array(qi), np.array(qn)
+
+
+def test_int8_rows_match_jax_reference():
+    """int8 rows (widened exactly) dotted with the query rounded to bf16,
+    as JAX's int8 einsum takes them: the f32 dot bound on the codes and
+    the rounded query."""
+    feats, norms, counts, q = _store(53, 10, 64, seed=4)
+    qi, qn = _int8_rows(feats, norms)
+    want = np.asarray(jsim.reference_max_cosine(
+        *map(jnp.asarray, (qi, qn, counts, q))))
+    got = tsim.max_cosine_per_voxel(
+        *map(torch.from_numpy, (qi, qn, counts, q))).numpy()
+    qb = torch.from_numpy(q).to(torch.bfloat16).float().numpy()
+    _check(got, want, qi.astype(np.float32), qn, counts, qb)
+    # the query is rounded: an f32 query misses the bound somewhere
+    f32q = tsim._per_voxel_max(torch.from_numpy(qi).float()
+                               @ torch.from_numpy(q), torch.from_numpy(qn),
+                               torch.from_numpy(counts)).numpy()
+    with pytest.raises(AssertionError, match="outside the f32 dot bound"):
+        _check(f32q, want, qi.astype(np.float32), qn, counts, qb)
+
+
+def _batch_case(dtype, Q, seed):
+    """(port rows, numpy rows as the kernel reads them, norms, counts, qs,
+    qs rounded as JAX's batch rounds them, JAX's [Q, V1] result)."""
+    feats, norms, counts, _ = _store(61, 10, 96, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    qs = rng.normal(size=(Q, 96)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    if dtype == "int8":
+        qi, norms = _int8_rows(feats, norms)
+        rows, jrows = torch.from_numpy(qi), jnp.asarray(qi)
+    elif dtype == "bfloat16":
+        rows = torch.from_numpy(feats).to(torch.bfloat16)
+        jrows = jnp.asarray(rows.float().numpy()).astype(jnp.bfloat16)
+    else:
+        rows, jrows = torch.from_numpy(feats), jnp.asarray(feats)
+    want = np.asarray(jsim.max_cosine_per_voxel_batch(
+        jrows, *map(jnp.asarray, (norms, counts, qs))))
+    qdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    qr = torch.from_numpy(qs).to(qdt).float().numpy()
+    return rows, rows.float().numpy(), norms, counts, qs, qr, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("Q", [1, 3, 17])
+def test_batch_scan_matches_jax(dtype, Q):
+    """The Q-query scan's plain version (the GEMM composition) against JAX
+    ``max_cosine_per_voxel_batch``: queries rounded to the store dtype
+    (bf16 for int8 rows) on both sides, each query's row of the result
+    within the f32 dot bound on the rounded query."""
+    rows, rows_f, norms, counts, qs, qr, want = _batch_case(dtype, Q, Q)
+    got = tsim.max_cosine_per_voxel_batch(
+        rows, *map(torch.from_numpy, (norms, counts, qs))).numpy()
+    assert got.shape == want.shape == (Q, counts.shape[0])
+    for j in range(Q):
+        _check(got[j], want[j], rows_f, norms, counts, qr[j])
+
+
+def test_batch_rounds_its_queries_where_the_single_scan_does_not():
+    """On bf16 rows the single-query scan keeps an f32 query (the TPU
+    kernel's, ``test_bf16_rows_match_pallas_interpret``), the Q-query scan
+    rounds it to bf16 (the JAX batch einsum's): each holds its own JAX
+    counterpart, and the two differ past the bound."""
+    rows, rows_f, norms, counts, qs, qr, want = _batch_case("bfloat16", 1, 5)
+    batch = tsim.max_cosine_per_voxel_batch(
+        rows, *map(torch.from_numpy, (norms, counts, qs))).numpy()
+    _check(batch[0], want[0], rows_f, norms, counts, qr[0])
+    single = tsim.max_cosine_per_voxel(
+        rows, *map(torch.from_numpy, (norms, counts, qs[0]))).numpy()
+    with pytest.raises(AssertionError, match="outside the f32 dot bound"):
+        _check(single, want[0], rows_f, norms, counts, qr[0])

@@ -1,9 +1,10 @@
 // Tensor-core building blocks of the bf16 kernels of K1, K3, K4, K5 and K6
-// (attention_mma.cuh, attention_tma.cuh) and K8 (conv3x3_s1.cu):
+// (attention_mma.cuh, attention_tma.cuh), K8 (conv3x3_s1.cu) and K2b
+// (max_cosine.cu):
 // asynchronous global -> shared copies that zero-fill what lies outside a
 // tensor (cp.async, and TMA's cp.async.bulk.tensor), mbarriers, named
 // barriers and setmaxnreg for warp-specialized blocks, ldmatrix fragment
-// loads, the warp-level bf16 product mma.sync m16n8k16 (K8), the
+// loads, the warp-level bf16 product mma.sync m16n8k16 (K8, K2b), the
 // warpgroup product wgmma with its shared-memory descriptors and fences,
 // all with f32 accumulators, and the MUFU exp2.
 //
@@ -21,8 +22,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Launches of each tensor-core kernel, counted on the host by the launcher
-// that made them (a launch the runtime refused is not counted); one array
+// Launches of each tensor-core kernel, and of K2b's f32 kernel on the CUDA
+// cores, counted on the host by the launcher that made them (a launch the
+// runtime refused is not counted); one array
 // for the library, defined in conv3x3_s1.cu with its length
 // (bsc_tile_kinds).  chip_smoke.py reads it to check which kernel each call
 // took.
@@ -32,6 +34,8 @@ enum TileKind {
   kTileConvMma,     // conv3x3_s1_mma_kernel
   kTileConvTf32,    // conv3x3_s1_tf32_kernel
   kTileAttnTma,     // attention_tma_kernel (attention_tma.cuh)
+  kTileScanMma,     // max_cosine_mma_kernel (max_cosine.cu): K2b, bf16 / int8
+  kTileScanCuda,    // max_cosine_batch_kernel (max_cosine.cu): K2b, f32
   kTileKinds
 };
 extern "C" long long bsc_tile_launches[kTileKinds];

@@ -30,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _lib: Optional[ctypes.CDLL] = None
+# source name -> ptxas -v's report of its kernels, from a verbose build
+ptxas_log: dict = {}
 
 
 def sources() -> list:
@@ -75,7 +77,8 @@ def build(verbose: bool = False) -> Path:
                 lambda so: _run([nvcc, *flags, "-c", "-o", so[1], str(so[0])]),
                 zip(srcs, objs)))
         if verbose:
-            for p in procs:
+            for src, p in zip(srcs, procs):
+                ptxas_log[src.name] = p.stderr
                 if p.stderr:
                     print(p.stderr)
         lib = str(Path(tmp, LIB_PATH.name))

@@ -26,7 +26,8 @@ from bsc_nav_tpu_torch.ops import _build
 # the Q-query kernel's dtype codes; values per 16-byte load
 _DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8), torch.int8: (2, 16)}
 BATCH_QUERIES = 16      # queries one launch of the Q-query kernel holds
-_BATCH_MAX_D = 3584     # 16 x D f32 + 2 KB of scratch in 227 KB of smem
+_BATCH_MAX_D = 3584     # f32 rows: 16 x D f32 + 2 KB of scratch in 227 KB
+                        # of smem (bf16 and int8 rows: 16 x D bf16)
 
 
 def masked_norms(norms_flat, counts, K: int):
@@ -148,7 +149,9 @@ def max_cosine_per_voxel_batch(feats, norms, counts, qs):
     A CPU tensor takes ``reference_max_cosine_batch``.  A CUDA tensor
     launches the Q-query kernel once per ``BATCH_QUERIES`` queries on the
     current stream without synchronising (each launch counted), or
-    raises."""
+    raises: bf16 and int8 rows on the tensor cores (bf16 products, exact;
+    f32 sums in the order of ``mma.sync``'s k16 steps), f32 rows on the
+    CUDA cores (``csrc/max_cosine.cu``)."""
     if feats.device.type == "cpu":
         return reference_max_cosine_batch(feats, norms, counts, qs)
     if feats.device.type != "cuda":

@@ -13,10 +13,15 @@ non-zero):
   kernels       K1-K8 and K2b (K2's Q-query scan) against their plain
                 PyTorch versions on the card, at
                 the main paths' shapes (K2 on f32 and bf16 rows; K2b at
-                Q 1, 3, 16 on f32, bf16 and int8 rows, beside the GEMM
-                composition: a single query on int8 rows is K2b at Q 1;
-                its bound at the card's rate for the products' type, the
-                CUDA cores' f32 FMA time beside it), with
+                Q 1, 3, 16 on f32, bf16 and int8 rows and at Q 16 on a
+                store with the spine's share of live voxels, beside the
+                GEMM composition: a single query on int8 rows is K2b at
+                Q 1; its bound at the card's rate for the products' type,
+                the CUDA cores' f32 FMA time beside it; the kernel each
+                launch took -- max_cosine_mma_kernel on the tensor cores
+                for bf16 and int8 rows, max_cosine_batch_kernel for f32 --
+                and ptxas's registers and spills of the tensor-core
+                instances), with
                 both times (CUDA events, median
                 of 20 runs), the bound reckoned from each case's bytes and
                 operations (f32 products at a third of the TF32 rate, three
@@ -197,6 +202,7 @@ TF32_FLOPS, HBM_BYTES_PER_S = 495e12, 3.35e12
 PEAK_FLOPS = {torch.float32: TF32_FLOPS / 3, torch.bfloat16: 989e12}
 F32_CUDA_CORE_FLOPS = 67e12     # f32 FMAs outside the tensor cores
 K2_STORE = (131_080, 10, 1024)  # the default store: V1, K, D
+SPINE_LIVE_VOXELS = 9_708 / 131_080   # the spine's store after 32 frames
 PERSIST_ROWS = 653_780          # K2's kernel case's live rows
 
 
@@ -328,16 +334,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# the tensor-core kernels, in the order of csrc/mma_bf16.cuh's TileKind
+# the counted kernels, in the order of csrc/mma_bf16.cuh's TileKind: the
+# tensor-core tiles, then K2b's two kernels (tensor cores: bf16 and int8
+# rows; CUDA cores: f32 rows)
 TILES = ("attention_wgmma_kernel", "attention_tf32_kernel",
          "conv3x3_s1_mma_kernel", "conv3x3_s1_tf32_kernel",
-         "attention_tma_kernel")
+         "attention_tma_kernel", "max_cosine_mma_kernel",
+         "max_cosine_batch_kernel")
+K2B_KERNEL = {torch.float32: "max_cosine_batch_kernel",
+              torch.bfloat16: "max_cosine_mma_kernel",
+              torch.int8: "max_cosine_mma_kernel"}
 
 
 def tile_kinds() -> int:
     """How many of TILES the built library counts (``bsc_tile_kinds``): a
-    library built before the last tile was added counts the first four,
-    so that this script also times such a build."""
+    library built before the later kernels were added counts fewer (the
+    first four where it has no ``bsc_tile_kinds``), so that this script
+    also times such a build."""
     import ctypes
 
     from bsc_nav_tpu_torch.ops import _build
@@ -363,11 +376,11 @@ def tile_launches() -> tuple:
 def check_tile(fn, tag: str, tile: str, what: str) -> int:
     """fn() runs once: every launch that the wrapper ``tag`` (K1
     "short_attention_qkv", K3 "short_attention", K4 "joint_qkv_attention",
-    K5 "mid_attention", K6 "flash_attention", K8 "conv3x3_s1") counted in
-    that call, at least
-    one, took ``tile``, and no other kernel of its kind (attention or
-    conv) ran, by the launchers' own counts (``tile_launches``).  Returns
-    how many there were."""
+    K5 "mid_attention", K6 "flash_attention", K8 "conv3x3_s1", K2b
+    "max_cosine_per_voxel_batch") counted in that call, at least
+    one, took ``tile``, and no other kernel of its kind (attention, conv
+    or the scan) ran, by the launchers' own counts (``tile_launches``).
+    Returns how many there were."""
     i = [f.__name__ for f in wrappers()].index(tag)
     before, tiles = counts(), tile_launches()
     fn()
@@ -444,12 +457,89 @@ def gemm_scan(f, norms, cnt, qs):
     return _per_voxel_max(dots, norms, cnt)
 
 
+def k2b_case(f, n, cnt, qq, dtype, store="random counts") -> dict:
+    """K2b on rows f (the store dtype ``dtype``) and queries qq [Q, D]:
+    the kernel each launch took (``K2B_KERNEL``), the result within the f32
+    dot bound of its plain version with the same -inf pattern, and the
+    kernel, plain and GEMM-composition times beside the bound."""
+    from bsc_nav_tpu_torch.ops import similarity as sim
+
+    Q, name = qq.shape[0], str(dtype)[6:]
+    what = f"K2b {name} Q {Q} ({store})"
+    check_tile(lambda: sim.max_cosine_per_voxel_batch(f, n, cnt, qq),
+               "max_cosine_per_voxel_batch", K2B_KERNEL[dtype], what)
+    # the queries as K2b holds them: rounded to the store dtype, bf16 for
+    # int8 rows; an int8 or bf16 row times a bf16 query is exact in f32,
+    # the bf16 tensor cores' product
+    qdt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    got = sim.max_cosine_per_voxel_batch(f, n, cnt, qq)
+    want = sim.reference_max_cosine_batch(f, n, cnt, qq)
+    err = k2_check(got, want, k2_bound(f, n, cnt, qq.to(qdt)), what)
+    ms = cuda_ms(lambda: sim.max_cosine_per_voxel_batch(f, n, cnt, qq))
+    plain = cuda_ms(lambda: sim.reference_max_cosine_batch(f, n, cnt, qq))
+    lib = cuda_ms(lambda: gemm_scan(f, n, cnt, qq))
+    # bytes: live rows and norms, counts, queries, [Q, V1] out; operations:
+    # 2 Q D a live row at the card's rate for the products' type (f32:
+    # three TF32 products; bf16 and int8 rows: bf16); beside it the same
+    # operations on the CUDA cores' f32 FMAs, the limit of the f32 kernel
+    live, V1, D = int(cnt.sum()), cnt.shape[0], f.shape[1]
+    flops = 2.0 * D * Q * live
+    b_ms, b_by = bound(flops, live * (D * f.element_size() + 4)
+                       + nbytes(cnt, qq, got), qdt)
+    t_fma = flops / F32_CUDA_CORE_FLOPS * 1e3
+    live_vox = int((cnt > 0).sum())
+    log("kernels", f"K2-batch max_cosine_per_voxel_batch {name} Q={Q} "
+        f"{store} ({live_vox:,} of {V1:,} voxels, {live:,} rows live) on "
+        f"{K2B_KERNEL[dtype]}: max_abs_err {err:.3g} (tol: the f32 dot "
+        f"bound) kernel {ms:.4f} ms ({ms / Q:.4f} a query; {b_ms / ms:.3f} "
+        f"of the bound) plain {plain:.4f} ms GEMM composition {lib:.4f} ms "
+        f"bound {b_ms:.4f} ms ({b_by}); the CUDA cores' f32 FMAs "
+        f"{t_fma:.4f} ms")
+    return {"kernel": "K2b", "dtype": name, "Q": Q, "store": store,
+            "device_kernel": K2B_KERNEL[dtype], "live_voxels": live_vox,
+            "live_rows": live, "max_abs_err": err,
+            "tol": "f32 dot bound", "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "cuda_core_fma_ms": t_fma, "library_ms": lib,
+            "library": "GEMM + mask + max (torch.mm in the store dtype; "
+                       "int8 via a bf16 copy)"}
+
+
+def ptxas_usage(source: str, kernel: str) -> dict:
+    """{mangled name: {registers, stack_frame, spill_stores, spill_loads}}
+    (bytes) of the
+    kernels whose names contain ``kernel``, from ptxas -v on ``source`` in
+    this process's build (empty when the library was already built)."""
+    from bsc_nav_tpu_torch.ops import _build
+    out, name = {}, None
+    for line in _build.ptxas_log.get(source, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(stack_frame=int(m[1]),
+                                            spill_stores=int(m[2]),
+                                            spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m[1])
+    return out
+
+
 def k2_cases(dev, gen, cases):
     """K2 at the default store (V1 131,080 x 10 x 1024, random counts) on
     f32 and bf16 rows, then the Q-query scan K2b at Q 1, 3 and 16 on f32,
     bf16 and int8 rows (the int8 store by quantize_feat_rows; a single
-    query on int8 rows is K2b at Q 1), against its plain version and the
-    GEMM composition."""
+    query on int8 rows is K2b at Q 1) and at Q 16 on the same rows with
+    the spine's share of live voxels, each against its plain version and
+    the GEMM composition (``k2b_case``); first ptxas's registers and
+    spills of max_cosine.cu's kernels."""
     from bsc_nav_tpu_torch.memory.store import quantize_feat_rows
     from bsc_nav_tpu_torch.ops import similarity as sim
 
@@ -463,6 +553,13 @@ def k2_cases(dev, gen, cases):
     qs = torch.randn(16, D, generator=gen, device=dev)
     qs = qs / torch.linalg.norm(qs, dim=1, keepdim=True)
     live = int(cnt.sum())
+    # the spine's share of live voxels, each with 1..K rows
+    sparse = torch.where(
+        torch.rand(V1, generator=gen, device=dev) < SPINE_LIVE_VOXELS,
+        torch.randint(1, K + 1, (V1,), generator=gen, device=dev,
+                      dtype=torch.int32), 0).to(torch.int32)
+    for inst, use in ptxas_usage("max_cosine.cu", "max_cosine_").items():
+        log("kernels", f"K2/K2b ptxas {inst}: {use}")
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         if dtype == torch.int8:
             f, n, _ = quantize_feat_rows(feats, norms)
@@ -496,46 +593,11 @@ def k2_cases(dev, gen, cases):
                           "tol": tol, "ms": ms, "plain_ms": plain,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "library_ms": None})
-        # the queries as K2b holds them: rounded to the store dtype, bf16
-        # for int8 rows; an int8 or bf16 row times a bf16 query is exact
-        # in f32, the bf16 tensor cores' product
-        qdt = torch.float32 if dtype == torch.float32 else torch.bfloat16
         for Q in (1, 3, 16):
-            qq = qs[:Q].contiguous()
-            got = sim.max_cosine_per_voxel_batch(f, n, cnt, qq)
-            want = sim.reference_max_cosine_batch(f, n, cnt, qq)
-            err = k2_check(got, want, k2_bound(f, n, cnt, qq.to(qdt)),
-                           f"K2-batch {name} Q {Q}")
-            ms = cuda_ms(lambda: sim.max_cosine_per_voxel_batch(
-                f, n, cnt, qq))
-            plain = cuda_ms(lambda: sim.reference_max_cosine_batch(
-                f, n, cnt, qq))
-            lib = cuda_ms(lambda: gemm_scan(f, n, cnt, qq))
-            # bytes: live rows and norms, counts, queries, [Q, V1] out;
-            # operations: 2 Q D a live row at the card's rate for the
-            # products' type (f32: three TF32 products; bf16 and int8
-            # rows: bf16); beside it the design's own limit, the same
-            # operations on the CUDA cores' f32 FMAs, which K2b uses
-            flops = 2.0 * D * Q * live
-            b_ms, b_by = bound(flops, live * (D * f.element_size() + 4)
-                               + nbytes(cnt, qq, got), qdt)
-            t_fma = flops / F32_CUDA_CORE_FLOPS * 1e3
-            log("kernels", f"K2-batch max_cosine_per_voxel_batch {name} "
-                f"Q={Q}: max_abs_err {err:.3g} (tol: the f32 dot bound) "
-                f"kernel {ms:.4f} ms ({ms / Q:.4f} a query; "
-                f"{b_ms / ms:.3f} of the bound) plain {plain:.4f} ms GEMM "
-                f"composition {lib:.4f} ms bound {b_ms:.4f} ms ({b_by}); "
-                f"the design's limit, CUDA-core f32 FMAs, {t_fma:.4f} ms")
-            cases.append({"kernel": "K2b", "dtype": name, "Q": Q,
-                          "live_rows": live, "max_abs_err": err,
-                          "tol": "f32 dot bound", "ms": ms,
-                          "plain_ms": plain, "bound_ms": b_ms,
-                          "bound_by": b_by, "cuda_core_fma_ms": t_fma,
-                          "library_ms": lib,
-                          "library": "GEMM + mask + max (torch.mm in the "
-                                     "store dtype; int8 via a bf16 copy)"})
-        del f, n, got, want
-    del feats, norms, cnt, q, qs
+            cases.append(k2b_case(f, n, cnt, qs[:Q].contiguous(), dtype))
+        cases.append(k2b_case(f, n, sparse, qs, dtype, store="sparse"))
+        del f, n
+    del feats, norms, cnt, sparse, q, qs
     torch.cuda.empty_cache()
 
 
@@ -2973,9 +3035,16 @@ def main(argv=None) -> int:
               int8="the Q-query kernel at Q 1 (max_cosine_per_voxel_batch)"),
         entry("max_cosine_per_voxel_batch", "max_cosine.cu",
               "bsc_nav_tpu/ops/similarity.py:121 (XLA einsum in the JAX "
-              "package; no pallas_call)", 8, main_case("K2b", Q=16),
-              by_dtype={d: [main_case("K2b", d, Q=Q) for Q in (1, 3, 16)]
+              "package; no pallas_call)", 8,
+              main_case("K2b", Q=16, store="random counts"),
+              by_dtype={d: [main_case("K2b", d, Q=Q, store=st)
+                            for Q, st in ((1, "random counts"),
+                                          (3, "random counts"),
+                                          (16, "random counts"),
+                                          (16, "sparse"))]
                         for d in ("float32", "bfloat16", "int8")},
+              device_kernels={str(d)[6:]: k for d, k in K2B_KERNEL.items()},
+              ptxas=ptxas_usage("max_cosine.cu", "max_cosine_"),
               library="GEMM + mask + max"),
         entry("short_attention", "short_attention.cu",
               "bsc_nav_tpu/ops/flash_attention.py:364", 2,

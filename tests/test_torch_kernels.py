@@ -90,12 +90,13 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-# the launchers' counts of each tensor-core kernel (csrc/mma_bf16.cuh
-# TileKind): attention_wgmma_kernel, attention_tf32_kernel,
-# conv3x3_s1_mma_kernel, conv3x3_s1_tf32_kernel, attention_tma_kernel
+# the launchers' counts of each counted kernel (csrc/mma_bf16.cuh
+# TileKind): the tensor-core tiles, then K2b's tensor-core kernel (bf16
+# and int8 rows) and its CUDA-core kernel (f32 rows)
 TILE_NAMES = ("attention_wgmma_kernel", "attention_tf32_kernel",
               "conv3x3_s1_mma_kernel", "conv3x3_s1_tf32_kernel",
-              "attention_tma_kernel")
+              "attention_tma_kernel", "max_cosine_mma_kernel",
+              "max_cosine_batch_kernel")
 
 
 def _tile_launches(fn) -> dict:
@@ -454,6 +455,75 @@ def test_k2_batch_matches_plain(cuda, V1, K, D, Q, dtype):
     torch.cuda.synchronize()
     assert got.shape == (Q, V1)
     _check_sims(got, want, 2e-5)
+
+
+def _unit_queries(Q, D, seed, dev):
+    rng = np.random.default_rng(seed)
+    qs = rng.normal(size=(Q, D)).astype(np.float32)
+    return torch.from_numpy(qs / np.linalg.norm(qs, axis=1,
+                                                keepdims=True)).to(dev)
+
+
+def _scan_launches(f, n, c, qs):
+    """K2b on the card: its result and the launches of each of its two
+    kernels, by the launchers' own counts."""
+    out = []
+    took = _tile_launches(
+        lambda: out.append(tsim.max_cosine_per_voxel_batch(f, n, c, qs)))
+    return out[0], (took["max_cosine_mma_kernel"],
+                    took["max_cosine_batch_kernel"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("Q", [1, 3, 8, 9, 16, 17])
+@pytest.mark.parametrize("V1,K,D", [(203, 10, 1024), (77, 7, 64),
+                                    (45, 16, 3584), (1001, 10, 64)])
+def test_k2b_tensor_core_edges(cuda, V1, K, D, Q, dtype):
+    """bf16 and int8 rows on the tensor-core kernel, every launch: Q
+    across the n8 tiles (8 / 9) and the launches (16 / 17), V1 not a
+    multiple of the voxel group (8 voxels at K 10, 16 at K 7, 1 at K 16),
+    D from one k-block to 112; against the plain version on the same rows
+    and the same queries rounded to bf16, f32 sums in another order:
+    2e-5 abs."""
+    f, n, c, _ = _scan_store(dtype, V1, K, D, Q + K, cuda)
+    qs = _unit_queries(Q, D, Q, cuda)
+    got, took = _scan_launches(f, n, c, qs)
+    assert took == (-(-Q // 16), 0)
+    want = tsim.reference_max_cosine_batch(f, n, c, qs)
+    assert got.shape == (Q, V1)
+    _check_sims(got, want, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_k2b_empty_store_and_one_live_row(cuda, dtype):
+    """A store with no live row is -inf everywhere, having launched the
+    tensor-core kernel; with one live row, only its voxel is finite."""
+    f, n, c, _ = _scan_store(dtype, 203, 10, 1024, 5, cuda)
+    qs = _unit_queries(9, 1024, 5, cuda)
+    empty = torch.zeros_like(c)
+    got, took = _scan_launches(f, n, empty, qs)
+    assert took == (1, 0)
+    assert bool(torch.isneginf(got).all())
+    one = empty.clone()
+    one[77] = 1
+    got, _ = _scan_launches(f, n, one, qs)
+    want = tsim.reference_max_cosine_batch(f, n, one, qs)
+    assert int(torch.isfinite(got).sum()) == 9
+    _check_sims(got, want, 2e-5)
+
+
+@pytest.mark.cuda
+def test_k2b_takes_the_tensor_cores_on_bf16_and_int8_rows_only(cuda):
+    """By the launchers' counts: bf16 and int8 rows launch
+    max_cosine_mma_kernel, f32 rows max_cosine_batch_kernel, one launch
+    per 16 queries either way."""
+    qs = _unit_queries(17, 64, 0, cuda)
+    for dtype, want in ((torch.float32, (0, 2)), (torch.bfloat16, (2, 0)),
+                        (torch.int8, (2, 0))):
+        f, n, c, _ = _scan_store(dtype, 37, 10, 64, 1, cuda)
+        assert _scan_launches(f, n, c, qs)[1] == want, dtype
 
 
 @pytest.mark.cuda

@@ -295,6 +295,60 @@ def _round_toward_zero(t64: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
+def tensor_core_scan(feats, norms, counts, qs, fault=None):
+    """The arithmetic order of K2b's tensor-core kernel
+    (bsc_nav_tpu_torch/csrc/max_cosine.cu ``max_cosine_mma_kernel``) in
+    plain torch on bf16 or int8 rows feats [V1*K, D], norms [V1*K] f32,
+    counts [V1] int32 and queries qs [Q, D] f32 (numpy or torch) -> [Q, V1]
+    f32: queries rounded to bf16, int8 codes widened exactly; D walked in
+    k16 steps in the kernel's permuted order -- a k-block of 4 P values
+    (P = 8 bf16 or 16 int8 values, one 16-byte load), whose step s takes
+    values t P + 4 s .. t P + 4 s + 3 of each lane t of a quad -- each
+    step's 16 exact products summed in f64 and added to the f32
+    accumulator rounded toward zero (the tensor cores truncate); then
+    acc / max(norm, 1e-12) in f32, -inf at k >= count, and the max over
+    each voxel's K rows.
+
+    ``fault`` makes the errors a check of this order must catch:
+    "drop_step" skips the first k16 step, "unsigned" reads int8 codes as
+    unsigned, "past_count" takes row k = count as live, "rows_only"
+    permutes the rows' k and not the queries'."""
+    f = torch.as_tensor(feats)
+    if f.dtype == torch.int8:
+        P, rows = 16, f.double()
+        if fault == "unsigned":
+            rows = torch.where(rows < 0, rows + 256, rows)
+    else:
+        P, rows = 8, f.to(torch.bfloat16).double()
+    q = torch.as_tensor(qs).float().to(torch.bfloat16).double()
+    VK, D = rows.shape
+    KB = 4 * P
+    pad = -D % KB
+    rows = torch.nn.functional.pad(rows, (0, pad))
+    q = torch.nn.functional.pad(q, (0, pad))
+    # logical k i of a step: lane t = (i % 8) // 2 of the quad, value
+    # 4 s + i % 2 (+ 2 for i >= 8) of its chunk
+    i = torch.arange(16)
+    lane_val = (i % 8) // 2 * P + i % 2 + 2 * (i // 8)
+    steps = torch.stack([kb * KB + 4 * s + lane_val
+                         for kb in range((D + pad) // KB)
+                         for s in range(P // 4)])
+    natural = torch.arange(D + pad).reshape(-1, 16)
+    acc = torch.zeros(VK, q.shape[0])
+    for n, (ri, qi) in enumerate(zip(
+            steps, natural if fault == "rows_only" else steps)):
+        if fault == "drop_step" and n == 0:
+            continue
+        acc = _round_toward_zero(acc.double() + rows[:, ri] @ q[:, qi].T)
+    c = torch.as_tensor(counts).long()
+    V1 = c.shape[0]
+    K = VK // V1
+    live = torch.arange(K)[None, :] < (c + int(fault == "past_count"))[:, None]
+    cos = acc / torch.as_tensor(norms).float().clamp_min(1e-12)[:, None]
+    cos = torch.where(live.reshape(VK, 1), cos, -torch.inf)
+    return cos.reshape(V1, K, -1).amax(dim=1).T.contiguous()
+
+
 def tf32x3_conv(x, w9, bias, act="silu", passes=3, drop_tap=None,
                 bk=32):
     """The arithmetic order of K8's f32 path (conv3x3_s1.cu

@@ -21,6 +21,8 @@ when a caller asks for it.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -33,3 +35,19 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() "
             "is False")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """f32 matmuls inside run in full f32 (JAX's ``Precision.HIGHEST``),
+    whatever the caller's TF32 and float32 matmul precision flags; the
+    flags are restored on exit."""
+    precision = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(precision)

@@ -20,10 +20,15 @@ all of them in one Q-query scan of the store, a region radius per query;
 ``save`` / ``load_memory`` write and read the reference's on-disk bundle
 (``memory.persistence``), and a loaded memory takes its single-floor
 height range from ``memory.floors``.  The store may be f32, bf16 or int8,
-and the encoder int8 W8A8 (``encoder_int8``).
-
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-segmented stores (ROADMAP.md Queue 1 item 6).
+the replacement policy dist or surprise (``cfg.memory.replacement``), and
+the encoder int8 W8A8 (``encoder_int8``).  ``segmented=True`` ingests into
+a ``memory.segments.SegmentedStore`` that rotates after each build step;
+once it holds several segments, queries localize in every segment and
+merge (a text prompt through ``imaginary`` and the image query).
+``excute`` steps the environment and pushes each frame;
+``exploring_create_memory`` (random same-island waypoints, a turn in
+place at each) and ``explore_entire_space`` (frontier targets from the
+top-down map, ``memory.frontier``) build a memory headless.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,21 +45,17 @@ from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch import geometry as G
 from bsc_nav_tpu_torch import resolve_device
 from bsc_nav_tpu_torch.memory import floors as F
+from bsc_nav_tpu_torch.memory import frontier as FR
 from bsc_nav_tpu_torch.memory import longterm as LT
 from bsc_nav_tpu_torch.memory import persistence as P
 from bsc_nav_tpu_torch.memory.pipeline import (
     make_build_step, make_query_step, make_text_pool_step,
     make_text_query_step, pooled_query)
 from bsc_nav_tpu_torch.memory.query import localize, localize_batch
+from bsc_nav_tpu_torch.memory.segments import SegmentedStore
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import vit
 from bsc_nav_tpu_torch.models.weights import load_dinov2_npz
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to bsc_nav_tpu_torch yet (ROADMAP.md Queue 1 "
-        f"item {item})")
 
 
 @dataclasses.dataclass
@@ -125,9 +126,8 @@ class VoxelTokenMemory:
                  memory_path: Optional[str] = None,
                  store_dtype=torch.float32,
                  segmented: bool = False,
+                 max_device_segments: int = 1,
                  text_query_split: Optional[bool] = None):
-        if segmented:
-            raise _not_ported("the segmented store", "6")
         self.cfg = cfg
         self.Env = env
         self.perception = perception
@@ -143,8 +143,15 @@ class VoxelTokenMemory:
             cfg.memory_path, cfg.sim.scene_name)
         self.device = perception.device
         self.store_dtype = store_dtype
-        self.state = init_store(cfg.memory, store_dtype=store_dtype,
-                                device=self.device)
+        self.segments = None
+        if segmented:
+            self.segments = SegmentedStore(
+                cfg.memory, store_dtype=store_dtype,
+                max_device_segments=max_device_segments, device=self.device)
+            self.state = self.segments.state
+        else:
+            self.state = init_store(cfg.memory, store_dtype=store_dtype,
+                                    device=self.device)
         self._generator = torch.Generator(
             device=self.device).manual_seed(cfg.seed)
         self._queue: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
@@ -153,10 +160,17 @@ class VoxelTokenMemory:
         self._base2cam = G.base_to_cam_transform(cfg.sensor.sensor_height)
         self.long_memory_dict: List[dict] = []
         self.base_height: List[float] = []   # agent heights while mapping
+        self.step_count = 0
 
         self.load_single_floor = cfg.agent.load_single_floor
         self.floor_min_height: Optional[int] = None
         self.floor_max_height: Optional[int] = None
+
+        # the reference's names, used by the robots
+        self.gs = cfg.memory.grid_size
+        self.cs = cfg.memory.cell_size
+        self.minh = cfg.memory.zmin
+        self.maxh = cfg.memory.zmax
 
     # ------------------------------------------------------------------
     # frame ingestion
@@ -184,7 +198,7 @@ class VoxelTokenMemory:
 
     def flush(self) -> None:
         """Ingest all queued frames, padding the last batch with
-        zero-depth frames."""
+        zero-depth frames; a segmented store rotates after each batch."""
         B = self.perception.batch_size
         H, W = self.cfg.sensor.height, self.cfg.sensor.width
         if self._queue and hasattr(self.detector, "detect_batch_instances"):
@@ -221,6 +235,10 @@ class VoxelTokenMemory:
                 torch.from_numpy(rgb).to(dev), torch.from_numpy(depth).to(dev),
                 torch.from_numpy(poses).to(dev))
             self.state, self._generator = carry
+            if self.segments is not None:
+                self.segments.state = self.state
+                if self.segments.rotate_if_full():
+                    self.state = self.segments.state
 
     def obs2voxeltoken(self, obs, pose: np.ndarray) -> None:
         self.push_frame(obs, np.asarray(pose, np.float32))
@@ -262,8 +280,51 @@ class VoxelTokenMemory:
         return self.long_memory_dict
 
     # ------------------------------------------------------------------
+    # env stepping
+    # ------------------------------------------------------------------
+    def excute(self, obs, actions: Sequence[str]):
+        """Step the environment through ``actions`` ("stop" skipped),
+        pushing each frame; every tenth step records the agent's height
+        (JAX ``spatial_memory.py:285-297``).  Returns the last
+        observation."""
+        for action in actions:
+            if action == "stop":
+                continue
+            obs = self.Env.sims.step(action)
+            self.step_count += 1
+            state = self.Env.agent.get_state()
+            if self.step_count % 10 == 0:
+                self.base_height.append(float(state.position[1]))
+            self.push_frame(obs, state_to_pose_vec(state))
+        return obs
+
+    # ------------------------------------------------------------------
     # queries
     # ------------------------------------------------------------------
+    def _segmented(self) -> bool:
+        """A segmented store of more than one segment: queries merge
+        across segments."""
+        return self.segments is not None and self.segments.num_segments > 1
+
+    def _segment_query(self, pooled, K, region_radius, curr_grid):
+        """One pooled query over every segment, as ``voxel_localized``'s
+        tuple (JAX ``spatial_memory.py:443-462``)."""
+        self.segments.state = self.state
+        kwargs = {}
+        if np.isfinite(region_radius):
+            kwargs = dict(use_region=True, curr_grid=torch.as_tensor(
+                np.array(curr_grid), dtype=torch.int32,
+                device=self.device), region_radius=float(region_radius))
+        if self.load_single_floor and self.floor_min_height is not None:
+            kwargs.update(use_floor=True, floor_range=torch.tensor(
+                [self.floor_min_height, self.floor_max_height],
+                dtype=torch.int32, device=self.device))
+        positions, scores = self.segments.localize(pooled, top_k=K, **kwargs)
+        if len(positions) == 0:
+            return (np.zeros((0, 3), int), np.zeros((0, 3), int),
+                    np.zeros((0,), np.float32))
+        return positions[:1], positions, scores
+
     def _mask_kwargs(self, region_radius: float, curr_grid):
         """Region + single-floor mask arguments of ``query_step``."""
         use_region = bool(np.isfinite(region_radius))
@@ -316,16 +377,15 @@ class VoxelTokenMemory:
                               curr_grid=None):
         """Queue a text query on the device without waiting: returns a
         zero-argument function giving ``voxel_localized``'s result, or None
-        for a prompt that is not text or an imagination without
+        for a prompt that is not text, an imagination without
         ``imagine_core`` (none, or a plain callable: ``voxel_localized``
-        renders its images through ``imaginary``), as JAX
-        ``spatial_memory.py:375-380``.  Kernels run on the CUDA stream
-        while the host goes on; the function's copy to the host waits for
-        them."""
-        # the JAX gate also refuses a segmented store of several segments;
-        # the port has none yet (ROADMAP.md Queue 1 item 6)
+        renders its images through ``imaginary``) or a segmented store of
+        more than one segment, as JAX ``spatial_memory.py:375-380``.
+        Kernels run on the CUDA stream while the host goes on; the
+        function's copy to the host waits for them."""
         if not (isinstance(prompt, str)
-                and hasattr(self.imagination, "imagine_core")):
+                and hasattr(self.imagination, "imagine_core")
+                and not self._segmented()):
             return None
         self.flush()
         im = self.imagination
@@ -360,7 +420,8 @@ class VoxelTokenMemory:
         [<=K]).  A text prompt takes ``voxel_localized_async``; where that
         returns None, ``imaginary`` renders the images (raising without an
         imagination), which take the image query (JAX
-        ``spatial_memory.py:424-437``)."""
+        ``spatial_memory.py:424-437``).  A segmented store of several
+        segments pools the images and queries every segment."""
         self.flush()
         if isinstance(prompt, str):
             finish = self.voxel_localized_async(prompt, K, region_radius,
@@ -372,6 +433,10 @@ class VoxelTokenMemory:
         imgs = (arr[None] if arr.ndim == 3 else arr)[:, :, :, :3]
         imgs = torch.from_numpy(np.ascontiguousarray(
             imgs.astype(np.uint8))).to(self.device)
+        if self._segmented():
+            return self._segment_query(
+                self.perception.pool_step(self.perception.vit_params, imgs),
+                K, region_radius, curr_grid)
         positions, scores = self.perception.query_step(
             self.state, self.perception.vit_params, imgs, top_k=K,
             **self._mask_kwargs(region_radius, curr_grid))
@@ -387,7 +452,9 @@ class VoxelTokenMemory:
         prompt (np.inf: unrestricted) around ``curr_grid`` [3] or per
         prompt [Q, 3]; the single-floor mask applies as in
         ``voxel_localized``.  Returns one (best_pos [1, 3],
-        top_k_positions, top_k_similarity) tuple per prompt."""
+        top_k_positions, top_k_similarity) tuple per prompt.  A segmented
+        store of several segments queries every segment once per prompt
+        (JAX ``spatial_memory.py:527-544``)."""
         self.flush()
         pooled, cache = [], {}
         for p in prompts:
@@ -412,6 +479,10 @@ class VoxelTokenMemory:
                 grids = np.broadcast_to(grids, (Q, 3))
         if grids is None and np.isfinite(radii).any():
             raise ValueError("finite region_radii need curr_grid")
+        if self._segmented():
+            return [self._segment_query(q, K, r, None if grids is None
+                                        else grids[i])
+                    for i, (q, r) in enumerate(zip(pooled, radii))]
         kwargs = {}
         if self.load_single_floor and self.floor_min_height is not None:
             kwargs.update(use_floor=True, floor_range=torch.tensor(
@@ -436,11 +507,113 @@ class VoxelTokenMemory:
         return out
 
     # ------------------------------------------------------------------
+    # memory construction flows
+    # ------------------------------------------------------------------
+    def exploring_create_memory(self, save: bool = True) -> None:
+        """Random-walk mapping (JAX ``spatial_memory.py:568-596``): visit
+        ``random_move_num`` waypoints on the agent's island, turning 360
+        degrees at each; a failed move is reported and skipped."""
+        pf = self.Env.plnner.pathfinder
+        obs = self.Env.sims.get_sensor_observations(0)
+        self.push_frame(obs, state_to_pose_vec(self.Env.agent.get_state()))
+        n_turns = int(360 / self.cfg.actions.turn_left_deg)
+        for _ in range(self.cfg.agent.random_move_num):
+            island_begin = pf.get_island(self.Env.agent.get_state().position)
+            subgoal = pf.get_random_navigable_point()
+            tries = 0
+            while ((not pf.is_navigable(subgoal)
+                    or pf.get_island(subgoal) != island_begin)
+                   and tries < 100):
+                subgoal = pf.get_random_navigable_point()
+                tries += 1
+            try:
+                path, _ = self.Env.move2point(subgoal)
+                obs = self.excute(obs, path)
+                self.base_height.append(
+                    float(self.Env.agent.get_state().position[1]))
+                obs = self.excute(obs, ["turn_left"] * n_turns)
+            except Exception as e:          # noqa: BLE001 (nav failures)
+                print(f"move failed: {e}")
+                continue
+        self.flush()
+        if save:
+            self.save()
+
+    def explore_entire_space(self, max_iterations: Optional[int] = None,
+                             save: bool = True) -> None:
+        """Frontier exploration (JAX ``spatial_memory.py:598-624``): turn
+        in place, flush, move to the frontier target of largest
+        information gain; stop when none is left."""
+        max_iterations = (max_iterations
+                          or self.cfg.agent.explore_max_iterations)
+        n_turns = int(360 / self.cfg.actions.turn_left_deg)
+        obs = self.Env.sims.get_sensor_observations(0)
+        origin = np.asarray(self.Env.original_state.position)
+        for _ in range(max_iterations):
+            obs = self.excute(obs, ["turn_left"] * n_turns)
+            self.flush()
+            target = FR.select_frontier_target(
+                self._known_mask(), self._navigable_mask(origin))
+            if target is None:
+                break
+            subgoal = self.Env.get_navigable_point_near(
+                self._grid2loc_2d(target[0], target[1], origin))
+            try:
+                path, _ = self.Env.move2point(subgoal)
+                obs = self.excute(obs, path)
+            except Exception as e:          # noqa: BLE001
+                print(f"frontier move failed: {e}")
+                continue
+        self.flush()
+        if save:
+            self.save()
+
+    def _known_mask(self) -> np.ndarray:
+        """[gs, gs] cells of the active top-down map with a colour."""
+        gs = self.gs
+        cv = self.state.cv_map[:gs * gs].cpu().numpy().reshape(gs, gs, 3)
+        return cv.sum(axis=-1) > 0
+
+    def _navigable_mask(self, origin: np.ndarray) -> np.ndarray:
+        """[gs, gs] navigability of the memory grid's cells (row = world
+        z, col = world x around ``origin``): one lookup into a grid
+        pathfinder's occupancy (``pf.nav``), else a query per cell."""
+        gs, cs = self.gs, self.cs
+        rows = origin[2] + (np.arange(gs) - gs // 2) * cs   # world z
+        cols = origin[0] + (np.arange(gs) - gs // 2) * cs   # world x
+        pf = self.Env.plnner.pathfinder
+        if hasattr(pf, "nav"):
+            i = np.floor((cols - pf.origin[0]) / pf.res).astype(int)
+            j = np.floor((rows - pf.origin[1]) / pf.res).astype(int)
+            ok_i = (i >= 0) & (i < pf.nav.shape[0])
+            ok_j = (j >= 0) & (j < pf.nav.shape[1])
+            ii = np.clip(i, 0, pf.nav.shape[0] - 1)
+            jj = np.clip(j, 0, pf.nav.shape[1] - 1)
+            return (pf.nav[ii[None, :], jj[:, None]]
+                    & ok_i[None, :] & ok_j[:, None])
+        out = np.zeros((gs, gs), bool)
+        for r in range(gs):
+            for c in range(gs):
+                out[r, c] = pf.is_navigable(
+                    np.array([cols[c], origin[1], rows[r]]))
+        return out
+
+    def _grid2loc_2d(self, x: float, y: float, origin: np.ndarray):
+        """Frontier grid cell -> world point (``geometry.grid_to_world_2d``)."""
+        return G.grid_to_world_2d((x, y), origin, self.gs, self.cs)
+
+    def create_memory(self) -> None:
+        """The reference's keyboard-driven build, headless: the exploring
+        variant."""
+        self.exploring_create_memory()
+
+    # ------------------------------------------------------------------
     # persistence
     # ------------------------------------------------------------------
     def save(self, path: Optional[str] = None) -> None:
         """Flush, then write the reference's bundle (``memory.persistence
-        .save_reference_format``) to ``path`` or ``memory_save_path``."""
+        .save_reference_format``) of the active store (segment) to
+        ``path`` or ``memory_save_path``."""
         self.flush()
         P.save_reference_format(
             self.state, path or self.memory_save_path, self.cfg.memory,

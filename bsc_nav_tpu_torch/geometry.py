@@ -180,3 +180,18 @@ def project_points(intr: torch.Tensor, points: torch.Tensor
     u = uvw[..., 0] / z
     v = uvw[..., 1] / z
     return _trunc_int(u - 0.5), _trunc_int(v - 0.5), z
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy) helpers
+# ---------------------------------------------------------------------------
+
+def grid_to_world_2d(grid_rc, origin_xzy, grid_size: int,
+                     cell_size: float) -> np.ndarray:
+    """Voxel (row, col[, h]) -> habitat world (x, z, y) at the memory
+    origin's height (JAX ``geometry.py:262-272``)."""
+    row, col = float(grid_rc[0]), float(grid_rc[1])
+    ox, oz, oy = origin_xzy
+    y = oy + (row - grid_size // 2) * cell_size
+    x = ox + (col - grid_size // 2) * cell_size
+    return np.array([x, oz, y])

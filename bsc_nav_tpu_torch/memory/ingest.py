@@ -1,14 +1,32 @@
 """Batched RGB-D frame ingestion into the voxel token store.
 
-Counterpart of ``bsc_nav_tpu/memory/ingest.py`` (dist policy; f32, bf16
-and int8 stores -- an int8 store takes each written token as per-row
-absmax codes, its scale in ``feat_scale``).  Points
+Counterpart of ``bsc_nav_tpu/memory/ingest.py`` (both replacement
+policies; f32, bf16 and int8 stores -- an int8 store takes each written
+token as per-row absmax codes, its scale in ``feat_scale``).  Points
 carry a global frame-major ``order`` index, and every conflict between
 points that touch the same voxel is resolved as the sequential reference
 loop would: first-touch slot assignment in arrival order, append-then-
-random-replace token caching where the later point wins a contested
-row, a top-down map where the highest (height, order) wins, and RGB
-fusion as weighted sums.
+replace token caching where the later point wins a contested row, a
+top-down map where the highest (height, order) wins, and RGB fusion as
+weighted sums.
+
+Token caching follows ``cfg.memory.replacement``:
+
+- ``"dist"``: a full cache replaces a randomly drawn row.
+- ``"surprise"``: a point of a voxel that existed before the batch is
+  cached only if it is novel against the voxel's 26 neighbours (radius
+  ``neighbor_radius``): its minimum cosine distance to their pre-batch
+  running mean tokens (``surprise_exact=False``) or to every token they
+  cache (``surprise_exact=True``, in chunks of 512 points) exceeds
+  ``surprise_threshold``; a point with no live neighbour is novel.  A
+  full cache replaces its row most similar to the incoming token (the
+  first on ties), and every valid point adds to its voxel's running sum
+  and count.  Neighbour slots are read after this batch's new voxels
+  were assigned; every statistic and cached row before the batch writes
+  any (JAX ``ingest.py:239-306``, ``:324-335``).  The cosines are
+  elementwise products and sums in f32, on the int8 codes for an int8
+  store (the scale cancels); the norm of a neighbour mean is XLA's CPU
+  reduction, an FMA chain in index order (``fma_norm``).
 
 Differences from the JAX version, by design:
 
@@ -18,7 +36,8 @@ Differences from the JAX version, by design:
 - Random draws come from a ``torch.Generator``, which cannot reproduce
   ``jax.random``.  ``pix [B, P]`` (pixel subset, with replacement) and
   ``repl_idx [N]`` (replacement slots) may be injected instead; tests
-  rebuild them from the JAX key and inject them.
+  rebuild them from the JAX key and inject them.  The surprise policy
+  draws no replacement slots and ignores ``repl_idx``.
 - The float geometry (camera-frame and world points) may be injected as
   ``points``.  Its last bits are not the same in every XLA build: the
   jitted 3-term products become fused multiply-add chains on some host
@@ -41,12 +60,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from bsc_nav_tpu_torch import full_f32_matmul
 from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch import geometry as G
 from bsc_nav_tpu_torch.memory.store import (
     VoxelStoreState, linear_voxel_id, quantize_rows)
 
 _BIG = torch.iinfo(torch.int64).max
+SURPRISE_CHUNK = 512      # points per gather of the exact surprise gate
 
 
 def points_per_frame(cfg: Config) -> int:
@@ -60,6 +81,86 @@ def _run_heads(sorted_key: torch.Tensor) -> torch.Tensor:
     head = torch.ones_like(sorted_key, dtype=torch.bool)
     head[1:] = sorted_key[1:] != sorted_key[:-1]
     return head & (sorted_key != _BIG)
+
+
+def fma_norm(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis of f32 ``x`` as jitted XLA forms
+    ``jnp.linalg.norm`` on the CPU at small widths: the squares summed by
+    a fused multiply-add chain in index order (each step exact in f64,
+    rounded once to f32), the root correctly rounded.  One f32 += f64
+    addition a step (the addition runs in f64 and rounds once)."""
+    sq = x.double().square()                           # exact
+    acc = sq[..., 0].float()
+    for i in range(1, x.shape[-1]):
+        acc.add_(sq[..., i])
+    return torch.sqrt(acc.double()).float()
+
+
+def _cos_rows(rows: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """dot(rows[..., j, :], tok) over the last axis in full f32:
+    rows [N, ..., D] widened to f32, tok [N, D] f32."""
+    shape = (tok.shape[0],) + (1,) * (rows.dim() - 2) + (tok.shape[1],)
+    return (rows.to(torch.float32) * tok.view(shape)).sum(dim=-1)
+
+
+def _neighbour_slots(rc, slot_map, mem):
+    """(slot [N, n], in grid [N, n]) of each point's neighbours at radius
+    ``neighbor_radius``, read from ``slot_map`` (absent: garbage slot V)."""
+    Gs, Hc, V = mem.grid_size, mem.num_height_cells, mem.voxel_capacity
+    r = mem.neighbor_radius
+    offs = torch.tensor([(dr, dc, dh)
+                         for dr in range(-r, r + 1)
+                         for dc in range(-r, r + 1)
+                         for dh in range(-r, r + 1)
+                         if (dr, dc, dh) != (0, 0, 0)], device=rc.device)
+    nrc = rc[:, None, :] + offs[None]                       # [N, n, 3]
+    n_ok = ((nrc[..., 0] >= 0) & (nrc[..., 0] < Gs)
+            & (nrc[..., 1] >= 0) & (nrc[..., 1] < Gs)
+            & (nrc[..., 2] >= 0) & (nrc[..., 2] < Hc))
+    nlid = torch.where(n_ok, linear_voxel_id(nrc, Gs, Hc), Gs * Gs * Hc)
+    ns = slot_map[nlid].long()
+    return torch.where(ns >= 0, ns, V), n_ok
+
+
+def _surprise(state, token, tok_norm, nslot, n_ok, judged,
+              mem) -> torch.Tensor:
+    """[N] novelty of each token: its minimum cosine distance to its
+    neighbours' pre-batch baseline (+inf without a live neighbour), and
+    +inf where not ``judged`` (a point of a voxel new in this batch)."""
+    inf = torch.tensor(float("inf"), device=token.device)
+    if not mem.surprise_exact:
+        n_obs = state.feat_obs[nslot]                        # [N, n]
+        n_ok = n_ok & (n_obs > 0)
+        n_mean = state.feat_sum[nslot] / n_obs.clamp_min(1.0)[..., None]
+        cos = _cos_rows(n_mean, token) / (
+            fma_norm(n_mean) * tok_norm[:, None]).clamp_min(1e-12)
+        novel = torch.where(n_ok, 1.0 - cos, inf).amin(dim=-1)
+        return torch.where(judged, novel, inf)
+    K = mem.cache_size
+    ks = torch.arange(K, device=token.device)
+    out = []
+    for c0 in range(0, token.shape[0], SURPRISE_CHUNK):
+        ns = nslot[c0:c0 + SURPRISE_CHUNK]                   # [C, n]
+        rows = ns[..., None] * K + ks                        # [C, n, K]
+        cos = _cos_rows(state.feats[rows], token[c0:c0 + SURPRISE_CHUNK])
+        cos = cos / (state.feat_norm[rows] * tok_norm[
+            c0:c0 + SURPRISE_CHUNK, None, None]).clamp_min(1e-12)
+        live = (n_ok[c0:c0 + SURPRISE_CHUNK, :, None]
+                & (ks < state.feat_count[ns][..., None]))
+        out.append(torch.where(live, 1.0 - cos, inf).amin(dim=(1, 2)))
+    return torch.where(judged, torch.cat(out), inf)
+
+
+def _most_similar(state, slot_g, token, tok_norm, K) -> torch.Tensor:
+    """[N] the replacement row of each point: its voxel's cached row most
+    similar to the token (pre-batch rows and counts; the first on ties,
+    row 0 for an empty cache)."""
+    rows = slot_g[:, None] * K + torch.arange(K, device=token.device)
+    csim = _cos_rows(state.feats[rows], token) / (
+        state.feat_norm[rows] * tok_norm[:, None]).clamp_min(1e-12)
+    kmask = torch.arange(K, device=token.device) < state.feat_count[
+        slot_g][:, None]
+    return torch.where(kmask, csim, float("-inf")).argmax(dim=-1)
 
 
 def frame_points(depth: torch.Tensor, pix: torch.Tensor,
@@ -97,12 +198,18 @@ def ingest_frames(
     """Scatter a batch of frames into the store, in place.  Returns
     (state, stats).  Draws not injected come from ``generator``;
     ``points`` = (p_local, p_world) [B, P, 3] f32 replaces the float
-    geometry of the drawn pixels."""
+    geometry of the drawn pixels.  Every product runs in full f32,
+    whatever the caller's TF32 and matmul precision flags (voxel ids
+    follow the last bit of the geometry)."""
+    with full_f32_matmul():
+        return _ingest(state, rgb, depth, poses, patch_tokens, generator,
+                       cfg, pix, repl_idx, points)
+
+
+def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
+            repl_idx, points):
     mem = cfg.memory
-    if mem.replacement != "dist":
-        raise NotImplementedError(
-            f"replacement={mem.replacement!r}: the surprise policy is queued "
-            "in ROADMAP.md (Queue 1 item 6)")
+    surprise = mem.replacement == "surprise"
     dev = state.feats.device
     B, H, W = depth.shape
     Gs, Hc = mem.grid_size, mem.num_height_cells
@@ -130,10 +237,9 @@ def ingest_frames(
     if pix is None:
         pix = torch.randint(0, H * W, (B, P), generator=generator,
                             device=dev)
-    if repl_idx is None:
+    if repl_idx is None and not surprise:
         repl_idx = torch.randint(0, K, (N,), generator=generator, device=dev)
     pix = pix.to(device=dev, dtype=torch.int64)
-    repl_idx = repl_idx.to(device=dev, dtype=torch.int64)
     z, p_local, p_world = frame_points(depth, pix, cam2world, cfg)
     if points is not None:
         p_local, p_world = (p.to(device=dev, dtype=torch.float32)
@@ -219,11 +325,25 @@ def ingest_frames(
     state.max_height[wcell] = rc[:, 2].to(torch.int32)
 
     # ======================================================================
-    # 4. token cache insert, dist policy: append while count < K, then the
-    #    injected/drawn replacement slot; the later point wins a row
+    # 4. token cache insert: append while count < K, then the replacement
+    #    row (dist: the injected/drawn slot; surprise: the most similar
+    #    cached row); the later point wins a row
     # ======================================================================
-    tok_norm = torch.sqrt((token.to(torch.float32) ** 2).sum(dim=-1))
-    s_sorted, idx_sorted = torch.sort(torch.where(valid, slot_g, _BIG),
+    token = token.to(torch.float32)
+    tok_norm = torch.sqrt((token ** 2).sum(dim=-1))
+    cache_valid = valid
+    if surprise:
+        nslot, n_ok = _neighbour_slots(rc, state.slot_map, mem)
+        novel = _surprise(state, token, tok_norm, nslot, n_ok,
+                          valid & (looked >= 0), mem)
+        cache_valid = valid & (novel > mem.surprise_threshold)
+        repl_idx = _most_similar(state, slot_g, token, tok_norm, K)
+        # running statistics take every valid observation
+        state.feat_sum.index_add_(0, slot_g, token)
+        state.feat_obs.index_add_(0, slot_g, valid.to(torch.float32))
+    else:
+        repl_idx = repl_idx.to(device=dev, dtype=torch.int64)
+    s_sorted, idx_sorted = torch.sort(torch.where(cache_valid, slot_g, _BIG),
                                       stable=True)
     pos_in_sort = torch.arange(N, device=dev)
     run_start = torch.cummax(
@@ -233,17 +353,17 @@ def ingest_frames(
 
     pos_k = state.feat_count[slot_g] + rank_by_point
     write_k = torch.where(pos_k < K, pos_k, repl_idx)
-    target = torch.where(valid, slot_g * K + write_k, V1 * K)
+    target = torch.where(cache_valid, slot_g * K + write_k, V1 * K)
     cache_best = torch.full((V1 * K + 1,), -1, dtype=torch.int64,
                             device=dev).scatter_reduce_(0, target, order,
                                                         "amax")
-    cache_won = valid & (cache_best[target] == order)
+    cache_won = cache_valid & (cache_best[target] == order)
     wrow = torch.where(cache_won, slot_g * K + write_k, V * K)
 
     if state.feats.dtype == torch.int8:
         # per-token absmax codes (JAX ingest.py:352-362); the scale cancels
         # in the cosine, so feat_norm holds the int8 row's norm
-        stored, tok_norm, scale = quantize_rows(token.to(torch.float32))
+        stored, tok_norm, scale = quantize_rows(token)
         state.feat_scale[wrow] = scale
     else:
         stored = token.to(state.feats.dtype)
@@ -252,13 +372,14 @@ def ingest_frames(
     state.feat_dist[wrow] = radial_sq
 
     inserted = torch.zeros(V1, dtype=torch.int32, device=dev).index_add_(
-        0, slot_g, valid.to(torch.int32))
+        0, slot_g, cache_valid.to(torch.int32))
     state.feat_count.copy_((state.feat_count + inserted).clamp_max(K))
 
     state.inv_init_base_tf.copy_(inv_init)
     state.initialized.fill_(True)
     stats = {
         "points_valid": valid.sum(),
+        "points_cached": cache_valid.sum(),
         "new_voxels": n_new_total,
         "num_voxels": state.num_voxels.clone(),
         "dropped_voxels": state.dropped_voxels.clone(),

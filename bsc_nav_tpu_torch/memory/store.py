@@ -10,7 +10,11 @@ undefined values and are never read as data.
 Rows are float32, bfloat16 or int8.  An int8 store holds per-row absmax
 codes (``quantize_feat_rows``) with their scales in ``feat_scale`` [V1*K]
 and the int8 row's norm in ``feat_norm``, so the scale cancels in the
-cosine; ``quantize_store`` converts a float store, on its device.
+cosine; ``quantize_store`` converts a float store, on its device.  Under
+``replacement="surprise"`` the store also keeps each voxel's running
+token sum and observation count (``feat_sum`` [V1, D], ``feat_obs``
+[V1]), the surprise gate's mean-field baseline; the dist policy keeps
+size-1 placeholders there.
 """
 
 from __future__ import annotations
@@ -52,8 +56,8 @@ class VoxelStoreState:
     max_height: torch.Tensor   # [G*G + 1] int32 (-1 = unobserved)
 
     # --- surprise-policy statistics (size-1 under the dist policy) -------
-    feat_sum: torch.Tensor     # [1, D] f32
-    feat_obs: torch.Tensor     # [1] f32
+    feat_sum: torch.Tensor     # [V1 | 1, D] f32 (running token sum)
+    feat_obs: torch.Tensor     # [V1 | 1] f32    (observation count)
 
     # --- frame chain -------------------------------------------------------
     inv_init_base_tf: torch.Tensor  # [4, 4] f32
@@ -77,14 +81,14 @@ def init_store(cfg: MemoryConfig, store_dtype=torch.float32,
     if store_dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise ValueError(f"store dtype {store_dtype}: float32, bfloat16 or "
                          "int8")
-    if cfg.replacement != "dist":
-        raise NotImplementedError(
-            f"replacement={cfg.replacement!r}: the surprise policy is "
-            "queued in ROADMAP.md (Queue 1 item 6)")
+    if cfg.replacement not in ("dist", "surprise"):
+        raise ValueError(f"replacement={cfg.replacement!r}: 'dist' or "
+                         "'surprise'")
     dev = resolve_device(device)
     K, D = cfg.cache_size, cfg.token_dim
     G, H = cfg.grid_size, cfg.num_height_cells
     V1 = padded_rows(cfg)
+    S = V1 if cfg.replacement == "surprise" else 1
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -107,8 +111,8 @@ def init_store(cfg: MemoryConfig, store_dtype=torch.float32,
         dropped_voxels=zeros((), torch.int32),
         cv_map=zeros((G * G + 1, 3), torch.uint8),
         max_height=full((G * G + 1,), -1, torch.int32),
-        feat_sum=zeros((1, D), torch.float32),
-        feat_obs=zeros((1,), torch.float32),
+        feat_sum=zeros((S, D), torch.float32),
+        feat_obs=zeros((S,), torch.float32),
         inv_init_base_tf=torch.eye(4, dtype=torch.float32, device=dev),
         initialized=zeros((), torch.bool),
     )

@@ -81,6 +81,36 @@ non-zero):
                 layer scales 1, the pooled token on the card against the
                 same int8 encoder on the CPU (2e-3 of max |value|, cos
                 0.9999), which the f32 encoder's pool must miss
+  forget        forgetting_pass on the spine's f32, bf16 and int8 stores at
+                full capacity (131,080 slots, in place, twice each) and on
+                a store of 124,518 live voxels: ms, voxels and rows before
+                and after; no voxel emptied, rows past a count zero-norm
+  surprise      the default Config() with replacement="surprise": the 32
+                frames into an f32 store (mean-field gate), frames 0-7
+                again mean-field and 8-15 again in exact mode, each flush
+                beside the dist policy's (slice f32), the share of valid
+                points gated out; feat_obs sums to the valid points, no
+                count past K; 3 image queries (K1, K2 counted); then one
+                batch's ingest alone under each policy, and the neighbour
+                norm's FMA chain alone
+  segments      VoxelTokenMemory(segmented=True, max_device_segments=1) at
+                Config()'s width and K, voxel_capacity cut to 4,096: the 32
+                frames rotate into int8 segments, one on the card, the rest
+                spilled to pinned host memory; their positions against the
+                plain f32 store's; 3 image queries and a 3-radius batch (K2
+                on the active segment, K2b at Q 1 on each frozen one).
+                Then at full capacity (124,518 live voxels, random rows):
+                the rotation, a query on the device segment, the spill's
+                D2H and the stream back (GB/s, pinned and pageable), a
+                query on the spilled segment, its scan against the plain
+                version on the host rows
+  explore       exploring_create_memory (random_move_num 3) and
+                explore_entire_space (max_iterations 2) on FakeNavEnv at
+                Config(): steps, flushes, s
+  segments-parity  small_test_config(): surprise stores in both modes, the
+                forgetting pass on them and a segmented store's merged
+                top-16, the card against the CPU on the same frames and
+                draws
   slice-parity  small_test_config() and a tiny ViT (head_dim 16, routed to
                 K3 as in the JAX package): the same frames and injected
                 draws on the CPU (plain versions) and on the card (kernels);
@@ -204,6 +234,11 @@ F32_CUDA_CORE_FLOPS = 67e12     # f32 FMAs outside the tensor cores
 K2_STORE = (131_080, 10, 1024)  # the default store: V1, K, D
 SPINE_LIVE_VOXELS = 9_708 / 131_080   # the spine's store after 32 frames
 PERSIST_ROWS = 653_780          # K2's kernel case's live rows
+SEGMENT_CAPACITY = 4_096        # the segments phase's cut voxel_capacity
+# segments-parity, card vs CPU: stored rows are the tokens themselves; the
+# running sums (a few unit-normal tokens, atomics on the card) and the
+# forgetting pass's group means differ by a few f32 ulps of values < ~10
+SEG_PARITY_TOL = 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -2831,6 +2866,608 @@ def composed_route_parity(dev, seed):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases: the surprise policy, forgetting, the segmented store, exploration
+# ---------------------------------------------------------------------------
+
+def recording(perception):
+    """Wrap a Perception's build step so that each call's ingest stats are
+    kept (the flushes' valid, cached and new points); returns the list."""
+    stats, build = [], perception.build_step
+
+    def build_step(*a, **k):
+        carry, st = build(*a, **k)
+        stats.append({n: int(v) for n, v in st.items()})
+        return carry, st
+
+    perception.build_step = build_step
+    return stats
+
+
+def timed_flushes(mem, frames, name, depth, extra=None):
+    """Push ``frames`` in flushes of BATCH; each flush's ms (host clock to
+    a synchronize) and its launches (K1 +depth, and ``extra``)."""
+    ms = []
+    for i in range(0, len(frames), BATCH):
+        before = counts()
+        t0 = time.perf_counter()
+        for obs, pose in frames[i:i + BATCH]:
+            mem.push_frame(obs, pose)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want = launches(K1=depth, **(extra or {}))
+        check(since(before) == want,
+              f"{name} flush {i // BATCH}: {fmt(since(before))} (want "
+              f"{fmt(want)})")
+    return ms
+
+
+def phase_surprise(dev, cfg, vcfg, world, params, dist_flush_ms):
+    """The default Config() with replacement="surprise" (mean-field gate):
+    the 32 frames into an f32 store beside a random-init ViT-L, then the
+    first 8 frames again (every point of a known voxel judged) in mean-field
+    mode and frames 8-15 again in exact mode (every cached neighbour token,
+    in chunks of 512 points); 3 image queries.  Checks: feat_sum and
+    feat_obs sized [V1, D] / [V1], feat_obs summing to the valid points,
+    counts <= K; prints the flushes beside the dist policy's."""
+    from bsc_nav_tpu_torch.agents.spatial_memory import (
+        Perception, VoxelTokenMemory)
+
+    env, frames, queries = world
+    m = dataclasses.replace(cfg.memory, replacement="surprise")
+    scfg = cfg.replace(memory=m)
+    perception = Perception.create(scfg, vit_params=params, batch_size=BATCH,
+                                   device=dev)
+    stats = recording(perception)
+    mem = VoxelTokenMemory(scfg, env, perception)
+    V1 = mem.state.feat_count.shape[0]
+    check(tuple(mem.state.feat_sum.shape) == (V1, m.token_dim)
+          and tuple(mem.state.feat_obs.shape) == (V1,),
+          "surprise: feat_sum / feat_obs not sized [V1, D] / [V1]")
+    flush_ms = timed_flushes(mem, frames, "surprise", vcfg.depth)
+    again_ms = timed_flushes(mem, frames[:BATCH], "surprise", vcfg.depth)
+    mean_stats = list(stats)
+    exact = Perception.create(
+        scfg.replace(memory=dataclasses.replace(m, surprise_exact=True)),
+        vit_params=params, batch_size=BATCH, device=dev)
+    exact_stats = recording(exact)
+    mem.perception = exact
+    exact_ms = timed_flushes(mem, frames[BATCH:2 * BATCH], "surprise exact",
+                             vcfg.depth)
+    valid = sum(s["points_valid"] for s in mean_stats + exact_stats)
+    obs_sum = float(mem.state.feat_obs.sum())
+    check(obs_sum == valid, f"surprise: feat_obs sums to {obs_sum}, "
+          f"{valid} valid points")
+    K = m.cache_size
+    check(int(mem.state.feat_count.max()) <= K, "surprise: a count past K")
+    nv = int(mem.state.num_voxels)
+    check(int(mem.state.feat_count[:nv].min()) >= 1, "surprise: empty voxel")
+    gated = {k: 1.0 - sum(s["points_cached"] for s in ss)
+             / max(1, sum(s["points_valid"] for s in ss))
+             for k, ss in (("32 frames", mean_stats[:4]),
+                           ("again, mean-field", mean_stats[4:]),
+                           ("again, exact", exact_stats))}
+    query_ms = []
+    for i, imgs in enumerate(queries):
+        before = counts()
+        t0 = time.perf_counter()
+        b, pos, sims = mem.voxel_localized(imgs, K=cfg.query.top_k)
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        check(since(before) == launches(K1=vcfg.depth, K2=1),
+              f"surprise query {i}: {fmt(since(before))}")
+        check(len(pos) > 0 and bool(np.isfinite(sims).all())
+              and bool((np.diff(sims) <= 0).all()),
+              f"surprise query {i}: bad top-K")
+    rows = int(mem.state.feat_count.sum())
+    ingest = ingest_alone(dev, cfg, scfg, vcfg, mem.state, frames[:BATCH])
+    dist_steady = statistics.median(dist_flush_ms[1:])
+    out = {"num_voxels": nv, "flush_ms": flush_ms, "ingest_alone": ingest,
+           "steady_ms": statistics.median(flush_ms[1:]),
+           "again_mean_field_ms": again_ms[0], "again_exact_ms": exact_ms[0],
+           "dist_steady_ms": dist_steady, "gated_share": gated,
+           "valid_points": valid, "rows": rows,
+           "query_ms": query_ms}
+    log("surprise", f"Config() f32 store, mean-field gate: {nv} voxels, "
+        f"{out['rows']:,} rows; flush ms {[round(t, 2) for t in flush_ms]}, "
+        f"steady {out['steady_ms']:.2f} against the dist policy's "
+        f"{dist_steady:.2f} (slice f32, this process); frames 0-7 again "
+        f"{again_ms[0]:.2f} ms mean-field, frames 8-15 again "
+        f"{exact_ms[0]:.2f} ms exact; share of valid points gated out "
+        f"{ {k: round(v, 4) for k, v in gated.items()} }; feat_obs sums to "
+        f"the {valid:,} valid points; counts <= {K}; query ms "
+        f"{[round(t, 2) for t in query_ms]}")
+    log("surprise", "the ingest alone of 8 frames into this store (random "
+        "patch tokens; host clock to a synchronize, median of 3 each): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in ingest.items()))
+    del mem, perception, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def ingest_alone(dev, cfg, scfg, vcfg, state, frames) -> dict:
+    """ms of ``ingest_frames`` alone for one batch into ``state`` under
+    the dist policy, the mean-field and the exact gate (median of 3, host
+    clock to a synchronize), and of the mean-field gate's neighbour norm
+    (``fma_norm``, an FMA chain of D steps) on its [N, 26, D] means."""
+    from bsc_nav_tpu_torch.memory.ingest import (
+        fma_norm, ingest_frames, points_per_frame)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rgb, depth, poses = (torch.from_numpy(np.stack(a)).to(dev) for a in (
+        [o["rgb"][:, :, :3] for o, _ in frames],
+        [o["depth"] for o, _ in frames], [p for _, p in frames]))
+    g = cfg.query.query_height // vcfg.patch_size
+    tokens = torch.randn(len(frames), g, g, cfg.memory.token_dim,
+                         generator=gen, device=dev)
+    exact = scfg.replace(memory=dataclasses.replace(scfg.memory,
+                                                    surprise_exact=True))
+    out = {}
+    for name, c in (("dist", cfg), ("mean-field", scfg), ("exact", exact)):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ingest_frames(state, rgb, depth, poses, tokens, gen, c)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(ts)
+    means = torch.randn(len(frames) * points_per_frame(cfg), 26,
+                        cfg.memory.token_dim, generator=gen, device=dev)
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fma_norm(means)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    out["fma_norm"] = statistics.median(ts)
+    return out
+
+
+def forget_case(name, state) -> dict:
+    """forgetting_pass on a store at full capacity, twice (in place):
+    ms, voxels and rows before and after; rows past every count zero-norm
+    (int8: scale 1.0), no voxel emptied, counts <= K.  It launches no
+    kernel of the list."""
+    from bsc_nav_tpu_torch.memory.replacement import forgetting_pass
+
+    V1 = state.feat_count.shape[0]
+    K = state.feats.shape[0] // V1
+    cnt = state.feat_count
+    out = {"store": name, "V1": V1, "voxels_before": int((cnt > 0).sum()),
+           "rows_before": int(cnt.sum()), "ms": []}
+    before = counts()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forgetting_pass(state)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    check(since(before) == launches(), f"forget {name}: {fmt(since(before))}")
+    cnt = state.feat_count
+    out["voxels_after"] = int((cnt > 0).sum())
+    out["rows_after"] = int(cnt.sum())
+    check(out["voxels_after"] == out["voxels_before"],
+          f"forget {name}: a voxel emptied")
+    check(out["rows_after"] <= out["rows_before"] and int(cnt.max()) <= K,
+          f"forget {name}: rows grew")
+    dead = (torch.arange(K, device=cnt.device)[None, :]
+            >= cnt[:, None]).reshape(-1)
+    check(float(state.feat_norm[dead].abs().max()) == 0.0,
+          f"forget {name}: a row past its count kept its norm")
+    if state.feats.dtype == torch.int8:
+        check(bool((state.feat_scale[dead] == 1.0).all()),
+              f"forget {name}: a scale past a count is not 1.0")
+    return out
+
+
+def synthetic_full_store(cfg, dev, gen, n):
+    """The default store with n live voxels of 1-10 random f32 rows each
+    (distinct positions, a filled slot map) -- a scene that fills 0.95 of
+    the capacity, without ingesting 13 x the 32 frames."""
+    from bsc_nav_tpu_torch.memory.store import init_store
+
+    m = cfg.memory
+    K, D, G, H = m.cache_size, m.token_dim, m.grid_size, m.num_height_cells
+    st = init_store(m, torch.float32, device=dev)
+    cnt = torch.randint(1, K + 1, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    st.feat_count[:n] = cnt
+    live = (torch.arange(K, device=dev)[None, :] < cnt[:, None]).reshape(-1)
+    for r0 in range(0, n * K, 1 << 18):
+        r1 = min(n * K, r0 + (1 << 18))
+        f = torch.randn(r1 - r0, D, generator=gen, device=dev)
+        f *= live[r0:r1, None]
+        st.feats[r0:r1] = f
+        st.feat_norm[r0:r1] = f.norm(dim=1)
+    stride = G * G * H // n
+    lin = torch.arange(n, device=dev) * stride
+    st.slot_pos[:n] = torch.stack([lin // (G * H), (lin // H) % G, lin % H],
+                                  dim=1).to(torch.int32)
+    st.slot_map[lin] = torch.arange(n, dtype=torch.int32, device=dev)
+    st.num_voxels.fill_(n)
+    st.initialized.fill_(True)
+    return st
+
+
+def phase_segments(dev, cfg, vcfg, world, params, spine_pos, seed):
+    """VoxelTokenMemory(segmented=True, max_device_segments=1) at the
+    default Config()'s width and K, voxel_capacity cut to 4,096 so that
+    the 32 frames rotate several times: segments, spills, the positions
+    across segments against the plain f32 store's; 3 image queries and a
+    3-radius voxel_localized_batch, K2 on the active segment and K2b at
+    Q 1 on each int8 segment, device or spilled.  Then at the full
+    capacity: a store of 0.95 x 131,072 live voxels frozen to int8 (the
+    rotation timed), a query on it on the card, its spill to pinned host
+    memory (D2H GB/s; pageable beside it) and a query on the spilled
+    segment (H2D GB/s + K2b)."""
+    from bsc_nav_tpu_torch.agents.spatial_memory import (
+        Perception, VoxelTokenMemory)
+    from bsc_nav_tpu_torch.memory import query as Q
+    from bsc_nav_tpu_torch.memory import segments as S
+    from bsc_nav_tpu_torch.memory.store import store_nbytes
+
+    env, frames, queries = world
+    scfg = cfg.replace(memory=dataclasses.replace(
+        cfg.memory, voxel_capacity=SEGMENT_CAPACITY))
+    perception = Perception.create(scfg, vit_params=params,
+                                   batch_size=BATCH, device=dev)
+    stats = recording(perception)
+    mem = VoxelTokenMemory(scfg, env, perception, segmented=True,
+                           max_device_segments=1)
+    flush_ms = timed_flushes(mem, frames, "segments", vcfg.depth)
+    seg = mem.segments
+    n_seg, n_dev, n_host = (seg.num_segments, len(seg.device_segments),
+                            len(seg.host_segments))
+    check(n_seg >= 3 and n_host >= 1,
+          f"segments: {n_seg} segments, {n_host} spilled")
+    check(all(s.feats.dtype == torch.int8 for s in seg.device_segments)
+          and all(h["feats"].dtype == torch.int8 for h in seg.host_segments)
+          and all(h["feats"].is_pinned() for h in seg.host_segments),
+          "segments: a frozen segment is not int8 (or a spill not pinned)")
+    total = seg.total_voxels()
+    new = sum(s["new_voxels"] for s in stats)
+    dropped = new - total            # new voxels past a segment's capacity
+    pos = [s_.slot_pos[:int(s_.num_voxels)].cpu().numpy()
+           for s_ in [seg.state] + seg.device_segments]
+    pos += [h["slot_pos"].numpy() for h in seg.host_segments]
+    union = set(map(tuple, np.concatenate(pos).tolist()))
+    plain = set(map(tuple, spine_pos.tolist()))
+    check(total == sum(len(p) for p in pos), "segments: voxel totals")
+    check(union <= plain, "segments: a voxel the plain store does not hold")
+    check(dropped > 0 or union == plain,
+          "segments: no voxel dropped, yet positions differ from the plain "
+          "store's")
+    k2b_per_query = n_seg - 1
+    query_ms, best = [], None
+    for i, imgs in enumerate(queries):
+        before = counts()
+        t0 = time.perf_counter()
+        b, p_, sims = mem.voxel_localized(imgs, K=cfg.query.top_k)
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        want = launches(K1=vcfg.depth, K2=1, K2b=k2b_per_query)
+        check(since(before) == want, f"segments query {i}: "
+              f"{fmt(since(before))} (want {fmt(want)})")
+        check(len(p_) > 0 and bool((np.diff(sims) <= 0).all())
+              and len(set(map(tuple, p_.tolist()))) == len(p_),
+              f"segments query {i}: bad merged top-K")
+        best = b[0] if best is None else best
+    radii = [30.0, 40.0, 50.0]
+    before = counts()
+    t0 = time.perf_counter()
+    batch = mem.voxel_localized_batch([queries[0]] * 3, K=cfg.query.top_k,
+                                      region_radii=radii, curr_grid=best)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    want = launches(K1=vcfg.depth, K2=3, K2b=3 * k2b_per_query)
+    check(since(before) == want,
+          f"segments batch: {fmt(since(before))} (want {fmt(want)})")
+    for r, (_, p_, _) in zip(radii, batch):
+        check(len(p_) > 0 and bool((((p_ - best) ** 2).sum(1)
+                                    <= r * r).all()),
+              f"segments batch: a voxel outside r {r}")
+    path = counts()
+    out = {"capacity": SEGMENT_CAPACITY, "segments": n_seg, "device": n_dev,
+           "spilled": n_host, "total_voxels": total, "new_voxels": new,
+           "dropped": dropped, "distinct_positions": len(union),
+           "plain_voxels": len(plain), "flush_ms": flush_ms,
+           "query_ms": query_ms, "batch3_ms": batch_ms}
+    log("segments", f"Config() at width and K, voxel_capacity 4,096 (cut): "
+        f"{n_seg} segments ({n_dev} int8 on the card, {n_host} spilled), "
+        f"{total:,} voxels ({len(union):,} distinct positions of the plain "
+        f"store's {len(plain):,}; {dropped:,} new voxels past a "
+        f"segment's capacity); flush ms {[round(t, 2) for t in flush_ms]}; "
+        f"query ms {[round(t, 2) for t in query_ms]} (K2 +1, K2b "
+        f"+{k2b_per_query} each), 3-radius batch {batch_ms:.2f} ms")
+    del mem, perception, seg
+    torch.cuda.empty_cache()
+
+    # --- the full capacity -------------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    m = cfg.memory
+    K, D = m.cache_size, m.token_dim
+    full = S.SegmentedStore(m, max_device_segments=1, device=dev)
+    n = full.rotate_threshold
+    full.state = synthetic_full_store(cfg, dev, gen, n)
+    forget_full = forget_case("full f32", full.state)
+    q = torch.randn(D, generator=gen, device=dev)
+    qn = q / q.norm()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(full.rotate_if_full(), "segments: the full store did not rotate")
+    torch.cuda.synchronize()
+    rotate_ms = (time.perf_counter() - t0) * 1e3
+    frozen = full.device_segments[0]
+    check(frozen.feats.dtype == torch.int8, "segments: not frozen to int8")
+
+    def device_query():
+        return Q.localize(frozen, q, top_k=cfg.query.top_k)[1].cpu()
+
+    before = counts()
+    device_query()
+    check(since(before) == launches(K2b=1), "segments: device segment "
+          f"query launched {fmt(since(before))}")
+    dev_ms = [cuda_ms(device_query, reps=5, warmup=1)]
+    rows = n * K
+    feat_bytes = rows * D
+    seg_bytes = rows * (D + 4) + n * 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = S.spill(frozen)
+    spill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()            # the copy alone, buffers pinned
+    host["feats"].copy_(frozen.feats[:rows])
+    pinned_d2h_ms = (time.perf_counter() - t0) * 1e3
+    pageable = torch.empty(rows, D, dtype=torch.int8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pageable.copy_(frozen.feats[:rows])
+    pageable_d2h_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.equal(pageable, host["feats"])),
+          "segments: the spilled rows differ from the card's")
+    del pageable
+    full.device_segments.clear()
+    full.host_segments.append(host)
+    del frozen
+    torch.cuda.empty_cache()
+
+    def h2d(src):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst = src.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        del dst
+        return (time.perf_counter() - t0) * 1e3
+
+    h2d_ms = [h2d(host["feats"]) for _ in range(3)]
+    h2d_pageable_ms = h2d(host["feats"].clone())
+    before = counts()
+    host_ms_ = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hp, hs = full._localize_host_segment(host, qn, cfg.query.top_k)
+        host_ms_.append((time.perf_counter() - t0) * 1e3)
+    check(since(before) == launches(K2b=3),
+          f"segments: spilled query launched {fmt(since(before))}")
+    # the streamed scan of the first 16,384 voxels' rows against its plain
+    # version on the host rows, within the f32 dot bound
+    nv_, rv_ = 16_384, 16_384 * K
+    sub = [host["feats"][:rv_], host["feat_norm"][:rv_],
+           host["feat_count"][:nv_]]
+    with uncounted():
+        got = S.max_cosine(*(t.to(dev) for t in sub), qn).cpu()
+    ref = S.max_cosine(*sub, qn.cpu())
+    qb = qn.cpu().to(torch.bfloat16).float()[None]      # int8: bf16 query
+    err = k2_check(got, ref, k2_bound(*sub, qb)[0],
+                   "segments: the streamed scan")
+    gbs = lambda nbytes, ms: nbytes / ms / 1e6
+    full_out = {
+        "voxels": n, "rows": rows, "int8_gb": feat_bytes / 1e9,
+        "forget": forget_full, "rotate_ms": rotate_ms,
+        "device_segment_query_ms": dev_ms[0],
+        "spill_ms": spill_ms, "spill_gb_s": gbs(seg_bytes, spill_ms),
+        "pinned_d2h_gb_s": gbs(feat_bytes, pinned_d2h_ms),
+        "pageable_d2h_gb_s": gbs(feat_bytes, pageable_d2h_ms),
+        "h2d_gb_s": [gbs(feat_bytes, t) for t in h2d_ms],
+        "pageable_h2d_gb_s": gbs(feat_bytes, h2d_pageable_ms),
+        "spilled_query_ms": host_ms_, "streamed_scan_err": err}
+    log("segments", f"full capacity: {n:,} voxels ({rows:,} rows, "
+        f"{feat_bytes / 1e9:.3f} GB int8 frozen): rotation {rotate_ms:.1f} "
+        f"ms (quantize + a fresh {store_nbytes(m) / 1e9:.2f} GB store); a "
+        f"query on the device "
+        f"segment {dev_ms[0]:.3f} ms (K2b Q 1 + top-100, events); spill "
+        f"to pinned memory {spill_ms:.1f} ms ({full_out['spill_gb_s']:.2f} "
+        f"GB/s with the pinning; the copy alone "
+        f"{full_out['pinned_d2h_gb_s']:.2f}; pageable D2H "
+        f"{full_out['pageable_d2h_gb_s']:.2f}); H2D "
+        f"pinned {[round(x, 2) for x in full_out['h2d_gb_s']]} GB/s, "
+        f"pageable {full_out['pageable_h2d_gb_s']:.2f}; a query on the "
+        f"spilled segment {[round(t, 1) for t in host_ms_]} ms (stream + "
+        f"K2b + host top-100); streamed scan err {err:.3g}; forgetting_pass "
+        f"at full capacity {[round(t, 2) for t in forget_full['ms']]} ms")
+    del full, host
+    torch.cuda.empty_cache()
+    out["full_capacity"] = full_out
+    return out, path
+
+
+def phase_explore(dev, cfg, vcfg, params, seed):
+    """exploring_create_memory (random_move_num 3) then
+    explore_entire_space (max_iterations 2) on FakeNavEnv at the default
+    Config(): steps, flushes, s; the store grows, the frames the flows
+    push are flushed, no count past K."""
+    from bsc_nav_tpu_torch.agents.spatial_memory import (
+        Perception, VoxelTokenMemory)
+    from bsc_nav_tpu_torch.env.fake import BoxScene, FakeNavEnv
+    from bsc_nav_tpu_torch.env.pathfinding import AgentState, Quat
+
+    ecfg = cfg.replace(agent=dataclasses.replace(cfg.agent,
+                                                 random_move_num=3))
+    env = FakeNavEnv(ecfg, scene=BoxScene.default(), seed=seed)
+    env.reset(init_state=AgentState(np.zeros(3), Quat.from_yaw(0.0)),
+              build_map=True)
+    perception = Perception.create(ecfg, vit_params=params,
+                                   batch_size=BATCH, device=dev)
+    stats = recording(perception)
+    mem = VoxelTokenMemory(ecfg, env, perception)
+    out = {}
+    for flow, run in (("exploring_create_memory",
+                       lambda: mem.exploring_create_memory(save=False)),
+                      ("explore_entire_space",
+                       lambda: mem.explore_entire_space(max_iterations=2,
+                                                        save=False))):
+        steps0, flushes0, before = mem.step_count, len(stats), counts()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        flushes = len(stats) - flushes0
+        check(since(before) == launches(K1=vcfg.depth * flushes),
+              f"explore {flow}: {fmt(since(before))}")
+        out[flow] = {"steps": mem.step_count - steps0, "flushes": flushes,
+                     "s": s, "num_voxels": int(mem.state.num_voxels)}
+    check(out["exploring_create_memory"]["steps"] > 0
+          and out["explore_entire_space"]["steps"] > 0,
+          "explore: no steps taken")
+    check(out["explore_entire_space"]["num_voxels"]
+          >= out["exploring_create_memory"]["num_voxels"] > 0,
+          "explore: an empty store")
+    check(not mem._queue and int(mem.state.feat_count.max())
+          <= cfg.memory.cache_size, "explore: unflushed frames or counts")
+    log("explore", "; ".join(
+        f"{k}: {v['steps']} steps, {v['flushes']} flushes, {v['s']:.1f} s, "
+        f"{v['num_voxels']} voxels" for k, v in out.items())
+        + f" (FakeNavEnv renders each {cfg.sensor.width}x"
+        f"{cfg.sensor.height} frame on the host; "
+        f"{len(mem.base_height)} heights recorded)")
+    del mem, perception
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_segments_parity(dev, seed):
+    """small_test_config(): the same frames and injected draws on the CPU
+    (plain versions) and on the card (kernels): surprise stores in both
+    modes, forgetting_pass on the result, and a segmented store's merged
+    top-K (K2 and K2b on the card)."""
+    from bsc_nav_tpu_torch.config import small_test_config
+    from bsc_nav_tpu_torch.memory.ingest import ingest_frames, points_per_frame
+    from bsc_nav_tpu_torch.memory.replacement import forgetting_pass
+    from bsc_nav_tpu_torch.memory.segments import SegmentedStore
+    from bsc_nav_tpu_torch.memory.store import init_store
+
+    base = small_test_config()
+    rng = np.random.default_rng(seed + 5)
+    B, H, W = 3, base.sensor.height, base.sensor.width
+    P, D, K = points_per_frame(base), base.memory.token_dim, \
+        base.memory.cache_size
+    rgb = rng.integers(0, 255, size=(B, H, W, 3), dtype=np.uint8)
+    depth = rng.uniform(0.2, 4.0, size=(B, H, W)).astype(np.float32)
+    poses = np.zeros((B, 7), np.float32)
+    poses[:, :3] = rng.uniform(-1, 1, size=(B, 3))
+    qt = rng.normal(size=(B, 4))
+    poses[:, 3:] = qt / np.linalg.norm(qt, axis=1, keepdims=True)
+    tokens = rng.normal(size=(B, 2, 2, D)).astype(np.float32)
+    batches = [(tokens, rng.integers(0, H * W, size=(B, P)))
+               for _ in range(2)]
+    batches[1] = (tokens + rng.normal(size=tokens.shape).astype(np.float32),
+                  batches[1][1])
+    G = base.memory.grid_size
+    ints = (("slot_pos", -2), ("feat_count", -2), ("slot_map", -1),
+            ("cv_map", G * G), ("max_height", G * G), ("num_voxels", None))
+    out = {}
+    for exact in (False, True):
+        cfg = base.replace(memory=dataclasses.replace(
+            base.memory, voxel_capacity=(1 << 10) - 8,
+            replacement="surprise", surprise_exact=exact,
+            surprise_threshold=0.9))
+        V = cfg.memory.voxel_capacity
+        res = {}
+        for d in ("cpu", dev):
+            st = init_store(cfg.memory, device=d)
+            for tk, pix in batches:
+                st, _ = ingest_frames(
+                    st, *(torch.from_numpy(a).to(d)
+                          for a in (rgb, depth, poses, tk)), None, cfg,
+                    pix=torch.from_numpy(pix).to(d))
+            res[str(d)] = st
+        a, b = res["cpu"], res[str(dev)]
+        n = int(a.num_voxels)
+        for f, rows in ints + (("feat_obs", -2),):
+            rows = {-2: V}.get(rows, rows)
+            x, y = getattr(a, f), getattr(b, f).cpu()
+            if rows is not None:
+                x, y = x[:rows], y[:rows]
+            check(torch.equal(x, y), f"segments-parity: surprise {f}")
+        err = max(float((getattr(b, f)[:r].cpu() - getattr(a, f)[:r]).abs()
+                        .max()) for f, r in (("feats", n * K),
+                                             ("feat_sum", n)))
+        check(err <= SEG_PARITY_TOL,
+              f"segments-parity: surprise rows err {err}")
+        for st in (a, b):
+            forgetting_pass(st)
+        check(torch.equal(a.feat_count, b.feat_count.cpu()),
+              "segments-parity: forgetting counts")
+        ferr = float((b.feats.cpu() - a.feats).abs().max())
+        check(ferr <= SEG_PARITY_TOL,
+              f"segments-parity: forgetting rows err {ferr}")
+        out["exact" if exact else "mean-field"] = {
+            "voxels": n, "rows_err": err, "forget_rows_err": ferr}
+    # a segmented store: 248 slots, 5 single-frame batches, one device
+    # segment, the rest spilled
+    cfg = base.replace(memory=dataclasses.replace(base.memory,
+                                                  voxel_capacity=248))
+    frames = []
+    for i in range(5):
+        r = np.random.default_rng(seed + 40 + i)
+        fp = poses[:1].copy()
+        fp[:, :3] = i * 1.2
+        frames.append((r.integers(0, 255, size=(1, H, W, 3), dtype=np.uint8),
+                       r.uniform(0.2, 4.0, size=(1, H, W)).astype(np.float32),
+                       fp, r.normal(size=(1, 2, 2, D)).astype(np.float32),
+                       r.integers(0, H * W, size=(1, P)),
+                       r.integers(0, K, size=P)))
+    tops = {}
+    qv = rng.normal(size=D).astype(np.float32)
+    for d in ("cpu", dev):
+        seg = SegmentedStore(cfg.memory, max_device_segments=1, device=d)
+        for rgb_, dep, ps, tk, pix, repl in frames:
+            seg.state, _ = ingest_frames(
+                seg.state, *(torch.from_numpy(x).to(d)
+                             for x in (rgb_, dep, ps, tk)), None, cfg,
+                pix=torch.from_numpy(pix).to(d),
+                repl_idx=torch.from_numpy(repl).to(d))
+            seg.rotate_if_full()
+        check(len(seg.host_segments) >= 1 and len(seg.device_segments) == 1,
+              "segments-parity: no spill")
+        before = counts()
+        tops[str(d)] = seg.localize(torch.from_numpy(qv).to(d), top_k=16)
+        if d != "cpu":
+            want = launches(K2=1, K2b=seg.num_segments - 1)
+            check(since(before) == want, f"segments-parity: localize "
+                  f"launched {fmt(since(before))} (want {fmt(want)})")
+        out["segments"] = seg.num_segments
+    (cp, cs), (gp, gs) = tops["cpu"], tops[str(dev)]
+    err = float(np.abs(gs - cs).max())
+    check(len(cs) == len(gs) > 0 and err <= 2e-5,
+          f"segments-parity: merged scores err {err}")
+    kth = cs.min()
+    check({tuple(p) for p, s_ in zip(cp, cs) if s_ > kth + 4e-5}
+          == {tuple(p) for p, s_ in zip(gp, gs) if s_ > kth + 4e-5},
+          "segments-parity: merged top-K differs")
+    out["merged_score_err"] = err
+    log("segments-parity", f"small_test_config: surprise stores equal "
+        f"(mean-field {out['mean-field']['voxels']}, exact "
+        f"{out['exact']['voxels']} voxels; rows err "
+        f"{out['mean-field']['rows_err']:.3g} / "
+        f"{out['exact']['rows_err']:.3g}), forgetting_pass counts equal "
+        f"(rows err {out['mean-field']['forget_rows_err']:.3g} / "
+        f"{out['exact']['forget_rows_err']:.3g}); a segmented store of "
+        f"{out['segments']} segments (1 int8 on the card, the rest spilled): "
+        f"the merged top-16 equal, score err {err:.3g}")
+    return out
+
+
 def kernel_cases_only(names, seed) -> int:
     """``--kernels``: the named kernels' cases alone, on the card."""
     from bsc_nav_tpu_torch.ops import _build
@@ -2913,7 +3550,7 @@ def main(argv=None) -> int:
     # read just after: the spine (slice f32, bf16), batched queries on
     # each slice's store, the int8 store and persistence, the int8 encoder
     spine = batch_path = launches()
-    slices, batches = [], []
+    slices, batches, forgets = [], [], []
     for dt in (torch.float32, torch.bfloat16):
         reset_counts()
         result, mem = phase_slice(dev, dt, cfg, vcfg, world, args.seed)
@@ -2931,6 +3568,9 @@ def main(argv=None) -> int:
                 int8 = int8_checks(mem8, mem, tops8, world, cases)
             int8.update(flush_ms=flush8, query_ms=query8)
             params32 = mem.perception.vit_params
+            spine_pos = mem.state.slot_pos[:int(mem.state.num_voxels)
+                                           ].cpu().numpy()
+        forgets.append(forget_case(f"spine {str(dt)[6:]}", mem.state))
         del mem
         torch.cuda.empty_cache()
     log("slice", f"launches on the memory spine: {fmt(spine)}")
@@ -2947,9 +3587,16 @@ def main(argv=None) -> int:
     reset_counts()
     persist = phase_persist(dev, cfg, args.seed, mem8)
     persist_path = counts()
-    del mem8
     check(persist_path == launches(),
           f"persist launches {fmt(persist_path)} (want none)")
+    forgets.append(forget_case("spine int8", mem8.state))
+    del mem8
+    log("forget", "forgetting_pass (threshold 0.95) on the spine's stores "
+        "at full capacity (131,080 slots), in place, twice each: " + "; ".join(
+            f"{f['store']} {[round(t, 2) for t in f['ms']]} ms, voxels "
+            f"{f['voxels_before']} -> {f['voxels_after']}, rows "
+            f"{f['rows_before']:,} -> {f['rows_after']:,}" for f in forgets)
+        + "; rows past every count zero-norm, int8 scales 1.0 there")
     reset_counts()
     perc8, mem8e, enc = phase_int8_encoder(dev, cfg, vcfg, world, params32)
     enc_path = counts()
@@ -2958,7 +3605,32 @@ def main(argv=None) -> int:
           f"int8 encoder launches {fmt(enc_path)}")
     with uncounted():
         enc = int8_encoder_checks(dev, cfg, params32, world, enc)
-    del perc8, mem8e, params32
+    del perc8, mem8e
+    torch.cuda.empty_cache()
+    reset_counts()
+    surprise = phase_surprise(dev, cfg, vcfg, world, params32,
+                              slices[0]["flush_ms"])
+    surprise_path = counts()
+    log("surprise", f"launches on the path: {fmt(surprise_path)}")
+    check(surprise_path == launches(
+        K1=(N_FRAMES // BATCH + 2 + N_QUERIES) * vcfg.depth, K2=N_QUERIES),
+          f"surprise launches {fmt(surprise_path)}")
+    reset_counts()
+    segments, segments_path = phase_segments(dev, cfg, vcfg, world, params32,
+                                             spine_pos, args.seed)
+    log("segments", f"launches on the path: {fmt(segments_path)}")
+    seg_k2b = segments["segments"] - 1
+    check(segments_path == launches(
+        K1=(N_FRAMES // BATCH + N_QUERIES + 1) * vcfg.depth,
+        K2=N_QUERIES + 3, K2b=(N_QUERIES + 3) * seg_k2b),
+          f"segments launches {fmt(segments_path)}")
+    forgets.append(segments["full_capacity"]["forget"])
+    reset_counts()
+    explore = phase_explore(dev, cfg, vcfg, params32, args.seed)
+    explore_path = counts()
+    log("explore", f"launches on the path: {fmt(explore_path)}")
+    seg_parity = phase_segments_parity(dev, args.seed)
+    del params32
     torch.cuda.empty_cache()
     parity_err = phase_parity(dev, args.seed)
 
@@ -2997,6 +3669,8 @@ def main(argv=None) -> int:
 
     paths = {"spine": spine, "batch": batch_path, "int8": int8_path,
              "persist": persist_path, "int8-encoder": enc_path,
+             "surprise": surprise_path, "segments": segments_path,
+             "explore": explore_path,
              "clip": clip_path, "yolo": yolo_path, **textq_paths}
 
     def main_case(kernel, dtype="float32", **match):
@@ -3084,7 +3758,9 @@ def main(argv=None) -> int:
               dispatched="YOLO-World's f32 3x3 stride-1 convs "
                          "(models/yolo_world.conv_bn_act)"),
     ], "slices": slices, "batch": batches, "int8": int8,
-        "persist": persist, "int8_encoder": enc,
+        "persist": persist, "int8_encoder": enc, "surprise": surprise,
+        "forget": forgets, "segments": segments, "explore": explore,
+        "segments_parity": seg_parity,
         "slice_parity_max_err": parity_err, "clip": clip,
         "clip_parity": clip_parity, "yolo": yolo, "yolo_parity": yolo_parity,
         "textq": textq,

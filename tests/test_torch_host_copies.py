@@ -18,7 +18,9 @@ from bsc_nav_tpu.env.fake import BoxScene as JBoxScene
 from bsc_nav_tpu.env.fake import FakeNavEnv as JFakeNavEnv
 from bsc_nav_tpu.env.pathfinding import AgentState as JAgentState
 from bsc_nav_tpu.env.pathfinding import Quat as JQuat
+from bsc_nav_tpu import geometry as jgeometry
 from bsc_nav_tpu.memory import floors as jfloors
+from bsc_nav_tpu.memory import frontier as jfrontier
 from bsc_nav_tpu.models import sentencepiece as jsp
 from bsc_nav_tpu.models import tokenizer as jtok
 from bsc_nav_tpu.models.detector import (
@@ -28,7 +30,9 @@ from bsc_nav_tpu_torch.agents.matchers import ColorViewScorer
 from bsc_nav_tpu_torch.agents.spatial_memory import Perception
 from bsc_nav_tpu_torch.env.fake import BoxScene, FakeNavEnv
 from bsc_nav_tpu_torch.env.pathfinding import AgentState, Quat
+from bsc_nav_tpu_torch import geometry as tgeometry
 from bsc_nav_tpu_torch.memory import floors as tfloors
+from bsc_nav_tpu_torch.memory import frontier as tfrontier
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import sentencepiece as tsp
 from bsc_nav_tpu_torch.models import tokenizer as ttok
@@ -149,6 +153,51 @@ def test_config_copy_is_field_for_field(make):
     b = getattr(tconfig, make)()
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
     assert jconfig.HM3D_DETECT_CLASSES == tconfig.HM3D_DETECT_CLASSES
+
+
+def _maps(seed, n=96):
+    """A known map grown from blobs of observed cells and a navigable map
+    with obstacles, [n, n] bool."""
+    rng = np.random.default_rng(seed)
+    known = np.zeros((n, n), bool)
+    for _ in range(rng.integers(1, 6)):
+        r, c = rng.integers(0, n, 2)
+        h, w = rng.integers(4, n // 2, 2)
+        known[r:r + h, c:c + w] = True
+    nav = rng.uniform(size=(n, n)) > 0.15
+    nav[rng.integers(0, n, 20), :] = False
+    return known, nav
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_frontier_copy_matches_jax(seed):
+    """The frontier copy against the JAX package's: masks, clusters, the
+    information-gain map and the chosen target on seeded maps (an
+    exhausted map among them), and ``grid_to_world_2d``."""
+    known, nav = _maps(seed)
+    if seed == 5:
+        known[:] = True
+    np.testing.assert_array_equal(tfrontier.find_frontiers(known, nav),
+                                  jfrontier.find_frontiers(known, nav))
+    mask = jfrontier.find_frontiers(known, nav)
+    for size in (1, 10):
+        a = tfrontier.cluster_frontiers(mask, size)
+        b = jfrontier.cluster_frontiers(mask, size)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(tfrontier.information_gain_map(known, 5),
+                                  jfrontier.information_gain_map(known, 5))
+    for size, r in ((10, 5), (3, 2)):
+        assert (tfrontier.select_frontier_target(known, nav, size, r)
+                == jfrontier.select_frontier_target(known, nav, size, r))
+    if seed == 5:
+        assert tfrontier.select_frontier_target(known, nav) is None
+    origin = np.array([0.3, 1.2, -2.7])
+    for rc in ((10.5, 40.0), (0, 0, 3), (999.25, 17.0)):
+        np.testing.assert_array_equal(
+            tgeometry.grid_to_world_2d(rc, origin, 1000, 0.1),
+            jgeometry.grid_to_world_2d(rc, origin, 1000, 0.1))
 
 
 def test_tokenizer_copies_give_equal_ids():

@@ -219,11 +219,3 @@ def test_generator_draws_are_seeded():
             "cv_map": m.grid_size ** 2}         # garbage rows excluded
     for f, n in live.items():
         assert torch.equal(getattr(runs[0], f)[:n], getattr(runs[1], f)[:n])
-
-
-def test_surprise_policy_not_ported():
-    cfg = small_test_config()
-    cfg = cfg.replace(memory=dataclasses.replace(cfg.memory,
-                                                 replacement="surprise"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinit(cfg.memory, device="cpu")

@@ -1258,3 +1258,205 @@ def test_weight_quantize_on_the_card_equals_the_cpu(cuda, shape):
     got = fn({"w": w.to(cuda)})
     for k in ("w_q", "w_s"):
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the surprise policy, the forgetting pass and spilled segments on the card
+# ---------------------------------------------------------------------------
+
+def _surprise_cfg(exact):
+    import dataclasses
+    cfg = small_test_config()
+    return cfg.replace(memory=dataclasses.replace(
+        cfg.memory, voxel_capacity=(1 << 10) - 8, replacement="surprise",
+        surprise_exact=exact, surprise_threshold=0.9))
+
+
+def _surprise_frames(cfg, seed=20):
+    """Three frames at random poses and depths, twice (other pixel draws,
+    the tokens moved by noise), with the pixel draws."""
+    rng = np.random.default_rng(seed)
+    B, H, W = 3, cfg.sensor.height, cfg.sensor.width
+    P = -(-H * W // cfg.memory.depth_sample_rate)
+    rgb = rng.integers(0, 255, size=(B, H, W, 3), dtype=np.uint8)
+    depth = rng.uniform(0.2, 4.0, size=(B, H, W)).astype(np.float32)
+    poses = np.zeros((B, 7), np.float32)
+    poses[:, :3] = rng.uniform(-1, 1, size=(B, 3))
+    q = rng.normal(size=(B, 4))
+    poses[:, 3:] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    tokens = rng.normal(size=(B, 2, 2, cfg.memory.token_dim)).astype(
+        np.float32)
+    moved = tokens + rng.normal(size=tokens.shape).astype(np.float32)
+    return [(rgb, depth, poses, t, rng.integers(0, H * W, size=(B, P)))
+            for t in (tokens, moved)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_surprise_ingest_on_the_card_matches_cpu(cuda, exact, dtype):
+    """The surprise ingest on the card (TF32 on in the caller: the cosines
+    stay full f32) against the CPU on the same frames and draws: equal
+    integer fields and observation counts, rows and running sums within
+    1e-5 relative.  Each gate decision of the CPU run lies more than 1e-5
+    from the threshold, beyond the two devices' cosine differences."""
+    from bsc_nav_tpu_torch.memory import ingest as ting
+    cfg = _surprise_cfg(exact)
+    thr = cfg.memory.surprise_threshold
+    gate = ting._surprise
+    gaps = []
+
+    def checked(state, token, tok_norm, nslot, n_ok, judged, mem):
+        novel = gate(state, token, tok_norm, nslot, n_ok, judged, mem)
+        v = novel[judged]
+        v = v[torch.isfinite(v)].double().cpu()
+        gaps.append(float((v - thr).abs().min()) if len(v) else np.inf)
+        return novel
+
+    stores = {}
+    old = torch.backends.cuda.matmul.allow_tf32
+    ting._surprise = checked
+    try:
+        for dev in ("cpu", cuda):
+            torch.backends.cuda.matmul.allow_tf32 = True
+            state = init_store(cfg.memory, dtype, device=dev)
+            for rgb, depth, poses, tokens, pix in _surprise_frames(cfg):
+                state, _ = ting.ingest_frames(
+                    state, *(torch.from_numpy(a).to(dev)
+                             for a in (rgb, depth, poses, tokens)),
+                    None, cfg, pix=torch.from_numpy(pix).to(dev))
+            stores[str(dev)] = state
+    finally:
+        ting._surprise = gate
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert min(gaps) > 1e-5
+    cpu, card = stores["cpu"], stores[str(cuda)]
+    n, K = int(cpu.num_voxels), cfg.memory.cache_size
+    assert n > 100
+    G = cfg.memory.grid_size
+    for f, rows in (("slot_pos", n), ("feat_count", n), ("slot_map", -1),
+                    ("cv_map", G * G), ("max_height", G * G),
+                    ("num_voxels", None), ("feat_obs", n)):
+        a, b = getattr(cpu, f), getattr(card, f).cpu()
+        if rows is not None:
+            a, b = a[:rows], b[:rows]
+        assert torch.equal(a, b), f
+    for f, rows in (("feats", n * K), ("feat_norm", n * K),
+                    ("feat_sum", n)):
+        a = getattr(cpu, f)[:rows].float()
+        b = getattr(card, f)[:rows].float().cpu()
+        assert torch.allclose(b, a, rtol=1e-5, atol=1e-6), f
+
+
+def _dup_rows(V1, K, D, n, seed):
+    """n voxels of K rows, some rows near-duplicates of an earlier one
+    (cosine > 0.999), the rest random; random counts."""
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=(V1, K, D)).astype(np.float32)
+    dup = rng.uniform(size=(V1, K)) < 0.4
+    src = rng.integers(0, K, size=(V1, K))
+    for v, k in zip(*np.nonzero(dup)):
+        f[v, k] = f[v, min(src[v, k], k)] * rng.uniform(0.5, 2.0) + (
+            1e-3 * rng.normal(size=D))
+    counts = rng.integers(0, K + 1, size=V1).astype(np.int32)
+    counts[n:] = 0
+    f[np.arange(K)[None, :] >= counts[:, None]] = 0.0
+    return f.reshape(V1 * K, D), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_forgetting_pass_on_the_card_matches_cpu(cuda, dtype):
+    """forgetting_pass on the card (TF32 on in the caller, chunks of 301
+    voxels) against the CPU: equal counts; rows, norms and distances
+    within 1e-5 relative; int8 codes within 1 and scales within 1e-6
+    relative; 1.0 scales and zero rows past every count."""
+    from bsc_nav_tpu_torch.memory import replacement as trep
+    V1, K, D = 1608, 10, 1024
+    f, counts = _dup_rows(V1, K, D, 1500, seed=3)
+    state = tstore.VoxelStoreState(**{
+        k: v for k, v in vars(init_store(
+            small_test_config().memory, device="cpu")).items()})
+    state.feat_count = torch.from_numpy(counts.copy())
+    state.feat_dist = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 9, size=V1 * K).astype(np.float32))
+    rows = torch.from_numpy(f)
+    if dtype == torch.int8:
+        state.feats, state.feat_norm, state.feat_scale = (
+            tstore.quantize_feat_rows(rows, rows.norm(dim=1)))
+    else:
+        state.feats = rows.to(dtype)
+        state.feat_norm = state.feats.float().norm(dim=1)
+        state.feat_scale = torch.zeros(1)
+    card = tstore.VoxelStoreState(**{k: v.to(cuda, copy=True) for k, v in
+                                     vars(state).items()})
+    old_chunk, old_tf32 = (trep.CHUNK_ELEMENTS,
+                           torch.backends.cuda.matmul.allow_tf32)
+    try:
+        trep.CHUNK_ELEMENTS = 301 * K * D
+        torch.backends.cuda.matmul.allow_tf32 = True
+        want = trep.forgetting_pass(state)
+        got = trep.forgetting_pass(card)
+        torch.cuda.synchronize()
+    finally:
+        trep.CHUNK_ELEMENTS = old_chunk
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    assert torch.equal(got.feat_count.cpu(), want.feat_count)
+    assert int((want.feat_count < torch.from_numpy(counts)).sum()) > 200
+    if dtype == torch.int8:
+        diff = (got.feats.cpu().int() - want.feats.int()).abs()
+        assert int(diff.max()) <= 1
+        assert torch.allclose(got.feat_scale.cpu(), want.feat_scale,
+                              rtol=1e-6, atol=0)
+    else:
+        assert torch.allclose(got.feats.cpu().float(), want.feats.float(),
+                              rtol=1e-5, atol=1e-6)
+    for f_ in ("feat_norm", "feat_dist"):
+        assert torch.allclose(getattr(got, f_).cpu(), getattr(want, f_),
+                              rtol=1e-5, atol=1e-6), f_
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [None, "int8"])
+def test_spilled_segment_scans_on_k2_and_k2b(cuda, freeze):
+    """A segment of 203 voxels (its n x K rows unpadded) frozen and spilled
+    to pinned host memory, then queried: the rows stream back to the card
+    and take K2 (f32 rows) or K2b at Q 1 (int8 rows), once a query; the
+    top-16 against the plain scan of the same host rows, within 2e-5."""
+    import dataclasses
+    from bsc_nav_tpu_torch.memory import segments as tseg
+    cfg = small_test_config()
+    mem = dataclasses.replace(cfg.memory, voxel_capacity=248)
+    seg = tseg.SegmentedStore(mem, max_device_segments=0,
+                              freeze_dtype=freeze, device=cuda)
+    f, n, c, _ = _store(203, mem.cache_size, mem.token_dim, seed=9)
+    rng = np.random.default_rng(9)
+    s = seg.state
+    rows = 203 * mem.cache_size
+    s.feats[:rows], s.feat_norm[:rows] = f.to(cuda), n.to(cuda)
+    s.feat_count[:203] = c.to(cuda)
+    s.slot_pos[:203] = torch.from_numpy(rng.integers(
+        0, 60, size=(203, 3)).astype(np.int32)).to(cuda)
+    s.num_voxels.fill_(203)
+    seg.rotate_threshold = 200
+    assert seg.rotate_if_full() and len(seg.host_segments) == 1
+    host = seg.host_segments[0]
+    assert host["feats"].shape[0] == rows and host["feats"].is_pinned()
+    assert host["feats"].dtype == (torch.int8 if freeze else torch.float32)
+    q = torch.from_numpy(_unit_queries(1, mem.token_dim, 2, "cpu")[0]
+                         .numpy())
+    n2, n2b = (tsim.max_cosine_per_voxel.launches,
+               tsim.max_cosine_per_voxel_batch.launches)
+    got = seg._localize_host_segment(host, q.to(cuda), 16)
+    torch.cuda.synchronize()
+    assert (tsim.max_cosine_per_voxel.launches - n2,
+            tsim.max_cosine_per_voxel_batch.launches - n2b) == (
+                (0, 1) if freeze else (1, 0))
+    want = seg._localize_host_segment(
+        {k: (v.clone() if torch.is_tensor(v) else v)
+         for k, v in host.items()}, q, 16)
+    np.testing.assert_allclose(got[1], want[1], atol=2e-5, rtol=0)
+    kth = want[1].min()
+    assert ({tuple(p) for p, s_ in zip(*got) if s_ > kth + 4e-5}
+            == {tuple(p) for p, s_ in zip(*want) if s_ > kth + 4e-5})

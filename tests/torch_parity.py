@@ -43,11 +43,13 @@ def _gamma(n):
     return n * U32 / (1 - n * U32)
 
 
-def jax_frame_points(cfg, depth, poses, pix):
-    """(cam2world [B, 4, 4], p_local, p_world [B, P, 3]) of a first batch
-    of frames as ``bsc_nav_tpu/memory/ingest.py`` computes them inside
-    its jitted ``ingest_frames`` (frame chain, backprojection, world
-    transform; ``ingest.py:99-132``), jitted alone."""
+def jax_frame_points(cfg, depth, poses, pix, inv_init=None):
+    """(inv_calib, cam2world [B, 4, 4], p_local, p_world [B, P, 3],
+    inv_init [4, 4]) of a batch of frames as ``bsc_nav_tpu/memory/
+    ingest.py`` computes them inside its jitted ``ingest_frames`` (frame
+    chain, backprojection, world transform; ``ingest.py:99-132``), jitted
+    alone: the frame chain from ``poses[0]`` on a store's first batch
+    (``inv_init`` None), else the store's chain ``inv_init``."""
     from bsc_nav_tpu import geometry as JG
     B, H, W = depth.shape
     hi = jax.lax.Precision.HIGHEST
@@ -56,11 +58,13 @@ def jax_frame_points(cfg, depth, poses, pix):
                       jnp.float32)
     calib = jnp.asarray(JG.camera_intrinsics(H, W, cfg.sensor.hfov_deg),
                         jnp.float32)
+    first = inv_init is None
 
     @jax.jit
-    def stage(depth, poses, pix):
+    def stage(depth, poses, pix, inv_init):
         inv_calib = jnp.asarray(jnp.linalg.inv(calib), jnp.float32)
-        inv_init = JG.initial_base_inverse(poses[0], base)
+        if first:
+            inv_init = JG.initial_base_inverse(poses[0], base)
         cam2world = jax.vmap(lambda p: JG.camera_to_world_transform(
             p, inv_init, base, b2c))(poses)
         z = jnp.take_along_axis(depth.reshape(B, H * W), pix, axis=1)
@@ -71,9 +75,11 @@ def jax_frame_points(cfg, depth, poses, pix):
         p_local = rays * z[..., None]
         p_world = jnp.einsum("bpj,bij->bpi", p_local, cam2world[:, :3, :3],
                              precision=hi) + cam2world[:, None, :3, 3]
-        return inv_calib, cam2world, p_local, p_world
+        return inv_calib, cam2world, p_local, p_world, inv_init
 
-    out = stage(*map(jnp.asarray, (depth, poses.astype(np.float32), pix)))
+    out = stage(*map(jnp.asarray, (depth, poses.astype(np.float32), pix,
+                                   np.eye(4, dtype=np.float32)
+                                   if first else inv_init)))
     return tuple(np.array(a) for a in out)
 
 
@@ -98,7 +104,7 @@ def assert_frame_points_within_bound(cfg, depth, poses, pix):
     Returns JAX's (cam2world, p_local, p_world) as numpy."""
     from bsc_nav_tpu_torch import geometry as TG
     from bsc_nav_tpu_torch.memory import ingest as ting
-    inv_calib, c2w, pl, pw = jax_frame_points(cfg, depth, poses, pix)
+    inv_calib, c2w, pl, pw, _ = jax_frame_points(cfg, depth, poses, pix)
     base = torch.as_tensor(TG.base_axes_transform(), dtype=torch.float32)
     b2c = torch.as_tensor(TG.base_to_cam_transform(cfg.sensor.sensor_height),
                           dtype=torch.float32)
@@ -418,11 +424,61 @@ def fill_zero_mods(params, seed, std=0.5):
     return out
 
 
+def _tensor(a, device="cpu") -> torch.Tensor:
+    """A JAX or numpy array as a tensor (bf16 kept as bf16)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
 def store_from_jax(jstate, device="cpu") -> VoxelStoreState:
     """A port store holding a JAX store's arrays."""
     return VoxelStoreState(**{
-        f: torch.from_numpy(np.array(getattr(jstate, f))).to(device)
+        f: _tensor(getattr(jstate, f), device)
         for f in VoxelStoreState.__dataclass_fields__})
+
+
+def segments_from_jax(jseg, store_dtype, device="cpu"):
+    """A port ``SegmentedStore`` holding a JAX ``SegmentedStore``'s
+    segments: the active and device segments as port stores, the spilled
+    ones as dicts of tensors; the same policy (threshold, device segment
+    count, freeze dtype)."""
+    from bsc_nav_tpu_torch.memory.segments import SegmentedStore
+    seg = SegmentedStore(jseg.cfg, store_dtype=store_dtype,
+                         max_device_segments=jseg.max_device_segments,
+                         freeze_dtype=jseg.freeze_dtype, device=device)
+    seg.rotate_threshold = jseg.rotate_threshold
+    seg.state = store_from_jax(jseg.state, device)
+    seg.device_segments = [store_from_jax(s, device)
+                           for s in jseg.device_segments]
+    seg.host_segments = [
+        {**{k: _tensor(h[k]) for k in ("feats", "feat_norm", "feat_count",
+                                       "slot_pos")},
+         "n": h["n"], "K": h["K"]} for h in jseg.host_segments]
+    return seg
+
+
+def inject_jax_build(tmem, cfg):
+    """Wrap a port agent's build step so that each call takes the pixel
+    and replacement draws and the world points of the JAX agent's build
+    step at the same call (its key ``PRNGKey(cfg.seed)``, split once a
+    call; points on axis-aligned walls sit on cell edges, where the last
+    bit of XLA's products decides the voxel)."""
+    carry = {"key": jax.random.PRNGKey(cfg.seed), "inv": None}
+    build = tmem.perception.build_step
+
+    def injected(c, params, rgb, depth, poses):
+        carry["key"], pix, repl = build_step_draws(carry["key"], cfg,
+                                                   rgb.shape[0])
+        *_, pl, pw, carry["inv"] = jax_frame_points(
+            cfg, depth.cpu().numpy(), poses.cpu().numpy(), pix, carry["inv"])
+        return build(c, params, rgb, depth, poses,
+                     pix=torch.from_numpy(pix), repl_idx=torch.from_numpy(repl),
+                     points=(torch.from_numpy(pl), torch.from_numpy(pw)))
+
+    tmem.perception.build_step = injected
 
 
 def randomize_stats(params, seed):

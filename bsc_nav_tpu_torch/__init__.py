@@ -41,13 +41,24 @@ def resolve_device(device) -> torch.device:
 def full_f32_matmul():
     """f32 matmuls inside run in full f32 (JAX's ``Precision.HIGHEST``),
     whatever the caller's TF32 and float32 matmul precision flags; the
-    flags are restored on exit."""
-    precision = torch.get_float32_matmul_precision()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
+    flags are restored on exit.  A caller that mixed ``allow_tf32`` with
+    ``set_float32_matmul_precision`` leaves settings PyTorch's process-wide
+    getters refuse to read: those are restored per backend."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [b.fp32_precision for b in backends]
+    try:
+        precision = torch.get_float32_matmul_precision()
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+    except RuntimeError:
+        precision = None
     torch.set_float32_matmul_precision("highest")
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.set_float32_matmul_precision(precision)
+        if precision is None:
+            for b, p in zip(backends, saved):
+                b.fp32_precision = p
+        else:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.set_float32_matmul_precision(precision)

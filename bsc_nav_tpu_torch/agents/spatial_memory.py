@@ -62,7 +62,8 @@ from bsc_nav_tpu_torch.models.weights import load_dinov2_npz
 class Perception:
     """The encoder and the pipelines, shared across scenes.
     ``vit_params`` is the ViT module holding the weights (int8 W8A8 block
-    matmuls when ``cfg.models.encoder_int8``); ``pool_step(params,
+    matmuls when ``cfg.models.encoder_int8``); weights that ``create``
+    loads or draws take ``compute_dtype``.  ``pool_step(params,
     images_uint8)`` gives a prompt's pooled query vector."""
 
     vit_params: vit.ViT
@@ -86,14 +87,18 @@ class Perception:
                                     cfg.models.encoder + ".npz")
                        if cfg.models.weights_dir else None)
             if weights and os.path.exists(weights):
-                vit_params = load_dinov2_npz(weights, vit_cfg, device=dev)
+                vit_params = load_dinov2_npz(weights, vit_cfg,
+                                             dtype=compute_dtype,
+                                             device=dev)
             else:
                 if weights:
                     print(f"[perception] WARNING: encoder weights not found "
                           f"at {weights!r} -- using RANDOM-INIT "
                           f"{cfg.models.encoder} params", file=sys.stderr)
                 gen = torch.Generator(device=dev).manual_seed(seed)
-                vit_params = vit.init_params(vit_cfg, gen, device=dev)
+                vit_params = vit.init_params(vit_cfg, gen,
+                                             dtype=compute_dtype,
+                                             device=dev)
         if cfg.models.encoder_int8:
             # serving-only W8A8 (JAX spatial_memory.py:79-83): build,
             # query and pool steps all run the int8 leaves

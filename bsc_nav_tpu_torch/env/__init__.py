@@ -1,2 +1,4 @@
-"""The synthetic box-world environment and grid pathfinding: the port's own
-copy of ``bsc_nav_tpu/env/{fake,pathfinding}.py`` (no JAX in either)."""
+"""The synthetic box-world environment, grid pathfinding, the benchmark
+environment and the VLN-CE map measure: the port's own copies of
+``bsc_nav_tpu/env/{fake,pathfinding,benchmark,vlnce_maps}.py`` (no JAX in
+any)."""

@@ -195,3 +195,15 @@ def grid_to_world_2d(grid_rc, origin_xzy, grid_size: int,
     y = oy + (row - grid_size // 2) * cell_size
     x = ox + (col - grid_size // 2) * cell_size
     return np.array([x, oz, y])
+
+
+def world_to_grid_3d(loc_xzy, origin_xzy, grid_size: int, cell_size: float,
+                     zmin: int) -> np.ndarray:
+    """Habitat world (x, z, y) -> voxel (row, col, h), each truncated
+    toward zero by ``int()`` (JAX ``geometry.py:275-290``)."""
+    x, z, y = loc_xzy
+    ox, oz, oy = origin_xzy
+    row = int((y - oy) / cell_size + grid_size // 2)
+    col = int((x - ox) / cell_size + grid_size // 2)
+    h = int(z / cell_size) - zmin
+    return np.array([row, col, h])

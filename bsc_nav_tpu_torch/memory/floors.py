@@ -7,21 +7,24 @@ carved out of the occupied-height span, then the current floor chosen by
 the agent's height.
 
 The JAX module runs ``sklearn.cluster.DBSCAN``, which the port does not
-need: ``dbscan_1d`` gives sklearn's labels for these 1-D heights in numpy.
+need: ``dbscan`` gives sklearn's labels in numpy, for the 1-D heights here
+(``dbscan_1d``) and for the query candidates of ``agents/clustering.py``.
 Its neighbourhoods are those of ``NearestNeighbors(radius=eps)`` with
 sklearn's default algorithm choice -- brute force for up to 11 points,
-whose squared distance is x^2 + (-2xy) + y^2 (the GEMM form), a KD tree
-beyond, whose squared distance is (x - y)^2 -- each compared with eps^2,
-the point itself included.  A point with at least min_samples neighbours
-is a core point; cores chained within eps form a cluster, clusters are
-numbered in order of their lowest core index, and a border point (not
-core, within eps of a core) takes the first cluster that reaches it, the
-lowest-numbered one among its cores' clusters, as sklearn's expansion
-does.  ``tests/test_torch_host_copies.py`` holds it to sklearn.
+whose squared distance is |x|^2 + (-2 x.y) + |y|^2 (the GEMM form), a KD
+tree beyond, whose squared distance is the sum of (x_k - y_k)^2 over the
+features in order -- each compared with eps^2, the point itself included.
+A point with at least min_samples neighbours is a core point; cores
+chained within eps form a cluster, clusters are numbered in order of their
+lowest core index, and a border point (not core, within eps of a core)
+takes the first cluster that reaches it, the lowest-numbered one among its
+cores' clusters, as sklearn's expansion does.
+``tests/test_torch_host_copies.py`` holds it to sklearn.
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -30,25 +33,42 @@ EPS = 0.4
 _BRUTE_MAX = 11     # NearestNeighbors' default n_neighbors 5 >= n // 2
 
 
-def _neighbours(x: np.ndarray, eps: float) -> np.ndarray:
-    """[n, n] bool: j within eps of i, as sklearn's radius query decides."""
-    if len(x) <= _BRUTE_MAX:
-        sq = x * x
-        d2 = np.maximum((sq[:, None] + (-2.0 * x[:, None]) * x[None, :])
-                        + sq[None, :], 0.0)
-    else:
-        d = x[:, None] - x[None, :]
-        d2 = d * d
-    return d2 <= eps * eps
+def _fma_dot(a: np.ndarray, b: np.ndarray) -> float:
+    """dot(a, b) as BLAS forms it on the host: a fused multiply-add chain
+    over the features in order, each step rounded once (exact rationals
+    here; brute force takes at most 11 points)."""
+    acc = Fraction(0)
+    for x, y in zip(a.tolist(), b.tolist()):
+        acc = Fraction(float(acc + Fraction(x) * Fraction(y)))
+    return float(acc)
 
 
-def dbscan_1d(x: Sequence[float], eps: float, min_samples: int
-              ) -> np.ndarray:
-    """sklearn ``DBSCAN(eps, min_samples).fit(x[:, None]).labels_`` for
-    1-D data: cluster ids from 0, -1 for noise."""
-    x = np.asarray(x, np.float64).reshape(-1)
-    n = len(x)
-    nb = _neighbours(x, eps)
+def squared_distances(X: np.ndarray, brute: bool) -> np.ndarray:
+    """[n, n] squared distances between the rows of X [n, d] as sklearn's
+    neighbour searches compute them.  Brute force: the GEMM form
+    (|x|^2 + -2 x.y) + |y|^2 clipped at 0, each dot a fused multiply-add
+    chain (BLAS ddot and dgemm).  A KD tree: the sum of squared
+    differences over the features in order."""
+    X = np.asarray(X, np.float64)
+    n = len(X)
+    if brute:
+        dots = np.array([[_fma_dot(X[i], X[j]) for j in range(n)]
+                         for i in range(n)]).reshape(n, n)
+        sq = np.diagonal(dots).copy()
+        return np.maximum((sq[:, None] + -2.0 * dots) + sq[None, :], 0.0)
+    d2 = np.zeros((n, n))
+    for k in range(X.shape[1]):
+        t = X[:, None, k] - X[None, :, k]
+        d2 = d2 + t * t
+    return d2
+
+
+def dbscan(X, eps: float, min_samples: int) -> np.ndarray:
+    """sklearn ``DBSCAN(eps, min_samples).fit(X).labels_`` for points X
+    [n, d]: cluster ids from 0, -1 for noise."""
+    X = np.asarray(X, np.float64)
+    n = len(X)
+    nb = squared_distances(X, n <= _BRUTE_MAX) <= eps * eps
     core = nb.sum(axis=1) >= min_samples
     labels = np.full(n, -1, np.int64)
     label = 0
@@ -68,6 +88,12 @@ def dbscan_1d(x: Sequence[float], eps: float, min_samples: int
         if len(reach):
             labels[i] = reach.min()
     return labels
+
+
+def dbscan_1d(x: Sequence[float], eps: float, min_samples: int
+              ) -> np.ndarray:
+    """``dbscan`` of 1-D data."""
+    return dbscan(np.asarray(x, np.float64).reshape(-1, 1), eps, min_samples)
 
 
 def detect_floors(base_heights: Sequence[float]) -> List[float]:

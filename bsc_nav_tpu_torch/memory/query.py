@@ -17,6 +17,16 @@ from bsc_nav_tpu_torch.ops.similarity import (
     max_cosine, max_cosine_per_voxel_batch)
 
 
+def stable_top_k(x: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries along the last axis in
+    ``lax.top_k``'s order: equal values by the lower index first (a stable
+    descending sort; ``torch.topk`` orders ties otherwise, and a store whose
+    voxels share tokens has many)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
 def gaussian_center_pool(tokens: torch.Tensor) -> torch.Tensor:
     """Pool patch tokens [B, T, D] (T a square patch grid) with a
     center-weighted Gaussian, then average across query images -> [D]."""
@@ -45,9 +55,9 @@ def localize(
     floor_range: Optional[torch.Tensor] = None,  # [2] int (min_h, max_h)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-K most query-similar voxels: (positions [top_k, 3] int32,
-    scores [top_k] f32).  Padding entries (fewer live voxels than top_k)
-    score -inf; their positions are ``slot_pos`` of whatever slot topk
-    picked, as in the JAX version."""
+    scores [top_k] f32), equal scores by the lower slot first.  Padding
+    entries (fewer live voxels than top_k) score -inf; their positions are
+    ``slot_pos`` of the lowest such slots, as in the JAX version."""
     V1 = state.feat_count.shape[0]
     dev = state.feats.device
     qn = query.to(torch.float32)
@@ -69,7 +79,7 @@ def localize(
 
     per_voxel = torch.where(mask, per_voxel,
                             torch.full_like(per_voxel, float("-inf")))
-    scores, idx = torch.topk(per_voxel, top_k)
+    scores, idx = stable_top_k(per_voxel, top_k)
     return state.slot_pos[idx], scores
 
 
@@ -109,5 +119,5 @@ def localize_batch(
                                   torch.ones_like(d2, dtype=torch.bool))
     per_voxel = torch.where(mask, per_voxel,
                             torch.full_like(per_voxel, float("-inf")))
-    scores, idx = torch.topk(per_voxel, top_k, dim=-1)
+    scores, idx = stable_top_k(per_voxel, top_k)
     return state.slot_pos[idx], scores

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's memory spine, CLIP stack, YOLO-World feed and text
-queries once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's memory spine, CLIP stack, YOLO-World feed, text
+queries and robots once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernels K2,K4,K5   # those kernels' cases alone
@@ -107,6 +107,14 @@ non-zero):
   explore       exploring_create_memory (random_move_num 3) and
                 explore_entire_space (max_iterations 2) on FakeNavEnv at
                 Config(): steps, flushes, s
+  robot-parity  the drivers' fake world (drivers/setup.build_world: 64x64
+                frames, a tiny ViT) on the CPU and on the card in one
+                process, the same encoder weights and build draws: objnav
+                through drivers.common.run_episodes, one episode on the
+                long-term memory path (actions, nav_log and CSV row equal)
+                and one on the working-memory path (queries within
+                ROBOT_PARITY_TOL; a top-K decision within it is reported
+                with its margin)
   segments-parity  small_test_config(): surprise stores in both modes, the
                 forgetting pass on them and a segmented store's merged
                 top-16, the card against the CPU on the same frames and
@@ -171,6 +179,18 @@ non-zero):
                 level, equal top-K; then two small MMDiTs on the composed
                 route, one without qk-norm (K5) and one past 4096 joint
                 tokens with logits past 4e9 bytes (K6): velocity, latents
+  robot         the robots at full width on the text-query phases' bf16
+                weights: Config() with FakeBenchmarkEnv over BoxScene at
+                680x680, Perception (bf16 compute, random ViT-L) over the
+                f32 store, CLIPMatcher (MetaCLIP ViT-H/14, int8 towers) and
+                ClipPatchDetector, DiffusionImagination SD3.5-medium 512^2
+                bf16, the drivers' mock LLM with a scripted judge: the
+                memory built as ensure_memory_fake builds it (3
+                waypoints), then objnav (the stage-2 text query prefetched
+                while stage 1 walks, then consumed), imagenav and vlnce
+                episodes: seconds, steps, flushes, queries by stage, the
+                host renderer's share; K1, K2, K3, K4 and K2b launched,
+                none of K5-K8
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
@@ -2597,7 +2617,8 @@ def phase_textq_all(dev, cfg, vcfg, world, seed):
     K5), SD3.5-medium at 1024^2 (a 4685-token joint sequence: K6; the dual
     self-attention at 4096 tokens: K4), then SD3.5-medium at 512^2 with
     the MMDiT token matmuls in W8A8 and T5-XXL quantized on the host.
-    Returns (results, {path: K1-K8 counts})."""
+    Returns (results, {path: K1-K8 counts}, the bf16 weights, which the
+    robot phase's imagination reuses)."""
     from bsc_nav_tpu_torch.models import mmdit as M
     from bsc_nav_tpu_torch.models import t5 as T5
     from bsc_nav_tpu_torch.models.weights import t5_from_jax_params
@@ -2659,8 +2680,7 @@ def phase_textq_all(dev, cfg, vcfg, world, seed):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    host = tree_map(lambda t: t.float().cpu().numpy(), w.pop("t5"))
-    torch.cuda.empty_cache()
+    host = tree_map(lambda t: t.float().cpu().numpy(), w["t5"])
     t1 = time.perf_counter()
     t5_q = t5_from_jax_params(T5.quantize_params_host(host), T5.T5_XXL,
                               dtype=torch.bfloat16, device=dev)
@@ -2673,9 +2693,9 @@ def phase_textq_all(dev, cfg, vcfg, world, seed):
                               make_imagination(w, sd35, t5_q, True, seed),
                               seed, {"K4": 1036}, n_queries=1)
     paths["textq"] = tuple(a + b for a, b in zip(paths["textq"], counts()))
-    del w, t5_q
+    del t5_q
     torch.cuda.empty_cache()
-    return out, paths
+    return out, paths, w
 
 
 def phase_textq_parity(dev, seed):
@@ -3345,6 +3365,387 @@ def phase_explore(dev, cfg, vcfg, params, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases: the robots and the episode drivers
+# ---------------------------------------------------------------------------
+
+ROBOT_PARITY_TOL = 1e-4   # top-K scores, the drivers' tiny ViT, card vs CPU
+ROBOT_BUILD_MOVES = 3     # waypoints of the full-width memory build
+
+
+def build_tmp():
+    """A temporary directory under the repository's build/."""
+    import tempfile
+
+    from bsc_nav_tpu_torch.ops import _build
+    _build.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent)
+
+
+def driver_args(argv):
+    """The drivers' parsed arguments (drivers/setup.add_common_args)."""
+    from bsc_nav_tpu_torch.drivers import setup as DS
+    p = argparse.ArgumentParser()
+    DS.add_common_args(p)
+    return p.parse_args(argv)
+
+
+def same_draws(perception, cfg, draws, rng):
+    """The n-th build step takes ``draws[n]``, the pixel and replacement
+    draws made once from ``rng``: a card and a CPU memory that share
+    ``draws`` ingest the same points."""
+    from bsc_nav_tpu_torch.memory.ingest import points_per_frame
+    H, W = cfg.sensor.height, cfg.sensor.width
+    P, K = points_per_frame(cfg), cfg.memory.cache_size
+    build, calls = perception.build_step, [0]
+
+    def build_step(c, params, rgb, depth, poses):
+        i, B, d = calls[0], rgb.shape[0], rgb.device
+        calls[0] += 1
+        while len(draws) <= i:
+            draws.append((rng.integers(0, H * W, (B, P)),
+                          rng.integers(0, K, B * P)))
+        pix, repl = draws[i]
+        return build(c, params, rgb, depth, poses,
+                     pix=torch.from_numpy(pix).to(d),
+                     repl_idx=torch.from_numpy(repl).to(d))
+
+    perception.build_step = build_step
+
+
+def recorded_queries(mem):
+    """Wrap ``voxel_localized`` so that each result is kept; returns the
+    list."""
+    out, query = [], mem.voxel_localized
+
+    def voxel_localized(*a, **k):
+        res = query(*a, **k)
+        out.append(res)
+        return res
+
+    mem.voxel_localized = voxel_localized
+    return out
+
+
+def query_margin(a, b, tol, qcfg):
+    """Two top-K results (CPU, card) of equal stores: the sorted scores must
+    agree within ``tol`` (raises otherwise).  Returns (max score error,
+    the same voxels in the same order, the decisions' margin: the
+    smallest gap between distinct scores of the CPU's top-K (its order
+    and boundary), and between the mean scores of its clusters (their
+    order as candidates) -- a decision within ``tol`` could flip)."""
+    from bsc_nav_tpu_torch.agents.clustering import weighted_cluster_centers
+    (pa, sa), (pb, sb) = live_tops(a), live_tops(b)
+    check(len(sa) == len(sb), f"robot-parity: {len(sa)} / {len(sb)} live")
+    err = float(np.abs(np.sort(sa) - np.sort(sb)).max()) if len(sa) else 0.0
+    check(err <= tol, f"robot-parity: query score err {err} > {tol}")
+    _, labels, _ = weighted_cluster_centers(
+        pa, sa, eps=qcfg.cluster_eps, min_samples=qcfg.cluster_min_samples)
+    means = [sa[labels == lb].mean() for lb in set(labels) - {-1}]
+    gaps = np.r_[np.diff(np.unique(sa)), np.diff(np.sort(means))]
+    return err, bool(np.array_equal(pa, pb)), float(
+        gaps.min() if len(gaps) else np.inf)
+
+
+def phase_robot_parity(dev, seed):
+    """The drivers' fake world (drivers/setup.build_world: 64x64 frames, a
+    tiny ViT) on the CPU and on the card in one process, the card's encoder
+    holding the CPU one's weights and both builds the same draws: objnav
+    through drivers.common.run_episodes for two episodes, the first on the
+    long-term memory path, the second on the working-memory path.  Where
+    stage 1 decides, the actions, nav_log and CSV row must be equal; the
+    working-memory queries are held to ROBOT_PARITY_TOL, and where a top-K
+    decision lies within it, its margin is reported instead."""
+    from bsc_nav_tpu_torch.agents.robot import ObjectNavRobot
+    from bsc_nav_tpu_torch.drivers import common as DC
+    from bsc_nav_tpu_torch.drivers import setup as DS
+
+    runs, params, draws = [], None, []
+    rng = np.random.default_rng(seed + 7)
+    with build_tmp() as tmp:
+        for i, d in enumerate(("cpu", dev)):
+            root = os.path.join(tmp, f"run{i}")
+            args = driver_args(["--device", str(d), "--seed", str(seed),
+                                "--memory-root", root])
+            cfg, bench, mem, extras = DS.build_world(args, "objnav")
+            if params is None:
+                params = mem.perception.vit_params.state_dict()
+            else:
+                mem.perception.vit_params.load_state_dict(params)
+            same_draws(mem.perception, cfg, draws, rng)
+            queries = recorded_queries(mem)
+            robot = ObjectNavRobot(mem, bench, llm_client=extras["llm"],
+                                   matcher=extras["matcher"])
+            episodes = []
+
+            def episode_fn(r, ep, cfg=cfg, mem=mem, bench=bench):
+                mem.cfg = cfg.replace(agent=dataclasses.replace(
+                    cfg.agent, use_only_working_memory=bench._ep_idx == 1))
+                r.move2textprompt(f"a {ep.object_category}")
+                mem.cfg = cfg
+
+            def metrics_fn(r, b, ep, episodes=episodes):
+                m = b.get_metrics()
+                island, area = DS.island_stats(b)
+                episodes.append((list(r.action_hist), dict(r.nav_log),
+                                 json.loads(json.dumps(r.loc_hist))))
+                return {"success": m["success"], "spl": m["spl"],
+                        "distance_to_goal": m["distance_to_goal"],
+                        "object_goal": ep.object_category, "id": ep.scene_id,
+                        "island": island, "island_area": area,
+                        **DC.nav_telemetry(r)}
+
+            csv_path = os.path.join(root, "r.csv")
+            before = counts()
+            t0 = time.perf_counter()
+            DC.run_episodes(robot, bench, 2, episode_fn, metrics_fn, csv_path,
+                            log_root=os.path.join(root, "tmp"),
+                            ensure_memory=DS.ensure_memory_fake)
+            runs.append(dict(
+                episodes=episodes, rows=open(csv_path).read().splitlines(),
+                queries=queries, state=mem.state, launched=since(before),
+                s=time.perf_counter() - t0))
+    cpu, card = runs
+    path = card["launched"]
+    # the drivers' ViT has head_dim 16: K3 carries it, as in JAX
+    check(all((path[i] > 0) == (i in (1, 2)) for i in range(9)),
+          f"robot-parity launches {fmt(path)} (want K2, K3 only)")
+    check(cpu["episodes"][0][1]["working_memory_query"] == 0
+          < cpu["episodes"][0][1]["long_memory_query"],
+          "robot-parity: stage 1 did not decide episode 0")
+    check(card["episodes"][0] == cpu["episodes"][0]
+          and card["rows"][:2] == cpu["rows"][:2],
+          "robot-parity: the stage-1 episode differs, card vs CPU")
+    n = int(cpu["state"].num_voxels)
+    store_equal = all(torch.equal(getattr(cpu["state"], f)[:n],
+                                  getattr(card["state"], f)[:n].cpu())
+                      for f in ("slot_pos", "feat_count"))
+    check(len(cpu["queries"]) == len(card["queries"]) >= 1,
+          "robot-parity: the working-memory episode made no query")
+    out = {"voxels": n, "store_equal": store_equal, "queries": []}
+    (ca, cn, cl), (ga, gn, gl) = cpu["episodes"][1], card["episodes"][1]
+    wm_equal = ca == ga and cn == gn and cpu["rows"][2] == card["rows"][2]
+    for a, b in zip(cpu["queries"], card["queries"]):
+        err, same, margin = query_margin(a, b, ROBOT_PARITY_TOL, cfg.query)
+        out["queries"].append({"score_err": err, "same_voxels": same,
+                               "margin": margin})
+    # the candidates are score-weighted centres: within the scores' error
+    # of each other, not equal
+    cw, gw = (np.asarray(h["working_memory"], float) for h in (cl, gl))
+    loc_err = (float(np.abs(cw - gw).max()) if cw.shape == gw.shape
+               and cw.size else (0.0 if cw.shape == gw.shape else np.inf))
+    settled = store_equal and all(q["same_voxels"]
+                                  and q["margin"] > ROBOT_PARITY_TOL
+                                  for q in out["queries"])
+    # a settled query (equal store and voxels, every score and cluster
+    # mean farther apart than the bound) leaves nothing to flip
+    check(not settled or (wm_equal and loc_err <= ROBOT_PARITY_TOL),
+          f"robot-parity: the working-memory episode differs with every "
+          f"decision settled (same walk {wm_equal}, candidates "
+          f"{loc_err:.3g} cells apart)")
+    out.update(wm_episode_equal=wm_equal, candidates_err=loc_err,
+               settled=settled,
+               steps=[len(e[0]) for e in cpu["episodes"]],
+               cpu_s=cpu["s"], card_s=card["s"])
+    log("robot-parity", f"the drivers' fake world ({n} voxels, store "
+        f"{'equal' if store_equal else 'NOT equal'} card vs CPU): episode 0 "
+        f"(stage 1, {out['steps'][0]} steps) equal; episode 1 (working "
+        f"memory, {out['steps'][1]} steps) "
+        f"{'equal' if wm_equal else 'differs'} (candidates "
+        f"{loc_err:.3g} cells apart); queries "
+        + "; ".join(f"score err {q['score_err']:.3g}, same voxels "
+                    f"{q['same_voxels']}, margin {q['margin']:.3g} (bound "
+                    f"{ROBOT_PARITY_TOL})" for q in out["queries"])
+        + f"; CPU {cpu['s']:.1f} s, card {card['s']:.1f} s")
+    return out, path
+
+
+def scripted_llm(DS, args, bench, stage):
+    """The drivers' mock LLM with the VLM judge scripted: 'no' on the
+    long-term memory's candidates, so that move2textprompt goes on to the
+    prefetched stage 2, and 'yes' on the first candidate of any other
+    stage (random weights make the true-distance oracle meaningless, and
+    each failed candidate costs two 12-view turns of host rendering)."""
+    llm = DS.make_llm(args, bench)
+
+    def judge(text):
+        if stage["key"] == "long_memory":
+            return "Success: no\nnot the goal"
+        return "Success: yes\nneed forward: no"
+
+    llm.responders[0] = (llm.responders[0][0], judge)
+    return llm
+
+
+def phase_robot(dev, cfg, world, w, seed):
+    """The robots at full width: Config() with FakeBenchmarkEnv over
+    BoxScene.default() at 680x680, wired as the JAX package's habitat
+    world is (minus habitat): Perception with bf16 compute and a random
+    ViT-L/14-reg over the f32 131,080 x 10 x 1024 store, CLIPMatcher on
+    MetaCLIP ViT-H/14 at cfg.models.clip_int8, ClipPatchDetector over the
+    HM3D classes (threshold at the 99th percentile of the heat random
+    towers give, as the clip phase does), DiffusionImagination
+    SD3.5-medium 512^2 in bf16 on the text-query phases' weights, and the
+    drivers' mock LLM with a scripted judge.  The memory is built once as
+    ensure_memory_fake builds it (ROBOT_BUILD_MOVES waypoints); then one
+    episode each of move2textprompt (objnav: the stage-2 text query
+    prefetched while stage 1 walks), move2imgprompt (imagenav) and
+    move2VLNprompt (vlnce)."""
+    from bsc_nav_tpu_torch.agents.matchers import CLIPMatcher
+    from bsc_nav_tpu_torch.agents.robot import ObjectNavRobot
+    from bsc_nav_tpu_torch.agents.spatial_memory import (
+        Perception, VoxelTokenMemory)
+    from bsc_nav_tpu_torch.config import HM3D_DETECT_CLASSES
+    from bsc_nav_tpu_torch.drivers import setup as DS
+    from bsc_nav_tpu_torch.env.benchmark import FakeBenchmarkEnv
+    from bsc_nav_tpu_torch.env.fake import BoxScene
+    from bsc_nav_tpu_torch.models import clip as C
+    from bsc_nav_tpu_torch.models import mmdit as M
+    from bsc_nav_tpu_torch.models.detector import ClipPatchDetector
+    from bsc_nav_tpu_torch.models.tokenizer import default_tokenizer
+
+    rcfg = cfg.replace(agent=dataclasses.replace(
+        cfg.agent, random_move_num=ROBOT_BUILD_MOVES))
+    scene = BoxScene.default()
+    t0 = time.perf_counter()
+    imagination = make_imagination(w, M.SD35_MEDIUM, w["t5"], False, seed)
+    ccfg = C.CONFIGS[cfg.models.clip]
+    clip = C.init_params(ccfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    tok = default_tokenizer()
+    matcher = CLIPMatcher(clip, ccfg, tok, quantize=cfg.models.clip_int8,
+                          device=dev)
+    det = ClipPatchDetector(clip, ccfg, tok, list(HM3D_DETECT_CLASSES),
+                            confidence=cfg.detector.confidence, device=dev)
+    _, frames, _ = world
+    sims = np.concatenate([
+        det.embed(np.stack([o["rgb"] for o, _ in frames[i:i + BATCH]]))
+        for i in range(0, N_FRAMES, BATCH)]) @ det.text_emb.T * 100.0
+    p = np.exp(sims - sims.max(axis=-1, keepdims=True))
+    det.confidence = float(np.percentile(
+        (p / p.sum(axis=-1, keepdims=True)).max(axis=-1), 99))
+    episodes = DS.fake_episodes(scene, "vlnce", seed)
+    bench = FakeBenchmarkEnv(rcfg, episodes, scene=scene, seed=seed,
+                             success_distance=rcfg.sim.success_distance)
+    perception = Perception.create(rcfg, batch_size=BATCH,
+                                   compute_dtype=torch.bfloat16, seed=seed,
+                                   device=dev)
+    flushes = recording(perception)
+    stage, prefetch = {"key": None}, {"dispatched": 0, "consumed": 0}
+    render = {"s": 0.0, "frames": 0}
+    draw = bench.nav_env._renderer.render
+
+    def timed_render(*a, **k):
+        t = time.perf_counter()
+        out = draw(*a, **k)
+        render["s"] += time.perf_counter() - t
+        render["frames"] += 1
+        return out
+
+    bench.nav_env._renderer.render = timed_render
+    out = {"detector_threshold": det.confidence}
+    with build_tmp() as tmp:
+        args = driver_args(["--memory-root", tmp, "--seed", str(seed)])
+        mem = VoxelTokenMemory(rcfg, env=bench.nav_env,
+                               perception=perception, detector=det,
+                               imagination=imagination)
+        robot = ObjectNavRobot(mem, bench, llm_client=scripted_llm(
+            DS, args, bench, stage), matcher=matcher)
+        navigate = robot._navigate_candidates
+
+        def staged(best_poses, prompt, max_candidates=3):
+            stage["key"] = ("long_memory" if best_poses is not None
+                            and best_poses.ndim == 2 else "working_memory")
+            return navigate(best_poses, prompt, max_candidates)
+
+        robot._navigate_candidates = staged
+        dispatch = mem.voxel_localized_async
+
+        def async_query(*a, **k):
+            finish = dispatch(*a, **k)
+            prefetch["dispatched"] += finish is not None
+            if finish is None:
+                return None
+            sent = time.perf_counter()
+
+            def consumed():
+                prefetch["consumed"] += 1
+                prefetch["walk_s"] = time.perf_counter() - sent
+                t = time.perf_counter()
+                res = finish()
+                prefetch["wait_s"] = time.perf_counter() - t
+                return res
+            return consumed
+
+        mem.voxel_localized_async = async_query
+        log("robot", f"set up in {time.perf_counter() - t0:.1f} s: ViT-L "
+            f"bf16 compute, f32 store, MetaCLIP ViT-H/14 matcher "
+            f"(int8 {cfg.models.clip_int8}) and patch detector "
+            f"(threshold {det.confidence:.4f}), SD3.5-medium 512^2 bf16")
+        before, renders, t0 = counts(), dict(render), time.perf_counter()
+        bench._ep_idx = -1
+        obs = bench.reset()
+        DS.ensure_memory_fake(robot, bench)
+        torch.cuda.synchronize()
+        out["build"] = {"s": time.perf_counter() - t0,
+                        "steps": mem.step_count, "flushes": len(flushes),
+                        "voxels": int(mem.state.num_voxels),
+                        "instances": len(mem.long_memory_dict),
+                        "render_s": render["s"] - renders["s"],
+                        "launches": fmt(since(before))}
+        check(out["build"]["voxels"] > 0 and out["build"]["instances"] > 0,
+              f"robot: memory build {out['build']}")
+        log("robot", f"memory build ({ROBOT_BUILD_MOVES} waypoints): "
+            f"{out['build']}")
+        goal_img = DS.SceneImagination(rcfg, scene)
+        tasks = (("objnav", lambda r, ep: r.move2textprompt(
+                      f"a {ep.object_category}")),
+                 ("imagenav", lambda r, ep: r.move2imgprompt(
+                      goal_img(ep.object_category)[0])),
+                 ("vlnce", lambda r, ep: r.move2VLNprompt(ep.instruction)))
+        out["episodes"] = []
+        for i, (task, run) in enumerate(tasks):
+            bench._ep_idx = i - 1
+            obs = bench.reset()
+            robot.reset(obs, log_dir=os.path.join(tmp, f"trajectory_{i}"))
+            stage["key"] = None
+            before, renders = counts(), dict(render)
+            n_flush, t0 = len(flushes), time.perf_counter()
+            run(robot, bench.current_episode)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            m = bench.get_metrics()
+            ep = {"task": task, "goal": bench.current_episode.object_category,
+                  "s": s, "steps": len(robot.action_hist),
+                  "render_s": render["s"] - renders["s"],
+                  "frames": render["frames"] - renders["frames"],
+                  "flushes": len(flushes) - n_flush,
+                  "nav_log": dict(robot.nav_log),
+                  "launches": fmt(since(before)),
+                  "distance_to_goal": m["distance_to_goal"],
+                  "success": m["success"]}
+            ep["render_share"] = ep["render_s"] / s
+            check(ep["steps"] > 0 and np.isfinite(m["distance_to_goal"])
+                  and os.path.exists(os.path.join(
+                      tmp, f"trajectory_{i}", "log_data.json")),
+                  f"robot {task}: {ep}")
+            if task == "objnav":
+                ep["prefetch"] = dict(prefetch)
+                check(prefetch["dispatched"] == prefetch["consumed"] == 1,
+                      f"robot objnav: prefetch {prefetch}")
+            log("robot", f"{task} episode ('{ep['goal']}'): {s:.1f} s, "
+                f"{ep['steps']} steps, {ep['frames']} frames rendered in "
+                f"{ep['render_s']:.1f} s ({ep['render_share']:.2f} of the "
+                f"episode), {ep['flushes']} flushes, nav_log "
+                f"{ep['nav_log']}, launches {ep['launches']}"
+                + (f", prefetch {ep['prefetch']}" if task == "objnav"
+                   else ""))
+            out["episodes"].append(ep)
+    del mem, robot, perception, matcher, det, clip, imagination
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_segments_parity(dev, seed):
     """small_test_config(): the same frames and injected draws on the CPU
     (plain versions) and on the card (kernels): surprise stores in both
@@ -3629,6 +4030,10 @@ def main(argv=None) -> int:
     explore = phase_explore(dev, cfg, vcfg, params32, args.seed)
     explore_path = counts()
     log("explore", f"launches on the path: {fmt(explore_path)}")
+    reset_counts()
+    robot_parity, robot_parity_path = phase_robot_parity(dev, args.seed)
+    log("robot-parity", f"launches on the card's path: "
+        f"{fmt(robot_parity_path)}")
     seg_parity = phase_segments_parity(dev, args.seed)
     del params32
     torch.cuda.empty_cache()
@@ -3651,9 +4056,21 @@ def main(argv=None) -> int:
           f"YOLO path launches {fmt(yolo_path)}")
     yolo_parity = phase_yolo_parity(dev, args.seed)
 
-    textq, textq_paths = phase_textq_all(dev, cfg, vcfg, world, args.seed)
+    textq, textq_paths, textq_w = phase_textq_all(dev, cfg, vcfg, world,
+                                                  args.seed)
     for name, c in textq_paths.items():
         log(name, f"launches on the path (DINOv2 ingest included): {fmt(c)}")
+    # the robots at full width, on the text-query phases' bf16 weights
+    reset_counts()
+    robot = phase_robot(dev, cfg, world, textq_w, args.seed)
+    robot_path = counts()
+    del textq_w
+    torch.cuda.empty_cache()
+    log("robot", f"launches on the path (memory build and three episodes): "
+        f"{fmt(robot_path)}")
+    # K1, K2, K3, K4 and K2b; none of K5-K8
+    check(all((robot_path[i] > 0) == (i in (0, 1, 2, 3, 8))
+              for i in range(9)), f"robot launches {fmt(robot_path)}")
     # path: the kernels it must have launched; K7 lies on no path, K8 on
     # the YOLO path alone
     for name, used in (("textq", (0, 1, 2, 3)),
@@ -3670,8 +4087,9 @@ def main(argv=None) -> int:
     paths = {"spine": spine, "batch": batch_path, "int8": int8_path,
              "persist": persist_path, "int8-encoder": enc_path,
              "surprise": surprise_path, "segments": segments_path,
-             "explore": explore_path,
-             "clip": clip_path, "yolo": yolo_path, **textq_paths}
+             "explore": explore_path, "robot-parity": robot_parity_path,
+             "clip": clip_path, "yolo": yolo_path, **textq_paths,
+             "robot": robot_path}
 
     def main_case(kernel, dtype="float32", **match):
         match = match or {"B": 8}
@@ -3764,7 +4182,8 @@ def main(argv=None) -> int:
         "slice_parity_max_err": parity_err, "clip": clip,
         "clip_parity": clip_parity, "yolo": yolo, "yolo_parity": yolo_parity,
         "textq": textq,
-        "textq_parity": textq_parity}), flush=True)
+        "textq_parity": textq_parity, "robot_parity": robot_parity,
+        "robot": robot}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,6 +3,7 @@ of the JAX-free host modules behave as the originals, and its entry points
 default to the card.
 """
 
+import argparse
 import dataclasses
 import os
 import subprocess
@@ -28,6 +29,7 @@ from bsc_nav_tpu.models.detector import (
 from bsc_nav_tpu_torch import config as tconfig
 from bsc_nav_tpu_torch.agents.matchers import ColorViewScorer
 from bsc_nav_tpu_torch.agents.spatial_memory import Perception
+from bsc_nav_tpu_torch.drivers import setup as drivers_setup
 from bsc_nav_tpu_torch.env.fake import BoxScene, FakeNavEnv
 from bsc_nav_tpu_torch.env.pathfinding import AgentState, Quat
 from bsc_nav_tpu_torch import geometry as tgeometry
@@ -65,12 +67,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_imports_without_sklearn_or_h5py():
-    """The card machine has neither: every module of the port imports with
-    both blocked, and the floors copy and the npz snapshot still run."""
+    """The card machine has none of sklearn, h5py, PIL, pandas, imageio and
+    networkx: every module of the port imports with all six blocked, the
+    floors copy and the npz snapshot still run, and so does one fake
+    objnav episode through the port's driver on the CPU (its VLM judge
+    calls pack PNG images)."""
     code = (
         "import sys\n"
-        "sys.modules['sklearn'] = None\n"
-        "sys.modules['h5py'] = None\n"
+        "for m in ('sklearn', 'h5py', 'PIL', 'pandas', 'imageio', "
+        "'networkx'):\n"
+        "    sys.modules[m] = None\n"
         "import importlib, pkgutil, tempfile, os\n"
         "import bsc_nav_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'bsc_nav_tpu_torch.'):\n"
@@ -83,9 +89,15 @@ def test_port_imports_without_sklearn_or_h5py():
         "p = os.path.join(tempfile.mkdtemp(), 's.npz')\n"
         "persistence.save_npz(s, p)\n"
         "persistence.load_npz(p, cfg, device='cpu')\n"
+        "from bsc_nav_tpu_torch.drivers import objnav\n"
+        "d = tempfile.mkdtemp()\n"
+        "recs = objnav.main(['--env', 'fake', '--episodes', '1', '--llm', "
+        "'mock', '--device', 'cpu', '--csv', os.path.join(d, 'r.csv'), "
+        "'--log-root', d, '--memory-root', d])\n"
+        "assert len(recs) == 1 and recs[0].metrics['search_point'] >= 1\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "ok"
 
@@ -279,3 +291,67 @@ def test_entry_points_default_to_the_card():
         init_store(cfg.memory)
     with pytest.raises(RuntimeError, match="cuda"):
         tv.init_params(vcfg, torch.Generator())
+    p = argparse.ArgumentParser()
+    drivers_setup.add_common_args(p)
+    args = p.parse_args(["--env", "fake"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        drivers_setup.build_world(args)
+
+
+@pytest.mark.parametrize("topdown", ["fog", "vlnce"])
+def test_benchmark_env_copy_matches_jax(topdown):
+    """The env/benchmark and env/vlnce_maps copies: the same episodes, and
+    over one action sequence equal frames, metrics and top-down maps (the
+    fog-of-war measure, or the VLN-CE one over its sampled connectivity
+    graph)."""
+    from bsc_nav_tpu.env import benchmark as jbench
+    from bsc_nav_tpu_torch.env import benchmark as tbench
+    envs = []
+    for mod, conf, scene in ((jbench, jconfig, JBoxScene),
+                             (tbench, tconfig, BoxScene)):
+        eps = mod.episodes_for_scene(scene.default(), seed=2)
+        envs.append(mod.FakeBenchmarkEnv(conf.small_test_config(), eps,
+                                         scene=scene.default(), seed=3,
+                                         topdown=topdown))
+    (ja, ta) = envs
+    for a, b in zip(ja.episodes, ta.episodes):
+        assert (a.object_category, a.start_yaw) == (b.object_category,
+                                                    b.start_yaw)
+        np.testing.assert_array_equal(a.goal_positions, b.goal_positions)
+    actions = (["move_forward"] * 5 + ["turn_left"] * 3 + ["move_forward"] * 4
+               + ["look_down", "turn_right", "stop"])
+    for ep in range(2):
+        np.testing.assert_array_equal(ja.reset()["rgb"], ta.reset()["rgb"])
+        for action in actions[ep:]:
+            a, b = ja.step(action), ta.step(action)
+            np.testing.assert_array_equal(a["depth"], b["depth"])
+        ma, mb = ja.get_metrics(), ta.get_metrics()
+        np.testing.assert_array_equal(mb.pop("top_down_map"),
+                                      ma.pop("top_down_map"))
+        assert mb == ma and ma["path_length"] > 0
+
+
+def test_llm_and_clustering_copies_match_jax():
+    """The agents/llm copy sends JAX's messages for a text-only prompt and
+    its mock client answers as JAX's; the numpy agents/clustering copy
+    gives sklearn's labels and centres (tests/test_torch_agents.py holds
+    every prompt function, the PNG payloads and seeded point sets)."""
+    from bsc_nav_tpu.agents import clustering as jclust
+    from bsc_nav_tpu.agents import llm as jllm
+    from bsc_nav_tpu_torch.agents import clustering as tclust
+    from bsc_nav_tpu_torch.agents import llm as tllm
+    sent = []
+    for mod in (jllm, tllm):
+        client = mod.MockLLMClient(default="Success: no")
+        assert mod.vln_subgoal_planner_with_obs(client, "Go to the bed.") \
+            == "Success: no"
+        sent.append(client.calls)
+    assert sent[0] == sent[1]
+    rng = np.random.default_rng(0)
+    pts = rng.integers(0, 30, (40, 3)).astype(float)
+    sims = rng.uniform(0.1, 1.0, 40)
+    a = jclust.weighted_cluster_centers(pts, sims, 6.0, 3)
+    b = tclust.weighted_cluster_centers(pts, sims, 6.0, 3)
+    np.testing.assert_array_equal(b[1], a[1])
+    np.testing.assert_array_equal(b[0], a[0])

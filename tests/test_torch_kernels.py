@@ -1460,3 +1460,48 @@ def test_spilled_segment_scans_on_k2_and_k2b(cuda, freeze):
     kth = want[1].min()
     assert ({tuple(p) for p, s_ in zip(*got) if s_ > kth + 4e-5}
             == {tuple(p) for p, s_ in zip(*want) if s_ > kth + 4e-5})
+
+
+@pytest.mark.cuda
+def test_fake_objnav_episode_on_the_card_matches_cpu(cuda, tmp_path):
+    """The drivers' fake world built on the card and on the CPU, the card's
+    encoder holding the CPU one's weights: episode 0 ('bed'), which stage 1
+    (the host colour detector, scorer and long-term memory) decides, walks
+    the same actions and writes the same nav_log and CSV row; the card's
+    path launched K3 (the drivers' ViT has head_dim 16), the CPU's
+    nothing."""
+    import argparse
+    from bsc_nav_tpu_torch.agents.robot import ObjectNavRobot
+    from bsc_nav_tpu_torch.drivers import common as DC
+    from bsc_nav_tpu_torch.drivers import setup as DS
+    runs, params = {}, None
+    for device in ("cpu", "cuda"):
+        p = argparse.ArgumentParser()
+        DS.add_common_args(p)
+        d = tmp_path / device
+        args = p.parse_args(["--device", device, "--memory-root", str(d)])
+        cfg, bench, mem, extras = DS.build_world(args, "objnav")
+        if params is None:
+            params = mem.perception.vit_params.state_dict()
+        else:
+            mem.perception.vit_params.load_state_dict(params)
+        robot = ObjectNavRobot(mem, bench, llm_client=extras["llm"],
+                               matcher=extras["matcher"])
+        k3 = tfa.short_attention.launches
+        recs = DC.run_episodes(
+            robot, bench, 1,
+            lambda r, ep: r.move2textprompt(f"a {ep.object_category}"),
+            lambda r, b, ep: {**DC.nav_telemetry(r),
+                              **{k: v for k, v in b.get_metrics().items()
+                                 if k != "top_down_map"}},
+            str(d / "r.csv"), log_root=str(d / "tmp"),
+            ensure_memory=DS.ensure_memory_fake)
+        runs[device] = (robot.action_hist, dict(robot.nav_log),
+                        recs[0].metrics, (d / "r.csv").read_text(),
+                        tfa.short_attention.launches - k3,
+                        int(mem.state.num_voxels))
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert card[1]["working_memory_query"] == 0 < card[1]["long_memory_query"]
+    assert card[:4] == cpu[:4]
+    assert cpu[4] == 0 < card[4]
+    assert card[5] > 300 and cpu[5] > 300

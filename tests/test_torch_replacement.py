@@ -479,3 +479,25 @@ def test_full_f32_matmul_restores_the_flags():
     finally:
         torch.set_float32_matmul_precision(prec)
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_full_f32_matmul_after_mixed_precision_apis():
+    """A caller that set the float32 matmul precision and then
+    ``allow_tf32`` leaves settings that ``torch.get_float32_matmul_
+    precision`` refuses to read: the context still runs in full f32 and
+    gives each backend its setting back."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [b.fp32_precision for b in backends]
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mixed = [b.fp32_precision for b in backends]
+        with pytest.raises(RuntimeError):
+            torch.get_float32_matmul_precision()
+        with full_f32_matmul():
+            assert [b.fp32_precision for b in backends] == ["ieee", "ieee"]
+        assert [b.fp32_precision for b in backends] == mixed
+    finally:
+        for b, p in zip(backends, saved):
+            b.fp32_precision = p
+        torch.set_float32_matmul_precision("highest")

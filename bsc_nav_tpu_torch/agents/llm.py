@@ -7,7 +7,11 @@ deliberate divergence: images are packed as PNG, encoded with ``zlib`` and
 with PIL.  The card machine has no PIL, and the robots pack images on every
 VLM judge call.  PNG is lossless, so the payload decodes to the exact
 pixels; the message text around it is the JAX module's, word for word
-(``tests/test_torch_agents.py`` holds both).
+(``tests/test_torch_agents.py`` holds both).  ``decode_png`` reads them
+back for the local judge (``agents/local_vlm.py``), where the JAX module
+reads any format through PIL: 8-bit greyscale, RGB and RGBA,
+non-interlaced, all five row filters, every chunk's CRC checked; any other
+PNG raises.
 
 Covers every LLM role in the reference's LLMAgent.py (14 functions,
 SURVEY §2 L4): prompt-to-image enhancement, long-memory localization,
@@ -141,6 +145,95 @@ def encode_png(img) -> bytes:
                                               0))
             + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), PNG_LEVEL))
             + _png_chunk(b"IEND", b""))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}     # greyscale, RGB, RGBA
+
+
+def _png_chunks(data: bytes):
+    """(kind, payload) of each chunk, its CRC checked."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError("not a PNG: bad signature")
+    i = 8
+    while i < len(data):
+        if i + 12 > len(data):
+            raise ValueError("PNG: truncated chunk")
+        (n,) = struct.unpack(">I", data[i:i + 4])
+        kind, payload = data[i + 4:i + 8], data[i + 8:i + 8 + n]
+        if len(payload) != n or i + 12 + n > len(data):
+            raise ValueError(f"PNG: truncated {kind!r} chunk")
+        (crc,) = struct.unpack(">I", data[i + 8 + n:i + 12 + n])
+        if zlib.crc32(kind + payload) & 0xFFFFFFFF != crc:
+            raise ValueError(f"PNG: CRC mismatch in the {kind!r} chunk")
+        yield kind, payload
+        i += 12 + n
+
+
+def _unfilter_row(kind: int, row: np.ndarray, prev: np.ndarray,
+                  bpp: int) -> np.ndarray:
+    """One scanline's bytes with its filter undone (PNG spec 9.2), given
+    the previous reconstructed scanline (zeros above the first)."""
+    if kind == 0:
+        return row
+    if kind == 2:                                            # Up
+        return row + prev
+    if kind == 1:                                            # Sub
+        out = row.reshape(-1, bpp).astype(np.uint64).cumsum(axis=0)
+        return (out % 256).astype(np.uint8).reshape(-1)
+    if kind not in (3, 4):
+        raise ValueError(f"PNG: unknown row filter {kind}")
+    r, b = row.tolist(), prev.tolist()
+    out = [0] * len(r)
+    for x in range(len(r)):
+        a = out[x - bpp] if x >= bpp else 0
+        if kind == 3:                                        # Average
+            out[x] = (r[x] + ((a + b[x]) >> 1)) & 0xFF
+            continue
+        c = b[x - bpp] if x >= bpp else 0                    # Paeth
+        p = a + b[x] - c
+        pa, pb, pc = abs(p - a), abs(p - b[x]), abs(p - c)
+        pred = a if pa <= pb and pa <= pc else b[x] if pb <= pc else c
+        out[x] = (r[x] + pred) & 0xFF
+    return np.asarray(out, np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit greyscale, RGB or RGBA non-interlaced PNG as uint8
+    [H, W] / [H, W, 3] / [H, W, 4].  Every chunk's CRC is checked; any
+    other bit depth, colour type or interlace raises ``ValueError``."""
+    header, idat = None, []
+    for kind, payload in _png_chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"IDAT":
+            idat.append(payload)
+        elif kind == b"IEND":
+            break
+    else:
+        raise ValueError("PNG: no IEND chunk")
+    if header is None:
+        raise ValueError("PNG: no IHDR chunk")
+    w, h, depth, color, comp, filt, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0 \
+            or comp != 0 or filt != 0:
+        raise ValueError(
+            f"PNG: bit depth {depth}, colour type {color}, interlace "
+            f"{interlace} (this reader takes 8-bit greyscale, RGB and RGBA, "
+            "non-interlaced)")
+    ch = _PNG_CHANNELS[color]
+    stride = w * ch
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"PNG: {raw.size} bytes of scanlines, the header "
+                         f"needs {h * (stride + 1)}")
+    lines = raw.reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        prev = out[y] = _unfilter_row(int(lines[y, 0]), lines[y, 1:], prev,
+                                      ch)
+    return out.reshape(h, w) if ch == 1 else out.reshape(h, w, ch)
 
 
 def images_to_base64(images: Sequence) -> List[str]:

@@ -1,5 +1,5 @@
 """Load ViT and CLIP weights into the torch modules, and the MMDiT, VAE,
-T5 and YOLO-World weights into the port's dict trees.
+T5, YOLO-World and Qwen2.5-VL weights into the port's dict trees.
 
 Two sources, one key scheme: the JAX params tree (nested dicts and lists,
 ``bsc_nav_tpu/models/vit.py`` layout, linear ``w`` stored
@@ -27,6 +27,7 @@ from bsc_nav_tpu_torch import resolve_device
 
 from bsc_nav_tpu_torch.models.clip import CLIP, CLIPConfig
 from bsc_nav_tpu_torch.models.mmdit import MMDiTConfig
+from bsc_nav_tpu_torch.models.qwen_vl import QwenVLConfig
 from bsc_nav_tpu_torch.models.t5 import T5Config
 from bsc_nav_tpu_torch.models.vae import VAEConfig
 from bsc_nav_tpu_torch.models.vit import ViT, ViTConfig
@@ -223,3 +224,29 @@ def load_yolo_world_npz(path: str, cfg: "yolo_world.YoloWorldConfig",
     """The YOLO-World tree of the ``yolov8x_worldv2.npz`` that
     ``save_params_npz`` writes from ``convert_ultralytics``."""
     return yolo_world_from_jax_params(_npz_tree(path), cfg, dtype, device)
+
+
+def qwen_vl_from_jax_params(params: Any, cfg: QwenVLConfig,
+                            dtype=torch.bfloat16, device="cuda") -> dict:
+    """The port's Qwen2.5-VL tree from a JAX ``qwen_vl.init_params`` /
+    ``convert_hf`` tree or a ``quantize_params`` tree (numpy leaves; int8
+    ``w_q`` with f32 ``w_s`` kept)."""
+    if len(params["layers"]) != cfg.text.layers:
+        raise ValueError(f"qwen_vl: {len(params['layers'])} decoder layers, "
+                         f"the config has {cfg.text.layers}")
+    if len(params["vision"]["blocks"]) != cfg.vision.depth:
+        raise ValueError(f"qwen_vl: {len(params['vision']['blocks'])} "
+                         f"vision blocks, the config has {cfg.vision.depth}")
+    if tuple(np.shape(params["embed"])) != (cfg.text.vocab,
+                                            cfg.text.hidden):
+        raise ValueError(f"qwen_vl: embed {np.shape(params['embed'])}, the "
+                         f"config has ({cfg.text.vocab}, {cfg.text.hidden})")
+    return _tree(params, dtype, resolve_device(device))
+
+
+def load_qwen_vl_npz(path: str, cfg: QwenVLConfig, dtype=torch.bfloat16,
+                     device="cuda") -> dict:
+    """The Qwen2.5-VL tree of the flat ``qwen_vl.npz`` that the JAX
+    package's ``load_local_vlm`` reads (``save_params_npz`` of a
+    ``convert_hf`` tree), in ``dtype`` (bf16, as that loader's default)."""
+    return qwen_vl_from_jax_params(_npz_tree(path), cfg, dtype, device)

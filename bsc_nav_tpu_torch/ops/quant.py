@@ -8,11 +8,20 @@ dispatches on the presence of ``"w_q"``, as in the JAX package.
 
 The JAX package leaves the int8 product to XLA (no Pallas kernel), so the
 port leaves it to PyTorch: ``torch._int_mm`` on a CUDA tensor, which needs
-more than 16 rows and both widths a multiple of 8 (the CLIP towers' are);
-anything else raises rather than taking a float path on the card.  On the
-CPU the product is a float64 matmul of the int8 values, exact at these
-sizes (|sum| <= 127^2 * fan_in < 2^53), so both sides give the same int32
-sums.  The activation scale divides (``xf / xs``), as the JAX source
+more than 16 rows and both widths a multiple of 8 -- and on the H100 the
+cuBLASLt int8 product it calls refuses a depth K under 128 once N is 32 or
+more (CUBLAS_STATUS_NOT_SUPPORTED unless M is a multiple of 32;
+``chip_smoke.py``'s ``vlm`` phase counts the refusals over a grid of
+shapes).  XLA's dot takes every shape, so the port pads the operands with
+zeros up to what the card takes (``int8_gemm_shape``,
+``padded_int8_matmul``) and slices the result:
+zero rows and columns add nothing to any int32 sum, so the sums are exact.
+A decode step's matvec (M = 1) pads its one activation row; a width not a
+multiple of 8 (the Qwen vision MLP's 3420, quantized only under
+``scope="vision"`` / ``"all"``) pads, and so copies, the weight per call.
+On the CPU the product is a float64 matmul of the int8 values, exact at
+these sizes (|sum| <= 127^2 * fan_in < 2^53), so both sides give the same
+int32 sums.  The activation scale divides (``xf / xs``), as the JAX source
 writes it.
 
 ``conv_q8`` (``lax.conv`` on int8 in the JAX package) is the same product
@@ -49,17 +58,36 @@ def quantize_weight(p: Mapping[str, torch.Tensor]) -> dict:
     return q
 
 
-def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """[M, K] int8 x [K, N] int8 -> [M, N] int32 sums."""
-    if xq.device.type == "cpu":
-        return (xq.double() @ wq.double()).to(torch.int32)
+def int8_gemm_shape(M: int, K: int, N: int) -> tuple:
+    """(Mp, Kp, Np): sizes at least (M, K, N) that ``torch._int_mm`` takes
+    on the card -- more than 16 rows (M <= 16 pads to 24, the next
+    multiple of 8), K a multiple of 8 and at least 128, N a multiple of
+    8."""
+    return (M if M > 16 else 24, max(-(-K // 8) * 8, 128), -(-N // 8) * 8)
+
+
+def padded_int8_matmul(xq: torch.Tensor, wq: torch.Tensor,
+                       mm=torch._int_mm) -> torch.Tensor:
+    """[M, K] int8 x [K, N] int8 -> [M, N] int32 by ``mm`` on operands
+    zero-padded to ``int8_gemm_shape``: the padded rows and columns add
+    zeros to every sum, and the padding is sliced off.  Padding K or N
+    copies the weight on every call."""
     M, K = xq.shape
     N = wq.shape[1]
-    if M <= 16 or K % 8 or N % 8:
-        raise NotImplementedError(
-            f"int8 GEMM [{M}, {K}] x [{K}, {N}] on {xq.device} "
-            "needs M > 16 and K, N multiples of 8 (torch._int_mm)")
-    return torch._int_mm(xq, wq.contiguous())
+    Mp, Kp, Np = int8_gemm_shape(M, K, N)
+    if (Mp, Kp) != (M, K):
+        xq = F.pad(xq, (0, Kp - K, 0, Mp - M))
+    if (Kp, Np) != (K, N):
+        wq = F.pad(wq, (0, Np - N, 0, Kp - K))
+    y = mm(xq.contiguous(), wq.contiguous())
+    return y[:M, :N] if (Mp, Np) != (M, N) else y
+
+
+def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """[M, K] int8 x [K, N] int8 -> [M, N] int32 sums, any shape."""
+    if xq.device.type == "cpu":
+        return (xq.double() @ wq.double()).to(torch.int32)
+    return padded_int8_matmul(xq, wq)
 
 
 def linear_q8(x: torch.Tensor, p: Mapping[str, torch.Tensor]

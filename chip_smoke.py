@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's memory spine, CLIP stack, YOLO-World feed, text
-queries and robots once on one NVIDIA GPU and check them.
+queries, robots and local VLM judge once on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernels K2,K4,K5   # those kernels' cases alone
@@ -192,6 +193,24 @@ non-zero):
                 host renderer's share; K1, K2, K3, K4 and K2b launched,
                 none of K5-K8
 
+  vlm           the offline judge at full width, last: Qwen2.5-VL-3B
+                (QWEN25_VL_3B, 4.07 G parameters) with random bf16 weights
+                drawn on the card from the seed, LocalVLMClient with the
+                ByteTokenizer on the robots' own PNG messages
+                (succeed_determine_singleview, 1 view; EQA_Answer_4o, 4
+                views; FakeBenchmarkEnv at 680x680), 32 greedy tokens a
+                chat, bf16 and int8 (quantize=True, the default llm_int8):
+                host preparation, vision tower ms per image, prefill ms at
+                S, decode ms per token beside the decode step's bytes bound
+                (decoder + lm_head weights over 3.35 TB/s), ms per chat;
+                the device idle share of one profiled int8 chat.  Checks:
+                (a) the prefill's last logits and (b) the first 4 decode
+                steps' against text_forward within VLM_LOGIT_TOL, (c) the
+                int8 GEMM's sums exact at M 1-601 on the decoder's shapes
+                (and the shapes torch._int_mm refuses unpadded, counted),
+                (d) a tiny f32 judge on the card against the CPU (equal
+                tokens, or a parting under VLM_MARGIN); no K1-K8 launch
+
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
 launch counts, errors and times, and {"ok": true, "device": {...}}.
@@ -203,6 +222,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -3869,6 +3889,319 @@ def phase_segments_parity(dev, seed):
     return out
 
 
+VLM_NEW_TOKENS = 32      # greedy tokens a chat (the client's default 128)
+VLM_VIEWS = 4            # views of the multi-view call (EQA_Answer_4o)
+# (a), (b): the bf16 judge's logits against text_forward over the same
+# tokens, within 2^-4 of the row's max |logit|: the decode step's M = 1
+# products sum in another order than the prompt's, each of the 36 layers
+# rounds its residual writes to bf16 (2^-9), and a random walk of ~72 such
+# roundings keeps under ~2^-6 of the scale; 2^-4 leaves 4x
+VLM_LOGIT_TOL = 2.0 ** -4
+VLM_MARGIN = 1e-4        # (d): f32 top-2 margin on O(1) logits, TF32 off
+# (c)'s [K, N]: q / o, k / v, gate / up, down, lm_head, the vision MLP,
+# and shapes that cuBLASLt's int8 product refuses unpadded (K under 128
+# with N 32 or more: the tiny judge's K 24 and vocab 300)
+VLM_INT8_SHAPES = ((2048, 2048), (2048, 256), (2048, 11008), (11008, 2048),
+                   (2048, 151936), (1280, 3420), (3420, 1280), (24, 300),
+                   (96, 40))
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def vlm_views(cfg, seed, n):
+    """n views of FakeBenchmarkEnv over BoxScene.default() at Config()'s
+    680x680: the episode's start, then turning left."""
+    from bsc_nav_tpu_torch.drivers import setup as DS
+    from bsc_nav_tpu_torch.env.benchmark import FakeBenchmarkEnv
+    from bsc_nav_tpu_torch.env.fake import BoxScene
+
+    scene = BoxScene.default()
+    bench = FakeBenchmarkEnv(cfg, DS.fake_episodes(scene, "eqa", seed),
+                             scene=scene, seed=seed)
+    views = [bench.reset()["rgb"][:, :, :3]]
+    while len(views) < n:
+        views.append(bench.step("turn_left")["rgb"][:, :, :3])
+    return views
+
+
+def vlm_messages(views):
+    """The robots' own judge calls through the port's llm helpers (PNG data
+    URLs): the single-view success judge and the multi-view EQA answer."""
+    from bsc_nav_tpu_torch.agents import llm as L
+    rec = L.MockLLMClient(default="")
+    L.succeed_determine_singleview(rec, "a bed", views[:1])
+    L.EQA_Answer_4o(rec, "What color is the sofa?", views[:VLM_VIEWS])
+    return [c["messages"] for c in rec.calls]
+
+
+def vlm_logit_checks(client, msgs, tag):
+    """(a) the prefill's last logits and (b) the first 4 decode steps'
+    logits against text_forward over the prompt and those tokens, on the
+    same padded length; returns the largest error over the row's max
+    |logit| of each."""
+    from bsc_nav_tpu_torch import full_f32_matmul
+    from bsc_nav_tpu_torch.models import qwen_vl as Q
+
+    prep = client.prepare(msgs)
+    S, L = len(prep["ids"]), prep["max_len"]
+    check(S + 4 <= L, f"{tag}: prompt {S} leaves no 4 slots in {L}")
+    trace = []
+    with torch.no_grad(), full_f32_matmul():
+        emb = client.embed(prep)
+        toks = client.generate(prep, emb, trace=trace)
+        check(len(trace) >= 5, f"{tag}: {len(trace)} steps, want 5")
+        first = [int(torch.argmax(t)) for t in trace[:4]]
+        ids = torch.tensor(first, device=emb.device)
+        full = torch.cat([emb, client.params["embed"][ids][None]], dim=1)
+        full = F_pad(full, L)
+        start = int(prep["pos"].max()) + 1
+        pos = np.concatenate([prep["pos"], np.broadcast_to(
+            start + np.arange(4), (3, 1, 4))], axis=-1)
+        pos = torch.from_numpy(np.pad(pos, ((0, 0), (0, 0), (0, L - S - 4)))
+                               ).to(emb.device)
+        # (a) over the prompt alone, padded as the prefill pads it
+        ref_a = Q.text_forward(
+            client.params, F_pad(emb, L),
+            torch.from_numpy(np.pad(prep["pos"], ((0, 0), (0, 0),
+                                                  (0, L - S)))).to(emb.device),
+            client.cfg.text, torch.tensor([S], device=emb.device))[0, S - 1]
+        ref_b = Q.text_forward(client.params, full, pos, client.cfg.text,
+                               torch.tensor([S + 4], device=emb.device))[0]
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+    err_a = rel(trace[0], ref_a)
+    err_b = max(rel(trace[1 + i], ref_b[S + i]) for i in range(4))
+    check(err_a <= VLM_LOGIT_TOL and err_b <= VLM_LOGIT_TOL,
+          f"{tag}: prefill / decode logits off text_forward by {err_a:.3g} "
+          f"/ {err_b:.3g} of max |logit| (tol {VLM_LOGIT_TOL})")
+    return {"prefill_rel_err": err_a, "decode_rel_err": err_b,
+            "prompt_len": S, "max_len": L, "tokens": len(toks)}
+
+
+def F_pad(x, L):
+    return torch.nn.functional.pad(x, (0, 0, 0, L - x.shape[1]))
+
+
+def vlm_int8_sums(dev, gen):
+    """(c) quant._int8_matmul (torch._int_mm on operands padded by
+    padded_int8_matmul) at M 1, 3, 16, 17 and a prompt's 601 rows on
+    VLM_INT8_SHAPES: int32 sums equal to the exact float64 product of the
+    same codes."""
+    from bsc_nav_tpu_torch.ops import quant
+    # torch._int_mm unpadded over a grid: the shapes cuBLASLt refuses
+    refused = []
+    for M in (17, 24, 200):
+        for K in (8, 24, 32, 64, 96, 120, 128, 136, 256):
+            for N in (8, 24, 32, 40, 304):
+                x = torch.zeros(M, K, dtype=torch.int8, device=dev)
+                try:
+                    torch._int_mm(x, torch.zeros(K, N, dtype=torch.int8,
+                                                 device=dev))
+                except RuntimeError:
+                    refused.append((M, K, N))
+                got = quant._int8_matmul(x + 1, torch.ones(
+                    K, N, dtype=torch.int8, device=dev))
+                check(bool((got == K).all()) and got.shape == (M, N),
+                      f"padded int8 GEMM [{M}, {K}] x [{K}, {N}] is wrong")
+    torch.cuda.synchronize()
+    cases = 0
+    for K, N in VLM_INT8_SHAPES:
+        w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        for M in (1, 3, 16, 17, 601):
+            if N == 151936 and M > 17:
+                continue
+            x = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            got = quant._int8_matmul(x, w)
+            want = (x.double() @ w.double()).to(torch.int32)
+            check(got.dtype == torch.int32 and torch.equal(got, want),
+                  f"int8 GEMM [{M}, {K}] x [{K}, {N}]: sums differ")
+            cases += 1
+    return cases, refused
+
+
+def vlm_tiny_parity(dev, seed, msgs):
+    """(d) a tiny f32 judge (QWEN_VL_TEST widths, vocab 300, 8^2 images)
+    on the card and on the CPU, the same weights and messages: equal
+    greedy tokens, or a first parting where the CPU's top-2 margin is
+    under VLM_MARGIN."""
+    from bsc_nav_tpu_torch.agents import local_vlm as LV
+    from bsc_nav_tpu_torch.models import qwen_vl as Q
+
+    tok = LV.ByteTokenizer()
+    cfg = dataclasses.replace(
+        Q.QWEN_VL_TEST, text=dataclasses.replace(Q.QWEN_VL_TEST.text,
+                                                 vocab=300),
+        image_token_id=tok.image_pad_id,
+        vision_start_token_id=tok.special_ids[LV.VISION_START])
+    cpu = Q.init_params(cfg, torch.Generator().manual_seed(seed),
+                        torch.float32, "cpu", std=0.2)
+    card = tree_map(lambda t: t.to(dev), cpu)
+    kw = dict(image_size=8, max_new_tokens=16, prompt_buckets=(2048,))
+    out = []
+    for m in msgs:
+        c, g = (LV.LocalVLMClient(p, cfg, tok, **kw) for p in (cpu, card))
+        c.chat("local", m)
+        g.chat("local", m)
+        a, b = c.last["tokens"], g.last["tokens"]
+        parting = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       None)
+        if parting is not None:
+            prep, trace = c.prepare(m), []
+            with torch.no_grad():
+                c.generate(prep, c.embed(prep), trace=trace)
+            top = torch.topk(trace[parting].float(), 2).values
+            margin = float(top[0] - top[1])
+            check(margin < VLM_MARGIN, f"tiny judge: card and CPU part at "
+                  f"token {parting} with a CPU margin of {margin:.3g}")
+        else:
+            check(a == b, f"tiny judge: {len(a)} CPU / {len(b)} card tokens")
+        out.append({"tokens": len(a), "parting": parting})
+    return out
+
+
+def vlm_chat(client, msgs):
+    """One chat split into its parts, each ending in a synchronize: host
+    preparation (PNG decode, patches, tokens), the vision tower (with the
+    merge), the prefill and the decode steps, and the whole."""
+    from bsc_nav_tpu_torch import full_f32_matmul
+    t0 = time.perf_counter()
+    prep = client.prepare(msgs)
+    t1 = time.perf_counter()
+    steps = []
+    with torch.no_grad(), full_f32_matmul():
+        emb = client.embed(prep)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        toks = client.generate(prep, emb, step_ms=steps)
+    t3 = time.perf_counter()
+    n_img = len(prep["grids"])
+    return {"S": len(prep["ids"]), "bucket": prep["max_len"],
+            "images": n_img, "host_prep_ms": (t1 - t0) * 1e3,
+            "vision_ms_per_image": (t2 - t1) * 1e3 / max(n_img, 1),
+            "prefill_ms": steps[0],
+            "decode_ms_per_token": statistics.median(steps[1:])
+            if len(steps) > 1 else None,
+            "tokens": len(steps), "chat_ms": (t3 - t0) * 1e3,
+            "text_tokens_kept": len(toks)}
+
+
+def phase_vlm(dev, seed):
+    """The offline judge at full width: QWEN25_VL_3B with random bf16
+    weights drawn on the card, LocalVLMClient with the ByteTokenizer on the
+    robots' own PNG messages, bf16 and int8 (quantize=True, the default
+    llm_int8), each timed in its parts beside the decode step's bytes
+    bound; checks (a)-(d); one profiled chat."""
+    from torch.profiler import ProfilerActivity, profile
+    from bsc_nav_tpu_torch.agents import local_vlm as LV
+    from bsc_nav_tpu_torch.config import Config
+    from bsc_nav_tpu_torch.models import qwen_vl as Q
+
+    # the earlier phases' models sit in reference cycles (robot, memory,
+    # bench and their closures) until the collector runs
+    before = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gb = torch.cuda.memory_allocated() / 1e9
+    log("vlm", f"device memory before: {before:.2f} GB allocated, "
+        f"{gb:.2f} GB after collecting the earlier phases' cycles")
+    t0 = time.perf_counter()
+    views = vlm_views(Config(), seed, VLM_VIEWS)
+    msgs = vlm_messages(views)
+    t_views = time.perf_counter() - t0
+    cfg = Q.QWEN25_VL_3B
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = Q.init_params(cfg, gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_par = n_params(params)
+    tok = LV.ByteTokenizer()
+    res = {"params": n_par, "bf16_bytes": tree_bytes(params),
+           "init_s": t_init, "views_s": t_views, "new_tokens": VLM_NEW_TOKENS}
+    log("vlm", f"QWEN25_VL_3B: {n_par / 1e9:.3f} G parameters, "
+        f"{res['bf16_bytes'] / 1e9:.2f} GB resident in bf16, drawn on the "
+        f"card in {t_init:.1f} s; {VLM_VIEWS} FakeBenchmarkEnv views at "
+        f"680x680 in {t_views:.1f} s")
+    for mode in ("bf16", "int8"):
+        client = LV.LocalVLMClient(params, cfg, tok,
+                                   max_new_tokens=VLM_NEW_TOKENS,
+                                   quantize=mode == "int8")
+        dec = client.params["layers"], client.params["lm_head"]
+        dec_bytes = tree_bytes(dec)
+        bound = dec_bytes / HBM_BYTES_PER_S * 1e3
+        client.chat("local", msgs[0])           # warm-up
+        chats = [vlm_chat(client, m) for m in msgs]
+        checks = vlm_logit_checks(client, msgs[0], f"vlm {mode}")
+        res[mode] = {"decoder_lm_head_bytes": dec_bytes,
+                     "decode_bound_ms": bound, "chats": chats,
+                     "logit_checks": checks,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for c in chats:
+            log(f"vlm {mode}", f"{c['images']} image(s), S {c['S']} (bucket "
+                f"{c['bucket']}, byte tokens): host prep "
+                f"{c['host_prep_ms']:.1f} ms, vision tower "
+                f"{c['vision_ms_per_image']:.1f} ms/image, prefill "
+                f"{c['prefill_ms']:.1f} ms, decode "
+                f"{c['decode_ms_per_token']:.2f} ms/token (median of "
+                f"{c['tokens'] - 1}; bytes bound {bound:.3f} ms: "
+                f"{dec_bytes / 1e9:.3f} GB of decoder + lm_head over 3.35 "
+                f"TB/s), chat {c['chat_ms']:.0f} ms")
+        log(f"vlm {mode}", f"(a) prefill / (b) 4 decode steps against "
+            f"text_forward: {checks['prefill_rel_err']:.3g} / "
+            f"{checks['decode_rel_err']:.3g} of max |logit| (tol "
+            f"{VLM_LOGIT_TOL})")
+        if mode == "int8":
+            short = LV.LocalVLMClient(client.params, cfg, tok,
+                                      max_new_tokens=16)
+            short.chat("local", msgs[0])
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                short.chat("local", msgs[0])
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t0) * 1e3
+            split, top_rest = kernel_split(prof)
+            busy = sum(split.values())
+            res["profiled_chat"] = {
+                "ms": prof_ms, "busy_ms": busy, "new_tokens": 16,
+                "idle_share": 1 - busy / prof_ms if busy else None,
+                "gemm_ms": split["GEMMs"], "rest_ms": split["rest"],
+                "top_rest": top_rest}
+            log("vlm int8", "profiled chat (single view, 16 tokens): " + (
+                f"kernels busy {busy:.1f} of {prof_ms:.1f} ms host clock "
+                f"(idle share {1 - busy / prof_ms:.3f}); GEMMs "
+                f"{split['GEMMs']:.1f} ms, rest {split['rest']:.1f} ms; "
+                "largest of the rest: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in top_rest)
+                if busy else "torch.profiler saw no device kernels: idle "
+                "share not measured"))
+        del client, dec
+    res["int8_sums_cases"], refused = vlm_int8_sums(dev, gen)
+    res["int_mm_refused"] = refused
+    log("vlm", f"(c) int8 GEMM sums exact in {res['int8_sums_cases']} cases "
+        "(M 1, 3, 16, 17, 601; decoder shapes, lm_head, the vision MLP's "
+        "3420, K 24 / N 300, K 96 / N 40); torch._int_mm unpadded refused "
+        f"{len(refused)} of 135 grid shapes (M 17/24/200, K 8-256, N "
+        f"8-304): K {sorted({k for _, k, _ in refused})}, N "
+        f"{sorted({n for _, _, n in refused})}; padded, all 135 exact")
+    del params
+    torch.cuda.empty_cache()
+    res["tiny_parity"] = vlm_tiny_parity(dev, seed, msgs)
+    log("vlm", f"(d) tiny f32 judge, card against CPU: "
+        f"{res['tiny_parity']}")
+    return res
+
+
 def kernel_cases_only(names, seed) -> int:
     """``--kernels``: the named kernels' cases alone, on the card."""
     from bsc_nav_tpu_torch.ops import _build
@@ -4080,6 +4413,15 @@ def main(argv=None) -> int:
         check(all((c[i] > 0) == (i in used) for i in range(8)),
               f"{name} launches {fmt(c)}")
     textq_parity = phase_textq_parity(dev, args.seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    vlm = phase_vlm(dev, args.seed)
+    vlm_path = counts()
+    vlm["phase_s"] = time.perf_counter() - t0
+    log("vlm", f"launches on the path: {fmt(vlm_path)} (the judge runs no "
+        f"kernel of K1-K8, as the JAX judge reaches no pallas_call); "
+        f"phase {vlm['phase_s']:.1f} s")
+    check(vlm_path == launches(), f"vlm launches {fmt(vlm_path)}")
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "bsc_nav_tpu"))
     check(not stray, f"imported {stray[:5]}")
@@ -4089,7 +4431,7 @@ def main(argv=None) -> int:
              "surprise": surprise_path, "segments": segments_path,
              "explore": explore_path, "robot-parity": robot_parity_path,
              "clip": clip_path, "yolo": yolo_path, **textq_paths,
-             "robot": robot_path}
+             "robot": robot_path, "vlm": vlm_path}
 
     def main_case(kernel, dtype="float32", **match):
         match = match or {"B": 8}
@@ -4183,7 +4525,7 @@ def main(argv=None) -> int:
         "clip_parity": clip_parity, "yolo": yolo, "yolo_parity": yolo_parity,
         "textq": textq,
         "textq_parity": textq_parity, "robot_parity": robot_parity,
-        "robot": robot}), flush=True)
+        "robot": robot, "vlm": vlm}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -277,12 +277,15 @@ def test_create_memory_eqa_pose_seeded(tmp_path, monkeypatch):
 
 
 def test_build_world_refuses_what_is_not_ported(tmp_path):
-    """--env habitat, --llm local and --detector grounding-dino raise
-    rather than run something else."""
-    for extra, what in ((["--env", "habitat"], "habitat"),
-                        (["--llm", "local"], "local"),
-                        (["--detector", "grounding-dino"], "grounding")):
-        with pytest.raises(NotImplementedError, match=what):
+    """--env habitat and --detector grounding-dino raise rather than run
+    something else; --llm local (ported) without --weights-dir raises, as
+    the JAX driver's assertion does."""
+    for extra, what, err in (
+            (["--env", "habitat"], "habitat", NotImplementedError),
+            (["--llm", "local"], "weights-dir", ValueError),
+            (["--detector", "grounding-dino"], "grounding",
+             NotImplementedError)):
+        with pytest.raises(err, match=what):
             with in_dir(tmp_path):
                 tobjnav.main(argv_in(tmp_path, ["--episodes", "1"] + extra)
                              + ["--device", "cpu"])

@@ -66,16 +66,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert int(n) >= 25 and bad.strip() == "[]", out.stdout
 
 
-def test_port_imports_without_sklearn_or_h5py():
-    """The card machine has none of sklearn, h5py, PIL, pandas, imageio and
-    networkx: every module of the port imports with all six blocked, the
-    floors copy and the npz snapshot still run, and so does one fake
-    objnav episode through the port's driver on the CPU (its VLM judge
-    calls pack PNG images)."""
+def test_port_imports_without_sklearn_or_h5py(tmp_path):
+    """The card machine has none of sklearn, h5py, PIL, pandas, imageio,
+    networkx, transformers, tokenizers and regex: every module of the port
+    imports with all nine (and jax and bsc_nav_tpu) blocked, the floors
+    copy and the npz snapshot still run, so does one fake objnav episode
+    through the port's driver on the CPU (its VLM judge calls pack PNG
+    images), and the local judge loads from a directory (its own BPE and
+    PNG reader) and answers a chat with a PNG view."""
+    import torch_parity as TP
+    judge = tmp_path / "judge"
+    judge.mkdir()
+    TP.write_tiny_judge(str(judge))
     code = (
         "import sys\n"
         "for m in ('sklearn', 'h5py', 'PIL', 'pandas', 'imageio', "
-        "'networkx'):\n"
+        "'networkx', 'transformers', 'tokenizers', 'regex', 'jax', "
+        "'bsc_nav_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, tempfile, os\n"
         "import bsc_nav_tpu_torch as pkg\n"
@@ -95,6 +102,31 @@ def test_port_imports_without_sklearn_or_h5py():
         "'mock', '--device', 'cpu', '--csv', os.path.join(d, 'r.csv'), "
         "'--log-root', d, '--memory-root', d])\n"
         "assert len(recs) == 1 and recs[0].metrics['search_point'] >= 1\n"
+        "import dataclasses\n"
+        "import numpy as np\n"
+        "from bsc_nav_tpu_torch.agents import llm, local_vlm\n"
+        "from bsc_nav_tpu_torch.models import qwen_vl as Q\n"
+        "from bsc_nav_tpu_torch.models.qwen_tokenizer import QwenTokenizer\n"
+        f"d = {str(judge)!r}\n"
+        "tok = QwenTokenizer.from_file(os.path.join(d, 'tokenizer.json'))\n"
+        "cfg = Q.QwenVLConfig(\n"
+        "    text=dataclasses.replace(Q.QWEN_VL_TEST.text,\n"
+        "                             vocab=tok.vocab_size),\n"
+        "    vision=dataclasses.replace(Q.QWEN_VL_TEST.vision, patch=14,\n"
+        "                               window=112),\n"
+        "    image_token_id=tok.image_pad_id,\n"
+        "    vision_start_token_id=tok.convert_tokens_to_ids(\n"
+        "        '<|vision_start|>'), tie_word_embeddings=False)\n"
+        "client = local_vlm.load_local_vlm(d, cfg, device='cpu',\n"
+        "                                  max_new_tokens=4, quantize=True)\n"
+        "view = np.zeros((64, 64, 3), np.uint8)\n"
+        "out = llm.succeed_determine_singleview(client, 'a bed', [view])\n"
+        "assert isinstance(out, str) and client.last['images'] == 1\n"
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None\n"
+        "             and k.split('.')[0] in ('jax', 'bsc_nav_tpu', 'PIL',\n"
+        "                                     'transformers', 'tokenizers',\n"
+        "                                     'regex'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -355,3 +387,160 @@ def test_llm_and_clustering_copies_match_jax():
     b = tclust.weighted_cluster_centers(pts, sims, 6.0, 3)
     np.testing.assert_array_equal(b[1], a[1])
     np.testing.assert_array_equal(b[0], a[0])
+
+
+def _write_gz(path, obj):
+    import gzip
+    import json
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        json.dump(obj, f)
+
+
+def test_dataset_loaders_copy_matches_jax(tmp_path):
+    """env/datasets: ObjectNav with inline goals and the goals_by_category
+    layout (explicit key and the scene_category convention), a goal-less
+    category taken from its first goal, R2R with dict and plain
+    instructions, the OpenEQA json, ``limit``: the same records."""
+    import json
+    import math
+    from bsc_nav_tpu.env import datasets as JD
+    from bsc_nav_tpu_torch.env import datasets as TD
+    obj = str(tmp_path / "objnav.json.gz")
+    _write_gz(obj, {
+        "episodes": [
+            {"scene_id": "hm3d/val/00800-x/x.basis.glb",
+             "start_position": [1.0, 0.2, -2.0],
+             "start_rotation": [0, math.sin(0.5), 0, math.cos(0.5)],
+             "object_category": "bed",
+             "goals": [{"position": [3.0, 0.2, 4.0]}, "junk"]},
+            {"scene_id": "scenes/abc.glb", "start_position": [0, 0, 0],
+             "start_rotation": [0, 0, 0, 1], "object_category": "sofa",
+             "goals": [], "goals_key": "abc.glb_sofa",
+             "scene_dataset_config": "hm3d.json"},
+            {"scene_id": "scenes/abc.glb", "start_position": [1, 0, 1],
+             "object_category": "tv", "goals": []},
+            {"scene_id": "s.glb", "start_position": [2, 0, 2],
+             "start_rotation": [0, 0.3, 0, 0.95],
+             "goals": [{"object_category": "chair",
+                        "position": [1, 0, 1]}]},
+        ],
+        "goals_by_category": {
+            "abc.glb_sofa": [{"position": [5.0, 0.0, 5.0]},
+                             {"position": [6.0, 0.0, 5.0]}],
+            "abc.glb_tv": [{"position": [7.0, 0.0, 1.0]}]},
+    })
+    r2r = str(tmp_path / "r2r.json.gz")
+    _write_gz(r2r, {"episodes": [
+        {"scene_id": "mp3d/XYZ/XYZ.glb", "start_position": [0, 0, 0],
+         "start_rotation": [0, 0.6, 0, 0.8],
+         "instruction": {"instruction_text": "Walk to the kitchen."},
+         "goals": [{"position": [2, 0, 2]}]},
+        {"scene_id": "mp3d/Q/Q.glb", "start_position": [1, 0, 0],
+         "instruction": "Turn left.", "goals": []}]})
+    eqa = str(tmp_path / "eqa.json")
+    with open(eqa, "w") as f:
+        json.dump([{"question_id": "q1", "question": "What is on the table?",
+                    "episode_history": "hm3d-v0/00800-TEEsavR23oF",
+                    "answer": "a lamp"},
+                   {"question_id": "q2", "question": "Where?"}], f)
+
+    def same(a, b):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert type(y).__module__.startswith("bsc_nav_tpu_torch")
+            for k, v in vars(x).items():
+                w = getattr(y, k)
+                if k == "goal_positions":
+                    assert len(v) == len(w)
+                    for p, q in zip(v, w):
+                        np.testing.assert_array_equal(p, q)
+                else:
+                    np.testing.assert_array_equal(np.asarray(v, dtype=object)
+                                                  if v is None else v, w)
+
+    for limit in (None, 2):
+        same(JD.load_objectnav_episodes(obj, limit),
+             TD.load_objectnav_episodes(obj, limit))
+        same(JD.load_ovon_episodes(obj, limit),
+             TD.load_ovon_episodes(obj, limit))
+        same(JD.load_r2r_episodes(r2r, limit), TD.load_r2r_episodes(r2r,
+                                                                    limit))
+        assert JD.load_eqa_questions(eqa, limit) == \
+            TD.load_eqa_questions(eqa, limit)
+
+
+def test_dynamic_world_copy_matches_jax():
+    """env/dynamic: the same frames, box moves and mutation counts over a
+    run of steps past two mutations, the task iterator's order, goals and
+    live success metric (the agent snapped beside a goal)."""
+    from bsc_nav_tpu.env.dynamic import (
+        DynamicFakeNavEnv as JDyn, DynamicTaskIterator as JTasks)
+    from bsc_nav_tpu_torch.env.dynamic import (
+        DynamicFakeNavEnv, DynamicTaskIterator)
+    envs = (JDyn(jconfig.small_test_config(), mutate_every=4, seed=2),
+            DynamicFakeNavEnv(tconfig.small_test_config(), mutate_every=4,
+                              seed=2))
+    actions = ["turn_left", "move_forward", "move_forward", "turn_right",
+               "move_forward", "look_down", "turn_left", "move_forward",
+               "move_forward"]
+    for a in actions:
+        ja, ta = (e.step(a) for e in envs)
+        np.testing.assert_array_equal(ja["rgb"], ta["rgb"])
+        np.testing.assert_array_equal(ja["depth"], ta["depth"])
+        assert [b.center for b in envs[0].scene.boxes] == \
+            [b.center for b in envs[1].scene.boxes]
+    assert envs[0].mutation_count == envs[1].mutation_count == 2
+    jt, tt = JTasks(envs[0]), DynamicTaskIterator(envs[1])
+    jtasks, ttasks = list(jt), list(tt)
+    assert [dataclasses.astuple(t) for t in jtasks] == \
+        [dataclasses.astuple(t) for t in ttasks]
+    for a, b in zip(jtasks, ttasks):
+        np.testing.assert_array_equal(jt.current_goal_position(a),
+                                      tt.current_goal_position(b))
+        assert jt.evaluate(a) == tt.evaluate(b)
+    goal = tt.current_goal_position(ttasks[1])
+    for e in envs:
+        e.position = e.pathfinder.snap_point(goal)
+    assert jt.evaluate(jtasks[1]) == tt.evaluate(ttasks[1])
+    assert tt.evaluate(ttasks[1])["success"] == 1.0
+
+
+def test_readiness_check_on_the_port(tmp_path, capsys, monkeypatch):
+    """``python -m bsc_nav_tpu_torch.drivers.setup --check --device cpu``:
+    green offline (every row, the mocked episode through the port's objnav
+    driver included); red on a weights directory missing the converted
+    checkpoints and on an episode file that does not parse (there with the
+    episode stubbed: it ran green above); with ``--llm local`` one judge
+    chat; the card row red without a card unless the CPU is asked for."""
+    from bsc_nav_tpu_torch.drivers import objnav
+    assert drivers_setup.main(["--check", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "READY" in out and "NOT READY" not in out
+    assert "[ok     ] card" in out
+    assert "[ok     ] mocked episode end-to-end" in out
+    rec = type("R", (), {"metrics": {"success": 1.0, "spl": 1.0}})
+    monkeypatch.setattr(objnav, "main", lambda argv: [rec])
+    assert drivers_setup.main([
+        "--check", "--device", "cpu", "--weights-dir", str(tmp_path / "none"),
+        "--episode-prefix", str(tmp_path / "missing.json.gz")]) == 1
+    out = capsys.readouterr().out
+    assert "NOT READY" in out
+    assert "[MISSING] converted weights complete" in out
+    assert "[MISSING] episode dataset parses" in out
+    assert "[ok     ] mocked episode end-to-end" in out
+    # --llm local: one judge chat on a tiny judge directory (the default
+    # config swapped for the directory's)
+    import torch_parity as TP
+    from bsc_nav_tpu_torch.models import qwen_vl as TQ
+    judge = tmp_path / "judge"
+    judge.mkdir()
+    _, tcfg = TP.write_tiny_judge(str(judge))
+    monkeypatch.setattr(TQ, "QWEN25_VL_3B", tcfg)
+    assert drivers_setup.main(["--check", "--device", "cpu", "--llm",
+                               "local", "--weights-dir", str(judge)]) == 1
+    out = capsys.readouterr().out
+    assert "[ok     ] local judge chat -- " in out, out
+    assert "[MISSING] converted weights complete" in out
+    # without a card, the default device is red
+    args = argparse.Namespace(device="cuda")
+    assert drivers_setup._gpu_row(args)[0] is torch.cuda.is_available()

@@ -1505,3 +1505,88 @@ def test_fake_objnav_episode_on_the_card_matches_cpu(cuda, tmp_path):
     assert card[:4] == cpu[:4]
     assert cpu[4] == 0 < card[4]
     assert card[5] > 300 and cpu[5] > 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 3, 16, 17])
+def test_linear_q8_takes_decode_rows_on_the_card(cuda, M):
+    """linear_q8 at a decode step's rows (M 1, and 3 / 16 / 17 around
+    torch._int_mm's 17-row floor), on a width not a multiple of 8 (the
+    Qwen vision MLP's 3420) and at depths under 128 (the tiny judge's K 24
+    with its vocab 300, K 96 with N 40, which cuBLASLt refused unpadded):
+    the int32 sums equal the exact float64
+    product of the same codes, and the output holds the CPU's within two
+    activation codes' worth (127 w_s xs each): CUDA divides by 127.0 as a
+    product with its f32 reciprocal, which can move a code rounded at a
+    half."""
+    from bsc_nav_tpu_torch.ops import quant as tq
+    rng = np.random.default_rng(M)
+    for K, N in ((2048, 256), (1280, 3420), (3420, 1280), (24, 300),
+                 (96, 40)):
+        x = rng.integers(-127, 128, (M, K)).astype(np.int8)
+        w = rng.integers(-127, 128, (K, N)).astype(np.int8)
+        got = tq._int8_matmul(torch.from_numpy(x).to(cuda),
+                              torch.from_numpy(w).to(cuda))
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), torch.from_numpy(
+            (x.astype(np.float64) @ w.astype(np.float64)).astype(np.int32)))
+    p = tq.quantize_weight({"w": torch.from_numpy(
+        (rng.normal(size=(96, 40)) * 0.1).astype(np.float32)),
+        "b": torch.from_numpy(rng.normal(size=40).astype(np.float32))})
+    xs = torch.from_numpy(np.round(rng.normal(size=(M, 96)) * 8) / 8).float()
+    want = tq.linear_q8(xs, p)
+    got = tq.linear_q8(xs.to(cuda), {k: v.to(cuda) for k, v in p.items()})
+    step = 127 * p["w_s"].max() * xs.abs().max() / 127
+    assert got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 2 * float(step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
+def test_tiny_judge_chat_on_the_card_matches_cpu(cuda, quantize):
+    """LocalVLMClient over a tiny f32 Qwen2.5-VL (QWEN_VL_TEST widths,
+    ByteTokenizer) on the card and on the CPU, the same weights and a
+    PNG-packed view: the same greedy tokens, or a first parting where the
+    CPU's top-2 margin is under 1e-4 (f32 sums in another order, TF32
+    off); int8 too (quantize_params: decode rows on padded _int_mm), where
+    an activation code moved by CUDA's reciprocal division shifts a logit
+    by up to ~1e-2 (tests/test_torch_qwen_vl.py's INT8_TOL)."""
+    import dataclasses
+    from bsc_nav_tpu_torch.agents import llm as L
+    from bsc_nav_tpu_torch.agents import local_vlm as LV
+    from bsc_nav_tpu_torch.models import qwen_vl as Q
+    tok = LV.ByteTokenizer()
+    cfg = dataclasses.replace(
+        Q.QWEN_VL_TEST, text=dataclasses.replace(Q.QWEN_VL_TEST.text,
+                                                 vocab=300),
+        image_token_id=tok.image_pad_id,
+        vision_start_token_id=tok.special_ids[LV.VISION_START])
+    cpu = Q.init_params(cfg, torch.Generator().manual_seed(3),
+                        torch.float32, "cpu", std=0.2)
+
+    def to(t):
+        return ({k: to(v) for k, v in t.items()} if isinstance(t, dict)
+                else [to(v) for v in t] if isinstance(t, list)
+                else t.to(cuda))
+
+    rec = L.MockLLMClient(default="")
+    view = np.random.default_rng(0).integers(0, 256, (64, 64, 3),
+                                             dtype=np.uint8)
+    L.succeed_determine_singleview(rec, "a bed", [view])
+    msgs = rec.calls[0]["messages"]
+    kw = dict(image_size=8, max_new_tokens=12, quantize=quantize)
+    c = LV.LocalVLMClient(cpu, cfg, tok, **kw)
+    g = LV.LocalVLMClient(to(cpu), cfg, tok, **kw)
+    c.chat("local", msgs)
+    g.chat("local", msgs)
+    a, b = c.last["tokens"], g.last["tokens"]
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            prep, trace = c.prepare(msgs), []
+            with torch.no_grad():
+                c.generate(prep, c.embed(prep), trace=trace)
+            top = torch.topk(trace[i].float(), 2).values
+            assert float(top[0] - top[1]) < (2e-2 if quantize else 1e-4), (
+                i, a, b)
+            return
+    assert a == b

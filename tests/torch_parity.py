@@ -518,3 +518,115 @@ def yolo_numpy_params(cfg, seed, text_dim):
     params = numpy_tree(JY.init_params(cfg, jax.random.PRNGKey(seed),
                                        text_dim=text_dim))
     return randomize_stats(params, seed)
+
+
+# --------------------------------------------------------------------------
+# a tiny local judge on disk (tests/test_torch_local_vlm.py,
+# tests/test_torch_host_copies.py)
+# --------------------------------------------------------------------------
+
+JUDGE_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>",
+                  "<|object_ref_start|>", "<|object_ref_end|>",
+                  "<|box_start|>", "<|box_end|>", "<|quad_start|>",
+                  "<|quad_end|>", "<|vision_start|>", "<|vision_end|>",
+                  "<|vision_pad|>", "<|image_pad|>", "<|video_pad|>")
+JUDGE_TEXTS = (
+    "You are a helpful assistant.",
+    "Judge whether the goal object in the image matches the description. "
+    "Answer with 'Success: yes' or 'Success: no'; if it is too far, say "
+    "'need forward: yes'.",
+    "Which of these views shows the sofa? It's 2.5 m away; we'll turn 30 "
+    "degrees.\n\nAnswer the question: what color is the bed?",
+    "Décrivez la scène, s'il vous plaît: café, naïve, Ünïcödé.",
+    "日本語のテキスト。東京の部屋にはベッドがある。 1234567890",
+    "  runs   of\tspaces\r\n\r\nand new lines\n\n\n  ")
+
+
+def build_qwen_tokenizer(vocab_size: int = 600, extra=()):
+    """A byte-level BPE with Qwen2's pipeline (NFC, the Split pattern,
+    ByteLevel without a prefix space, the ByteLevel decoder) trained on
+    JUDGE_TEXTS, with Qwen2.5-VL's special tokens and non-special added
+    tokens (``<tool_call>`` and ``extra``): a ``tokenizers.Tokenizer``."""
+    from tokenizers import (AddedToken, Regex, Tokenizer, decoders, models,
+                            normalizers, pre_tokenizers, processors,
+                            trainers)
+    from bsc_nav_tpu_torch.models.qwen_tokenizer import QWEN2_SPLIT_PATTERN
+    tok = Tokenizer(models.BPE())
+    tok.normalizer = normalizers.NFC()
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(QWEN2_SPLIT_PATTERN), "isolated"),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
+    tok.decoder = decoders.ByteLevel()
+    tok.post_processor = processors.ByteLevel(trim_offsets=False)
+    tok.train_from_iterator(JUDGE_TEXTS * 8, trainers.BpeTrainer(
+        vocab_size=vocab_size, show_progress=False,
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    tok.add_special_tokens([AddedToken(s, normalized=False, special=True)
+                            for s in JUDGE_SPECIALS])
+    tok.add_tokens([AddedToken(t, normalized=False, special=False)
+                    for t in ("<tool_call>",) + tuple(extra)])
+    return tok
+
+
+def tiny_judge_configs(tok):
+    """(JAX config, port config) of a tiny Qwen2.5-VL whose vocabulary and
+    image ids are the tokenizer's, with the 3B's patch (14) and window
+    (112), so a 224^2 image is 64 merged tokens in 4 windows."""
+    import dataclasses
+    from bsc_nav_tpu.models import qwen_vl as JQ
+    from bsc_nav_tpu_torch.models import qwen_vl as TQ
+    kw = dict(
+        text=dict(hidden=24, layers=2, heads=4, kv_heads=2, intermediate=48,
+                  vocab=tok.get_vocab_size(with_added_tokens=True),
+                  mrope_section=(1, 1, 1)),
+        vision=dict(depth=2, hidden=32, heads=2, patch=14, temporal_patch=2,
+                    merge=2, out_hidden=24, intermediate=40, window=112,
+                    fullatt=(1,)),
+        image_token_id=tok.token_to_id("<|image_pad|>"),
+        vision_start_token_id=tok.token_to_id("<|vision_start|>"),
+        tie_word_embeddings=False)
+    out = []
+    for M in (JQ, TQ):
+        out.append(M.QwenVLConfig(
+            text=M.QwenVLTextConfig(**kw["text"]),
+            vision=M.QwenVLVisionConfig(**kw["vision"]),
+            **{k: v for k, v in kw.items() if k not in ("text", "vision")}))
+    assert dataclasses.asdict(out[0]) == dataclasses.asdict(out[1])
+    return tuple(out)
+
+
+def write_tiny_judge(path, seed: int = 0, answer=None):
+    """``qwen_vl.npz`` (the flat layout of ``save_params_npz``; weights of
+    std 0.2, random biases and norm scales), ``tokenizer.json`` and the
+    ``tokenizer_config.json`` that ``AutoTokenizer`` reads, in ``path``.
+    With ``answer``, the tokenizer has it as one added token, and the
+    weights make it the first token after any chat prompt (which ends in
+    "\n"): the newline's embedding has 30 in channel 0, and ``lm_head``
+    reads channel 0 into the answer's logit with weight 20, which the
+    random rest (O(1) logits) cannot outweigh; the tokens after it are the
+    random model's.  Returns (JAX config, port config)."""
+    import json
+    import os
+    from bsc_nav_tpu.models import qwen_vl as JQ
+    from bsc_nav_tpu_torch.models.weights import flatten_params
+    tok = build_qwen_tokenizer(extra=(answer,) if answer else ())
+    tok.save(os.path.join(path, "tokenizer.json"))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast",
+                   "clean_up_tokenization_spaces": False,
+                   "model_max_length": 32768}, f)
+    jcfg, tcfg = tiny_judge_configs(tok)
+    rng = np.random.default_rng(seed)
+    flat = flatten_params(jax.tree_util.tree_map(
+        np.asarray, JQ.init_params(jcfg, None)))
+    norms = ("norm1", "norm2", "ln_q", "ln1", "ln2", "norm")
+    for k, v in flat.items():
+        name = k.rsplit(".", 1)[-1]
+        flat[k] = ((1 + 0.1 * rng.normal(size=v.shape)) if name in norms
+                   else 0.05 * rng.normal(size=v.shape) if name.endswith("_b")
+                   else 0.2 * rng.normal(size=v.shape)).astype(np.float32)
+    if answer:
+        flat["embed"][tok.token_to_id("\u010a"), 0] = 30.0     # "\n"
+        flat["lm_head"][0, tok.token_to_id(answer)] = 20.0
+    np.savez(os.path.join(path, "qwen_vl.npz"), **flat)
+    return jcfg, tcfg

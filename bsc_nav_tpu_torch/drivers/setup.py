@@ -1,26 +1,33 @@
 """World construction for the port's episode drivers.
 
-Counterpart of ``benchmarks/setup.py`` for ``--env fake``: builds (cfg,
-bench_env, memory, robot deps) from CLI flags over the synthetic box world,
-the port's ``VoxelTokenMemory`` on ``--device`` (the card unless the
-caller asks for the CPU), the colour matchers and detector, the scene
-imagination and the judge: the mock oracle LLM, an OpenAI-compatible
-endpoint, or with ``--llm local --weights-dir <dir>`` the in-process
-Qwen2.5-VL (``agents/local_vlm.py``; W8A8 decoder unless ``--int8`` leaves
-out ``llm``), so that every driver runs offline.
+Counterpart of ``benchmarks/setup.py``: builds (cfg, bench_env, memory,
+robot deps) from CLI flags.  Two backends, both on ``--device`` (the card
+unless the caller asks for the CPU):
+
+  --env fake     the synthetic box world, the port's ``VoxelTokenMemory``,
+                 the colour matchers and detector (whatever ``--detector``
+                 says, as in the JAX package), the scene imagination;
+  --env habitat  habitat-sim scenes (``env/habitat_env.build_habitat_world``:
+                 the bf16 DINOv2 perception and, from the converted weights
+                 under ``--weights-dir``, the MetaCLIP matcher, the patch
+                 detector or with ``--detector grounding-dino`` Grounding
+                 DINO, the SD3.5 imagination); it raises ImportError where
+                 habitat-sim is not installed.
+
+The judge is the mock oracle LLM, an OpenAI-compatible endpoint, or with
+``--llm local --weights-dir <dir>`` the in-process Qwen2.5-VL
+(``agents/local_vlm.py``; W8A8 decoder unless ``--int8`` leaves out
+``llm``), so that every driver runs offline on the fake world.
 
 ``python -m bsc_nav_tpu_torch.drivers.setup --check`` is the readiness
-check (``readiness_check``, JAX ``benchmarks/setup.py:318``).
-
-What the JAX module does beyond that is not ported yet, and raises:
-``--env habitat`` (habitat-sim is installed on neither machine) and
-``--detector grounding-dino`` (ROADMAP Queue 1 item 9).  The JAX module's
-platform and compile-cache set-up is TPU only.
+check (``readiness_check``, JAX ``benchmarks/setup.py:318``).  The JAX
+module's platform and compile-cache set-up is TPU only.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import importlib.util
 import json
 import math
@@ -127,6 +134,24 @@ def _int8_set(args):
     if raw.strip() == "none":
         return set()
     return {t.strip() for t in raw.split(",") if t.strip()}
+
+
+def habitat_config(args) -> Config:
+    """The habitat world's Config: ``Config()`` at the published widths,
+    the flags' memory root, working-memory and floor options, weights
+    directory and int8 stages (JAX ``benchmarks/setup.py:126``)."""
+    cfg = Config(memory_path=args.memory_root)
+    int8 = _int8_set(args)
+    return cfg.replace(
+        agent=AgentConfig(
+            use_only_working_memory=args.use_only_working_memory,
+            load_single_floor=args.load_single_floor),
+        models=cfg.models.__class__(
+            weights_dir=args.weights_dir,
+            encoder_int8="encoder" in int8,
+            clip_int8="clip" in int8,
+            llm_int8="llm" in int8,
+            diffusion_int8="diffusion" in int8))
 
 
 def make_llm(args, bench=None):
@@ -243,13 +268,9 @@ def build_world(args, task: str = "objnav"
     """Returns (cfg, bench_env, memory, extras) with extras carrying the
     llm client / matcher / imagination for robot construction."""
     if args.env == "habitat":
-        raise NotImplementedError(
-            "--env habitat needs habitat-sim, which is installed on neither "
-            "machine: env/habitat_env.py waits in ROADMAP Queue 1")
-    if args.detector == "grounding-dino":
-        raise NotImplementedError(
-            "--detector grounding-dino is not ported yet: ROADMAP Queue 1 "
-            "item 9")
+        from bsc_nav_tpu_torch.env.habitat_env import build_habitat_world
+        return build_habitat_world(args, task)
+    # the fake world takes its colour detector whatever --detector says
     dev = resolve_device(args.device)
     cfg = fake_config(args)
     scene = BoxScene.default()
@@ -346,8 +367,10 @@ def readiness_check(args) -> int:
     readiness gate (JAX ``benchmarks/setup.py:318-440``).  Rows: the card,
     habitat-sim (optional unless asked for), the episode dataset and scene
     paths, the converted weights against ``tools/weights_manifest.json``,
-    with ``--llm local`` one judge chat, and one mocked episode through the
-    port's objnav driver.  Returns 0 when every row is green, else 1."""
+    with ``--llm local`` one judge chat, one mocked episode through the
+    port's objnav driver, and where habitat-sim, the scenes and the
+    episodes are all there the habitat world built and reset.  Returns 0
+    when every row is green, else 1."""
     ok = True
 
     def row(label, good, detail=""):
@@ -430,7 +453,21 @@ def readiness_check(args) -> int:
             row("mocked episode end-to-end", False,
                 f"{type(e).__name__}: {e}")
 
-    print("  [skip   ] habitat world (env/habitat_env.py is not ported)")
+    if have_habitat and episodes and args.scene_prefix:
+        try:
+            a = copy.copy(args)
+            a.env, a.episodes = "habitat", 1
+            _, bench, _, _ = build_world(a, task=args.task)
+            bench.reset()
+            m = bench.get_metrics()
+            row("habitat world builds + resets", True,
+                f"distance_to_goal={m['distance_to_goal']:.2f}")
+        except Exception as e:                  # noqa: BLE001
+            row("habitat world builds + resets", False,
+                f"{type(e).__name__}: {e}")
+    else:
+        print("  [skip   ] habitat world (needs habitat_sim + "
+              "--scene-prefix + --episode-prefix)")
     print(f"== readiness: {'READY' if ok else 'NOT READY'} ==")
     return 0 if ok else 1
 

@@ -1,5 +1,6 @@
-"""Load ViT and CLIP weights into the torch modules, and the MMDiT, VAE,
-T5, YOLO-World and Qwen2.5-VL weights into the port's dict trees.
+"""Load ViT and CLIP weights (the SD3 text towers included) into the torch
+modules, and the MMDiT, VAE, T5, YOLO-World, Grounding DINO and Qwen2.5-VL
+weights into the port's dict trees.
 
 Two sources, one key scheme: the JAX params tree (nested dicts and lists,
 ``bsc_nav_tpu/models/vit.py`` layout, linear ``w`` stored
@@ -25,7 +26,8 @@ import torch
 
 from bsc_nav_tpu_torch import resolve_device
 
-from bsc_nav_tpu_torch.models.clip import CLIP, CLIPConfig
+from bsc_nav_tpu_torch.models.clip import CLIP, CLIPConfig, TextTower
+from bsc_nav_tpu_torch.models.grounding_dino import GroundingDinoConfig
 from bsc_nav_tpu_torch.models.mmdit import MMDiTConfig
 from bsc_nav_tpu_torch.models.qwen_vl import QwenVLConfig
 from bsc_nav_tpu_torch.models.t5 import T5Config
@@ -124,9 +126,20 @@ def load_clip_npz(path: str, cfg: CLIPConfig, dtype=torch.float32,
         return _clip(dict(z.items()), cfg, dtype, device)
 
 
+def load_clip_text_npz(path: str, cfg: CLIPConfig, dtype=torch.float32,
+                       device="cuda") -> TextTower:
+    """An SD3 CLIP text tower (``clip.TextTower``) holding the weights of
+    the ``sd3_clip_l.npz`` / ``sd3_clip_g.npz`` that ``tools/
+    convert_weights.py clip-text`` writes (``convert_clip_text_hf``)."""
+    with np.load(path) as z:
+        return _fill(TextTower(cfg, dtype, resolve_device(device)),
+                     dict(z.items()))
+
+
 def _tree(params: Any, dtype, device, name: str = "") -> Any:
-    """A numpy tree as tensors on ``device``: int8 leaves stay int8, the
-    int8 leaves' f32 scales ``w_s`` stay f32, other floats take ``dtype``."""
+    """A numpy tree as tensors on ``device``: int8 leaves stay int8, other
+    integer leaves (index tables) become int64, the int8 leaves' f32
+    scales ``w_s`` stay f32, floats take ``dtype``."""
     if isinstance(params, dict):
         return {k: _tree(v, dtype, device, k) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
@@ -134,6 +147,8 @@ def _tree(params: Any, dtype, device, name: str = "") -> Any:
     a = np.asarray(params)
     if a.dtype == np.int8:
         return torch.from_numpy(np.array(a)).to(device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.from_numpy(a.astype(np.int64)).to(device)
     t = torch.from_numpy(np.array(a, np.float32))
     return t.to(device=device,
                 dtype=torch.float32 if name == "w_s" else dtype)
@@ -250,3 +265,30 @@ def load_qwen_vl_npz(path: str, cfg: QwenVLConfig, dtype=torch.bfloat16,
     package's ``load_local_vlm`` reads (``save_params_npz`` of a
     ``convert_hf`` tree), in ``dtype`` (bf16, as that loader's default)."""
     return qwen_vl_from_jax_params(_npz_tree(path), cfg, dtype, device)
+
+
+def grounding_dino_from_jax_params(params: Any, cfg: GroundingDinoConfig,
+                                   device="cuda") -> dict:
+    """The port's Grounding DINO tree from a JAX ``grounding_dino.
+    init_params`` / ``convert_hf`` tree (numpy leaves): f32 leaves, the
+    Swin blocks' integer ``rpb_index`` tables as int64 (index) tensors."""
+    sw = cfg.swin
+    depths = tuple(len(s["blocks"]) for s in params["backbone"]["stages"])
+    if depths != tuple(sw.depths):
+        raise ValueError(f"grounding_dino: Swin depths {depths}, the config "
+                         f"has {sw.depths}")
+    n = (len(params["text"]["layers"]), len(params["encoder"]["layers"]),
+         len(params["decoder"]["layers"]))
+    want = (cfg.text.layers, cfg.encoder_layers, cfg.decoder_layers)
+    if n != want:
+        raise ValueError(f"grounding_dino: (BERT, encoder, decoder) layers "
+                         f"{n}, the config has {want}")
+    return _tree(params, torch.float32, resolve_device(device))
+
+
+def load_grounding_dino_npz(path: str, cfg: GroundingDinoConfig,
+                            device="cuda") -> dict:
+    """The Grounding DINO tree of the ``grounding_dino_tiny.npz`` that
+    ``save_params_npz`` writes from ``convert_hf`` (990 leaves at
+    GROUNDING_DINO_TINY)."""
+    return grounding_dino_from_jax_params(_npz_tree(path), cfg, device)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's memory spine, CLIP stack, YOLO-World feed, text
-queries, robots and local VLM judge once on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch port's memory spine, CLIP stack, YOLO-World feed,
+Grounding DINO, text queries, robots and local VLM judge once on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernels K2,K4,K5   # those kernels' cases alone
@@ -152,6 +152,27 @@ non-zero):
                 TF32 flag on
   yolo-parity   a reduced YOLO-World (depth 1/3, width 0.5, 160^2) on the
                 card against the CPU: the device feed's instances equal
+  gdino         Grounding DINO at full width (GROUNDING_DINO_TINY: Swin-T
+                + BERT-base, 172 M parameters, 800^2, products in full f32,
+                random weights from the seed) on a synthetic 30,522-line
+                BERT vocab.txt holding the 21 HM3D classes with BERT's
+                special ids in place, the confidence set so that a median
+                frame has 6 queries over it, as VoxelTokenMemory(Config())'s
+                long-term detector over the 32 frames (4 flushes of 8,
+                beside the f32 ViT-L ingest): flush ms, detections a frame,
+                instances; then detect_batch of 8 frames in its parts
+                (preprocessing, Swin-T, BERT, input projections + encoder,
+                selection, decoder, phrase scores: CUDA events over the
+                forward's prefixes; host NMS), peak memory, one profiled
+                call by kind (the deformable attention's grid_sample, GEMMs,
+                softmax, convolution) and its idle share; no K1-K8 launch
+                from the detector
+  gdino-parity  a tiny Grounding DINO on the card against the CPU, the
+                same weights and two frames at 128^2: logits, boxes and
+                phrase scores within GDINO_PARITY_TOL, the same top-12 (or
+                the CPU's injected where its margin is thinner than the
+                tolerance), the same detections at confidence 0 where every
+                decision clears 1e-3
   textq bf16    the text query at full width: SD3.5-medium (24 blocks x
                 1536, dual attention in blocks 0-12), the SD3 CLIP-L/G text
                 towers, the T5-XXL encoder at 512 tokens and the SD3 VAE
@@ -2298,6 +2319,417 @@ def phase_yolo_parity(dev, seed):
     return {"instances": n, "confidence_err": cerr}
 
 
+# --------------------------------------------------------------------------
+# Grounding DINO (no kernel of K1-K8: the JAX module reaches no pallas_call)
+# --------------------------------------------------------------------------
+
+GDINO_PASS = 6          # queries a frame over the confidence, median
+GDINO_PARITY_TOL = 1e-4  # scores, boxes, |logit| / max |logit|: card vs CPU
+# BERT's special tokens at BERT's ids: the text masks and the phrase map
+# rest on [CLS] 101, [SEP] 102, "." 1012 and "?" 1029
+BERT_SPECIALS = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]",
+                 103: "[MASK]", 1012: ".", 1029: "?"}
+
+
+def gdino_vocab(path, classes, size=30522):
+    """A synthetic BERT ``vocab.txt`` (``size`` lines): BERT's special
+    tokens at their ids, every word of ``classes`` from id 2000 on (where
+    BERT-base-uncased keeps whole words), ``[unusedN]`` elsewhere."""
+    from bsc_nav_tpu_torch.models.wordpiece import basic_tokenize
+    words = sorted({w for c in classes for w in basic_tokenize(c)})
+    vocab = [f"[unused{i}]" for i in range(size)]
+    for i, t in BERT_SPECIALS.items():
+        vocab[i] = t
+    vocab[2000:2000 + len(words)] = words
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    return path
+
+
+def gdino_split(prof) -> dict:
+    """Device time (ms) of a profiled call by kind: the deformable
+    attention's bilinear sampling (grid_sample), GEMMs, softmax, cuDNN's
+    convolution (the 3x3 stride-2 input projection), the rest; and the
+    five largest kernels of the rest (by summed time)."""
+    split = {"grid_sample (deformable sampling)": 0.0, "GEMMs": 0.0,
+             "softmax": 0.0, "convolution": 0.0, "rest": 0.0}
+    rest = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n, ms = e.name.lower(), e.time_range.elapsed_us() / 1e3
+        if "grid_sampler" in n:
+            split["grid_sample (deformable sampling)"] += ms
+        elif any(t in n for t in ("gemm", "cutlass", "xmma", "nvjet")):
+            split["GEMMs"] += ms
+        elif "softmax" in n:
+            split["softmax"] += ms
+        elif "conv" in n or "fprop" in n:
+            split["convolution"] += ms
+        else:
+            split["rest"] += ms
+            rest[e.name[:70]] = rest.get(e.name[:70], 0.0) + ms
+    top = sorted(rest.items(), key=lambda kv: -kv[1])[:5]
+    return split, [(k, round(v, 3)) for k, v in top]
+
+
+def profiled(fn) -> tuple:
+    """(host ms, device ms by kind, the rest's largest kernels) of one fn()
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return (ms, *gdino_split(prof))
+
+
+@torch.no_grad()
+def phase_gdino(dev, cfg, vcfg, world, seed):
+    """Grounding DINO at full width (GROUNDING_DINO_TINY: Swin-T + BERT-base,
+    800^2, f32 products, random weights from the seed) on a synthetic BERT
+    vocabulary of the 21 HM3D classes, as VoxelTokenMemory(Config())'s
+    long-term detector over the 32 frames (4 flushes of 8, beside the f32
+    ViT-L ingest); then detect_batch of 8 frames in its parts.  Returns
+    (result, the detector's launch counts over the 4 flushes)."""
+    from bsc_nav_tpu_torch import full_f32_matmul
+    from bsc_nav_tpu_torch.agents.spatial_memory import (
+        Perception, VoxelTokenMemory)
+    from bsc_nav_tpu_torch.config import HM3D_DETECT_CLASSES
+    from bsc_nav_tpu_torch.models import grounding_dino as G
+    from bsc_nav_tpu_torch.models import vit
+    from bsc_nav_tpu_torch.models.wordpiece import WordPieceTokenizer
+
+    env, frames, _ = world
+    gcfg = G.GROUNDING_DINO_TINY
+    check((gcfg.swin.embed_dim, gcfg.swin.depths, gcfg.text.dim,
+           gcfg.text.layers, gcfg.d_model, gcfg.encoder_layers,
+           gcfg.decoder_layers, gcfg.num_queries)
+          == (96, (2, 2, 6, 2), 768, 12, 256, 6, 6, 900),
+          "not grounding-dino-tiny")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = G.init_params(gcfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    # random weights give contrastive logits of spread sqrt(d_model) = 16,
+    # whose sigmoids saturate at 1.0 in f32 and tie; the decoder's last
+    # LayerNorm scaled by 1/16 gives them unit spread
+    params["decoder"]["norm"]["scale"].mul_(gcfg.d_model ** -0.5)
+    leaves = []
+    tree_map(leaves.append, params)
+    n_par = n_params(params)
+    check(len(leaves) == 990, f"gdino: {len(leaves)} leaves (want 990)")
+    with build_tmp() as d:
+        tok = WordPieceTokenizer.from_vocab_file(gdino_vocab(
+            os.path.join(d, "vocab.txt"), HM3D_DETECT_CLASSES))
+    det = G.GroundingDinoDetector(params, gcfg, HM3D_DETECT_CLASSES,
+                                  tokenizer=tok,
+                                  confidence=cfg.detector.confidence)
+    S = det.input_ids.shape[1]
+    check(det.input_ids[0, 0] == 101 and det.input_ids[0, -1] == 102
+          and 100 not in det.input_ids, "gdino: prompt has [UNK]")
+    log("gdino", f"GROUNDING_DINO_TINY random init on {dev}: "
+        f"{n_par / 1e6:.2f} M parameters in {len(leaves)} leaves (Swin-T "
+        f"{n_params(params['backbone']) / 1e6:.2f} M, BERT-base "
+        f"{n_params(params['text']) / 1e6:.2f} M; the Swin index tables "
+        f"included), {t_init:.1f} s; prompt of the "
+        f"{len(HM3D_DETECT_CLASSES)} HM3D classes: {S} tokens on a synthetic "
+        f"30,522-line vocab.txt")
+
+    # the forward on the first 8 frames: shapes, finite, boxes in [0, 1];
+    # the confidence set so that the median frame has GDINO_PASS queries
+    # over it (random weights)
+    rgbs = np.stack([o["rgb"][..., :3] for o, _ in frames[:BATCH]])
+    before = counts()
+    scores, boxes = det.scores_boxes(det.images(rgbs))
+    check(since(before) == launches(), f"gdino: K1-K8 +{since(before)}")
+    check(tuple(scores.shape) == (BATCH, gcfg.num_queries,
+                                  len(HM3D_DETECT_CLASSES))
+          and tuple(boxes.shape) == (BATCH, gcfg.num_queries, 4),
+          f"gdino: scores {tuple(scores.shape)}, boxes {tuple(boxes.shape)}")
+    check(bool(torch.isfinite(scores).all() and torch.isfinite(boxes).all()
+               and (boxes >= 0).all() and (boxes <= 1).all()),
+          "gdino: scores or boxes not finite / boxes outside [0, 1]")
+    top = scores.amax(-1).topk(GDINO_PASS + 1, dim=1).values
+    conf = float((top[:, -2].median() + top[:, -1].median()) / 2)
+    det.confidence = conf
+    check(bool((scores < 1).all()), "gdino: phrase scores saturate at 1")
+    log("gdino", f"phrase scores in [{float(scores.min()):.4g}, "
+        f"{float(scores.max()):.4g}] (the decoder's last LayerNorm scale "
+        f"1/16); confidence set to {conf:.6g} (the median frame's "
+        f"{GDINO_PASS}th / {GDINO_PASS + 1}th best query)")
+
+    vparams = vit.init_params(
+        vcfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    perception = Perception.create(cfg, vit_params=vparams, batch_size=BATCH,
+                                   device=dev)
+    def flushes(mem):
+        out = []
+        for i in range(N_FRAMES // BATCH):
+            before = counts()
+            t0 = time.perf_counter()
+            for obs, pose in frames[i * BATCH:(i + 1) * BATCH]:
+                mem.push_frame(obs, pose)          # the 8th push flushes
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            d = since(before)
+            check(d == launches(K1=vcfg.depth),
+                  f"gdino flush {i}: K1-K8 +{d} (want K1 +{vcfg.depth}, the "
+                  "ViT-L ingest, and nothing from the detector)")
+        return out
+
+    # the same flushes without a detector first, for the comparison
+    plain_ms = flushes(VoxelTokenMemory(cfg, env, perception))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem = VoxelTokenMemory(cfg, env, perception, detector=det)
+    calls, det_counts = [], launches()
+    detect_batch = det.detect_batch
+
+    def counted(batch):
+        nonlocal det_counts
+        before = counts()
+        out = detect_batch(batch)
+        det_counts = add(det_counts, since(before))
+        calls.append([len(f) for f in out])
+        return out
+
+    det.detect_batch = counted
+    flush_ms = flushes(mem)
+    det.detect_batch = detect_batch
+    grid, Z = cfg.memory.grid_size, cfg.memory.zmax - cfg.memory.zmin
+    inst = mem.long_memory_dict
+    check(len(calls) == N_FRAMES // BATCH and len(inst) > 0 and all(
+        o["label"] in HM3D_DETECT_CLASSES and 0 <= o["loc"][0] < grid
+        and 0 <= o["loc"][1] < grid and 0 <= o["loc"][2] < Z
+        and conf <= o["confidence"] <= 1 for o in inst),
+        f"gdino: {len(inst)} long-term instances, detections {calls}")
+    per_frame = [n for c in calls for n in c]
+
+    # detect_batch of the last 8 frames, in its parts
+    last = np.stack([o["rgb"][..., :3] for o, _ in frames[N_FRAMES - BATCH:]])
+    H0, W0 = last.shape[1:3]
+    x = det.images(last)
+    ti = det.text_inputs(BATCH)
+    parts = {"preprocessing (upload, resize to 800^2, normalize)":
+             cuda_ms(lambda: det.images(last), reps=5, warmup=1)}
+
+    def swin():
+        with full_f32_matmul():
+            G.swin_backbone(params["backbone"], x, gcfg.swin)
+
+    def bert():
+        with full_f32_matmul():
+            G.bert_encode(params["text"], ti[0], ti[1], ti[3], ti[2],
+                          gcfg.text)
+
+    parts["Swin-T"] = cuda_ms(swin, reps=3, warmup=1)
+    parts["BERT-base"] = cuda_ms(bert, reps=3, warmup=1)
+    prefix = {st: cuda_ms(lambda st=st: G.forward(params, x, *ti, gcfg,
+                                                   stage=st), reps=3,
+                          warmup=1) for st in ("encoder", "select", "full")}
+    parts["input projections + encoder (6 layers)"] = (
+        prefix["encoder"] - parts["Swin-T"] - parts["BERT-base"])
+    parts["query selection"] = prefix["select"] - prefix["encoder"]
+    parts["decoder (6 layers) + heads"] = prefix["full"] - prefix["select"]
+    logits = G.forward(params, x, *ti, gcfg)["logits"][:, :, :S]
+    lmap = torch.from_numpy(G.phrase_label_map(det.input_ids[0])).to(dev)
+    parts["phrase scores"] = cuda_ms(
+        lambda: torch.sigmoid(logits) @ lmap.T / lmap.sum(-1).clamp(min=1.0),
+        reps=5, warmup=1)
+    sc, bx = det.scores_boxes(x)
+    sc, bx = sc.cpu().numpy(), bx.cpu().numpy()
+    t0 = time.perf_counter()
+    n_nms = 20
+    for _ in range(n_nms):
+        dets = det.detections(sc, bx, H0, W0)
+    parts["host NMS (threshold, class-wise NMS, clip; 8 frames)"] = (
+        time.perf_counter() - t0) * 1e3 / n_nms
+    det_ms = []
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        det.detect_batch(last)
+        det_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _, enc_split, _ = profiled(lambda: G.forward(params, x, *ti, gcfg,
+                                                 stage="encoder"))
+    det_host, det_split, top_rest = profiled(lambda: det.detect_batch(last))
+    busy = sum(det_split.values())
+    share = lambda sp: (sp["grid_sample (deformable sampling)"]
+                        / max(sum(sp.values()), 1e-9))
+    steady = statistics.median(flush_ms[1:])
+    log("gdino", "detect_batch of 8 frames in its parts (CUDA events, ms): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f"; the forward {prefix['full']:.2f}; detect_batch (host clock, "
+        f"3 calls) {[round(t, 2) for t in det_ms]}; device memory peak "
+        f"{peak:.2f} GB over {resident:.2f} GB resident (the store, ViT-L "
+        f"and the detector's {n_par * 4 / 1e9:.2f} GB of weights): "
+        f"{peak - resident:.2f} GB for detect_batch")
+    log("gdino", "profiled detect_batch, device time by kind (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in det_split.items())
+        + (f"; busy {busy:.1f} of {det_host:.1f} ms host clock (idle share "
+           f"{1 - busy / det_host:.3f}); the deformable sampling "
+           f"{share(det_split):.3f} of the call's device time, "
+           f"{share(enc_split):.3f} of the encoder prefix's ("
+           f"{enc_split['grid_sample (deformable sampling)']:.2f} of "
+           f"{sum(enc_split.values()):.2f} ms); largest of the rest: "
+           + ", ".join(f"{k} {v}" for k, v in top_rest) if busy
+           else "; the profiler returned no device time"))
+    log("gdino", f"VoxelTokenMemory(Config()) + GroundingDinoDetector over "
+        f"{N_FRAMES} frames: flush ms (8 frames, ViT-L f32 ingest + the "
+        f"detector) {[round(t, 2) for t in flush_ms]}, steady median "
+        f"{steady:.2f}; without the detector {[round(t, 2) for t in plain_ms]}"
+        f", steady {statistics.median(plain_ms[1:]):.2f}; detections a frame "
+        f"{per_frame} (median {statistics.median(per_frame)}); long-term "
+        f"instances after integration {len(inst)}; detector launches "
+        f"{fmt(det_counts)}")
+    result = {
+        "parameters": n_par, "leaves": len(leaves), "init_s": t_init,
+        "prompt_tokens": S, "confidence": conf, "flush_ms": flush_ms,
+        "flush_ms_without_detector": plain_ms,
+        "flush_steady_ms": steady, "detect_batch_ms": det_ms,
+        "parts_ms": parts, "forward_ms": prefix["full"],
+        "prefix_ms": prefix, "peak_gb": peak, "resident_gb": resident,
+        "profiled_device_ms": det_split, "profiled_host_ms": det_host,
+        "profiled_top_rest": top_rest,
+        "idle_share": 1 - busy / det_host if busy else None,
+        "encoder_device_ms": enc_split,
+        "deform_sampling_share": share(det_split) if busy else None,
+        "detections_per_frame": per_frame,
+        "long_term_instances": len(inst), "host_nms_dets": sum(map(
+            len, dets))}
+    del mem, perception, vparams, det, params, x, ti, logits, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, det_counts
+
+
+GDINO_PARITY_CFG = dict(
+    d_model=64, encoder_layers=2, decoder_layers=2, heads=4, ffn_dim=128,
+    num_levels=4, enc_points=2, dec_points=2, num_queries=12,
+    max_text_len=32)
+
+
+@torch.no_grad()
+def phase_gdino_parity(dev, seed):
+    """A tiny Grounding DINO (tests/test_grounding_dino.py's TINY, biases
+    and norms drawn from the seed) on the card against the CPU, the same
+    weights and two spine frames at 128^2: logits and boxes within
+    GDINO_PARITY_TOL of their max, the same top-12 selection (its margin
+    stated; the CPU's indices injected downstream where it is thinner than
+    the tolerance) and, on a one-phrase prompt, the same detections at
+    confidence 0 where every NMS decision clears its margin."""
+    from bsc_nav_tpu_torch.config import Config
+    from bsc_nav_tpu_torch.models import grounding_dino as G
+    from bsc_nav_tpu_torch.models.yolo_world import iou_xyxy
+
+    cfg = G.GroundingDinoConfig(
+        **GDINO_PARITY_CFG,
+        swin=G.SwinConfig(embed_dim=16, depths=(2, 1, 1, 1),
+                          num_heads=(2, 2, 4, 4), window_size=4),
+        text=G.BertTextConfig(vocab_size=2000, dim=32, layers=2, heads=2,
+                              ffn=64, max_pos=64))
+    gen = torch.Generator().manual_seed(seed)
+    cpu = G.init_params(cfg, gen, device="cpu")
+
+    def redraw(node, key=""):
+        if isinstance(node, dict):
+            return {k: redraw(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [redraw(v, key) for v in node]
+        noise = lambda: torch.randn(node.shape, generator=gen)
+        if key in ("b", "bias"):
+            return 0.1 * noise()
+        if key == "scale":
+            return 1 + 0.1 * noise()
+        if key in ("vision_param", "text_param"):
+            return 0.2 + 0.8 * torch.rand(node.shape, generator=gen)
+        return node
+
+    cpu = redraw(cpu)
+    card = tree_map(lambda t: t.to(dev), cpu)
+    _, frames = spin_frames(Config(), seed, 2)
+    rgbs = np.stack([o["rgb"][..., :3] for o, _ in frames])
+    prompts = {"two": (["sofa", "chair"], [[101, 7, 1012, 9, 1012, 102]]),
+               "one": (["sofa"], [[101, 7, 1012, 102]])}   # no class decision
+    out = {}
+    before = counts()
+    for name, p in (("cpu", cpu), ("card", card)):
+        out[name] = {}
+        for pr, (classes, ids) in prompts.items():
+            det = G.GroundingDinoDetector(p, cfg, classes,
+                                          input_ids=np.array(ids),
+                                          confidence=0.0, image_size=128)
+            x = det.images(rgbs)
+            sel = G.forward(p, x, *det.text_inputs(2), cfg, stage="select")
+            # downstream of the selection the card takes the CPU's indices
+            inject = (out["cpu"][pr]["topk_idx"].to(dev) if name == "card"
+                      else None)
+            full = G.forward(p, x, *det.text_inputs(2), cfg, topk_idx=inject)
+            sc, bx = det.scores_boxes(x, topk_idx=inject)
+            o = {k: v.cpu() for k, v in (
+                ("topk_idx", sel["topk_idx"]),
+                ("enc_scores", sel["enc_scores"]), ("logits", full["logits"]),
+                ("boxes", full["pred_boxes"]), ("scores", sc),
+                ("det_boxes", bx))}
+            o["dets"] = det.detections(sc.cpu().numpy(), bx.cpu().numpy(),
+                                       *rgbs.shape[1:3])
+            out[name][pr] = o
+    check(since(before) == launches(), "gdino-parity: K1-K8 launched")
+    same_sel, sel_margin = True, math.inf
+    for pr in prompts:
+        s = -np.sort(-out["cpu"][pr]["enc_scores"].numpy(), axis=-1)
+        m = float((s[:, cfg.num_queries - 1] - s[:, cfg.num_queries]).min())
+        same = bool(torch.equal(out["cpu"][pr]["topk_idx"],
+                                out["card"][pr]["topk_idx"]))
+        check(same or m <= GDINO_PARITY_TOL * float(np.abs(s).max()),
+              f"gdino-parity: top-{cfg.num_queries} differs with margin {m}")
+        same_sel, sel_margin = same_sel and same, min(sel_margin, m)
+    c, g = out["cpu"]["two"], out["card"]["two"]
+    fin = torch.isfinite(c["logits"])
+    check(torch.equal(fin, torch.isfinite(g["logits"])),
+          "gdino-parity: -inf pattern differs")
+    errs = {
+        "logits": float((g["logits"][fin] - c["logits"][fin]).abs().max()
+                        / c["logits"][fin].abs().max()),
+        "boxes": float((g["boxes"] - c["boxes"]).abs().max()),
+        "scores": float((g["scores"] - c["scores"]).abs().max())}
+    check(max(errs.values()) <= GDINO_PARITY_TOL,
+          f"gdino-parity: errors {errs} (tol {GDINO_PARITY_TOL})")
+    # the one-phrase detector's NMS decisions: every IoU 1e-3 from 0.5
+    c, g = out["cpu"]["one"], out["card"]["one"]
+    bx = c["det_boxes"].numpy()
+    iou_gap = min(float(np.abs(iou_xyxy(xy, xy) - 0.5).min()) for xy in (
+        np.concatenate([b[:, :2] - b[:, 2:] / 2, b[:, :2] + b[:, 2:] / 2],
+                       -1) for b in bx))
+    decided = iou_gap > 1e-3
+    key = lambda dets: [[(d.label, round(d.confidence, 3)) for d in f]
+                        for f in dets]
+    n = sum(map(len, c["dets"]))
+    if decided:
+        check(key(c["dets"]) == key(g["dets"]) and n > 0,
+              f"gdino-parity: detections differ ({n} on the CPU)")
+    log("gdino-parity", f"tiny Grounding DINO (TINY, 128^2, 2 frames) on "
+        f"the card against the CPU: rel logit err {errs['logits']:.3g}, box "
+        f"err {errs['boxes']:.3g}, phrase score err {errs['scores']:.3g} "
+        f"(tol {GDINO_PARITY_TOL}); top-{cfg.num_queries} "
+        f"{'equal' if same_sel else 'injected'} (CPU margin "
+        f"{sel_margin:.3g}); one-phrase detections at confidence 0: {n} "
+        + ("equal" if decided else "not compared") + f" (IoUs at least "
+        f"{iou_gap:.3g} from 0.5; 1e-3 needed)")
+    return {**errs, "selection_equal": same_sel,
+            "selection_margin": sel_margin, "detections": n,
+            "detections_compared": decided, "iou_margin": iou_gap}
+
+
 def spin_frames(cfg, seed, n):
     """n frames turning in place in the fake box world."""
     from bsc_nav_tpu_torch.env.fake import BoxScene, FakeNavEnv
@@ -4389,6 +4821,14 @@ def main(argv=None) -> int:
           f"YOLO path launches {fmt(yolo_path)}")
     yolo_parity = phase_yolo_parity(dev, args.seed)
 
+    # Grounding DINO: the counts cover the detector's calls in the flushes
+    reset_counts()
+    gdino, gdino_path = phase_gdino(dev, cfg, vcfg, world, args.seed)
+    log("gdino", f"launches on the detector's path: {fmt(gdino_path)} (the "
+        f"JAX Grounding DINO reaches no pallas_call)")
+    check(gdino_path == launches(), f"gdino launches {fmt(gdino_path)}")
+    gdino_parity = phase_gdino_parity(dev, args.seed)
+
     textq, textq_paths, textq_w = phase_textq_all(dev, cfg, vcfg, world,
                                                   args.seed)
     for name, c in textq_paths.items():
@@ -4430,7 +4870,8 @@ def main(argv=None) -> int:
              "persist": persist_path, "int8-encoder": enc_path,
              "surprise": surprise_path, "segments": segments_path,
              "explore": explore_path, "robot-parity": robot_parity_path,
-             "clip": clip_path, "yolo": yolo_path, **textq_paths,
+             "clip": clip_path, "yolo": yolo_path, "gdino": gdino_path,
+             **textq_paths,
              "robot": robot_path, "vlm": vlm_path}
 
     def main_case(kernel, dtype="float32", **match):
@@ -4523,6 +4964,7 @@ def main(argv=None) -> int:
         "segments_parity": seg_parity,
         "slice_parity_max_err": parity_err, "clip": clip,
         "clip_parity": clip_parity, "yolo": yolo, "yolo_parity": yolo_parity,
+        "gdino": gdino, "gdino_parity": gdino_parity,
         "textq": textq,
         "textq_parity": textq_parity, "robot_parity": robot_parity,
         "robot": robot, "vlm": vlm}), flush=True)

@@ -277,18 +277,27 @@ def test_create_memory_eqa_pose_seeded(tmp_path, monkeypatch):
 
 
 def test_build_world_refuses_what_is_not_ported(tmp_path):
-    """--env habitat and --detector grounding-dino raise rather than run
-    something else; --llm local (ported) without --weights-dir raises, as
-    the JAX driver's assertion does."""
+    """What the drivers refuse, as the JAX drivers do: --env habitat where
+    habitat-sim is not installed raises ImportError naming it, and --llm
+    local without --weights-dir raises.  --detector grounding-dino (now
+    ported) is not refused on the fake world: there, as in the JAX driver,
+    the colour detector serves whatever the flag says."""
     for extra, what, err in (
-            (["--env", "habitat"], "habitat", NotImplementedError),
-            (["--llm", "local"], "weights-dir", ValueError),
-            (["--detector", "grounding-dino"], "grounding",
-             NotImplementedError)):
+            (["--env", "habitat"], "habitat-sim", ImportError),
+            (["--llm", "local"], "weights-dir", ValueError)):
         with pytest.raises(err, match=what):
             with in_dir(tmp_path):
                 tobjnav.main(argv_in(tmp_path, ["--episodes", "1"] + extra)
                              + ["--device", "cpu"])
+    dets = []
+    for mod, extra in ((JS, []), (TS, ["--device", "cpu"])):
+        p = __import__("argparse").ArgumentParser()
+        mod.add_common_args(p)
+        args = p.parse_args(argv_in(tmp_path, ["--detector",
+                                               "grounding-dino"]) + extra)
+        dets.append(mod.build_world(args, task="objnav")[2].detector)
+    assert [type(d).__name__ for d in dets] == ["ColorPrototypeDetector"] * 2
+    assert dets[0].prototypes.keys() == dets[1].prototypes.keys()
     for raw in ("clip,llm,diffusion", "none", " encoder , clip ", ""):
         args = type("A", (), {"int8": raw})()
         assert TS._int8_set(args) == JS._int8_set(args)

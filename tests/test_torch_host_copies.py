@@ -68,8 +68,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_port_imports_without_sklearn_or_h5py(tmp_path):
     """The card machine has none of sklearn, h5py, PIL, pandas, imageio,
-    networkx, transformers, tokenizers and regex: every module of the port
-    imports with all nine (and jax and bsc_nav_tpu) blocked, the floors
+    networkx, transformers, tokenizers and regex, and neither machine has
+    habitat-sim: every module of the port (env/habitat_env among them)
+    imports with all nine, habitat_sim and magnum (and jax and
+    bsc_nav_tpu) blocked, habitat_env asking for habitat-sim raises
+    ImportError naming it, the floors
     copy and the npz snapshot still run, so does one fake objnav episode
     through the port's driver on the CPU (its VLM judge calls pack PNG
     images), and the local judge loads from a directory (its own BPE and
@@ -82,7 +85,7 @@ def test_port_imports_without_sklearn_or_h5py(tmp_path):
         "import sys\n"
         "for m in ('sklearn', 'h5py', 'PIL', 'pandas', 'imageio', "
         "'networkx', 'transformers', 'tokenizers', 'regex', 'jax', "
-        "'bsc_nav_tpu'):\n"
+        "'bsc_nav_tpu', 'habitat_sim', 'magnum'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, tempfile, os\n"
         "import bsc_nav_tpu_torch as pkg\n"
@@ -122,10 +125,16 @@ def test_port_imports_without_sklearn_or_h5py(tmp_path):
         "view = np.zeros((64, 64, 3), np.uint8)\n"
         "out = llm.succeed_determine_singleview(client, 'a bed', [view])\n"
         "assert isinstance(out, str) and client.last['images'] == 1\n"
+        "from bsc_nav_tpu_torch.env import habitat_env\n"
+        "try:\n"
+        "    habitat_env._require_habitat()\n"
+        "    raise SystemExit('habitat_sim imported')\n"
+        "except ImportError as e:\n"
+        "    assert 'habitat-sim' in str(e)\n"
         "bad = sorted(k for k in sys.modules if sys.modules[k] is not None\n"
         "             and k.split('.')[0] in ('jax', 'bsc_nav_tpu', 'PIL',\n"
         "                                     'transformers', 'tokenizers',\n"
-        "                                     'regex'))\n"
+        "                                     'regex', 'habitat_sim'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -265,6 +274,61 @@ def test_tokenizer_copies_give_equal_ids():
         tsp.serialize_model_proto(pieces))
     for text in ("hello hello", "helo", "xyz hello"):
         assert a.encode(text) == b.encode(text)
+
+
+def test_wordpiece_copy_gives_equal_tokens(tmp_path):
+    """models/wordpiece.py against the original: tests/test_wordpiece.py's
+    vocabulary and prompts, the 21 HM3D classes' prompt on the synthetic
+    BERT vocabulary, and seeded strings over letters, accents, CJK,
+    punctuation, controls and whitespace: equal tokens and ids;
+    classes_to_prompt equal."""
+    from bsc_nav_tpu.models import wordpiece as jwp
+    from bsc_nav_tpu_torch.models import wordpiece as twp
+    from test_wordpiece import VOCAB
+    from torch_worlds import write_vocab
+
+    small = tmp_path / "small.txt"
+    small.write_text("\n".join(VOCAB) + "\n")
+    bert = write_vocab(str(tmp_path / "vocab.txt"), size=30522)
+    rng = np.random.default_rng(0)
+    alphabet = list("abcxyz ABC.,?!-'\t\n") + ["\u00e9", "\u00c9", "\u4e2d",
+                                                "\u00a0", "\x00", "\u200b",
+                                                "\ufffd", "\u2014"]
+    hm3d = twp.classes_to_prompt(tconfig.HM3D_DETECT_CLASSES)
+    texts = ["sofa. chair. potted plant. television.",
+             "Refrigerator, washing machine?  coffee TABLE ... nightstand",
+             "the\tweird   spacing\nand CAFÉ accents",
+             "unsplittablewordzzz", "a" * 120, hm3d]
+    texts += ["".join(rng.choice(alphabet, size=int(rng.integers(1, 40))))
+              for _ in range(200)]
+    for path in (str(small), bert):
+        a = jwp.WordPieceTokenizer.from_vocab_file(path)
+        b = twp.WordPieceTokenizer.from_vocab_file(path)
+        for text in texts:
+            assert a.tokenize(text) == b.tokenize(text), text
+            assert a.encode(text) == b.encode(text), text
+            assert (a.encode(text, add_special=False)
+                    == b.encode(text, add_special=False)), text
+    ids = twp.WordPieceTokenizer.from_vocab_file(bert).encode(hm3d)
+    assert ids[0] == 101 and ids[-1] == 102 and 100 not in ids
+    classes = list(tconfig.HM3D_DETECT_CLASSES) + [" Potted Plant. "]
+    assert jwp.classes_to_prompt(classes) == twp.classes_to_prompt(classes)
+    assert jwp.basic_tokenize("Ünïcode 中文!", False) == twp.basic_tokenize(
+        "Ünïcode 中文!", False)
+
+
+def test_habitat_config_copy_matches_jax():
+    """drivers/setup.habitat_config against benchmarks/setup.py's, field
+    for field, on the flags' int8 sets and options."""
+    import benchmarks.setup as JS
+    for int8, wm, single in (("clip,llm,diffusion", False, False),
+                             ("none", True, False), (" encoder , clip ", False,
+                                                     True), ("", True, True)):
+        args = argparse.Namespace(
+            memory_root="/m", weights_dir="/w", int8=int8,
+            use_only_working_memory=wm, load_single_floor=single)
+        a, b = JS.habitat_config(args), drivers_setup.habitat_config(args)
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 def test_fake_env_copy_renders_equal_frames():

@@ -1590,3 +1590,101 @@ def test_tiny_judge_chat_on_the_card_matches_cpu(cuda, quantize):
                 i, a, b)
             return
     assert a == b
+
+
+def _all_launches() -> int:
+    return sum(f.launches for f in (
+        tfa.short_attention_qkv, tfa.short_attention, tfa.mid_attention,
+        tfa.flash_attention, tfa.joint_qk_norm, tfa.joint_qkv_attention,
+        tln.layer_norm, tconv.conv3x3_s1, tsim.max_cosine_per_voxel,
+        tsim.max_cosine_per_voxel_batch))
+
+
+@pytest.mark.cuda
+def test_grounding_dino_on_the_card_matches_cpu(cuda):
+    """The tiny Grounding DINO (torch_worlds.GDINO_TINY, seeded weights) on
+    the card against the CPU, the same weights and two 48x48 frames resized
+    to 64^2: phrase scores and boxes within 1e-4 (products in full f32 on
+    both), the same two-stage top-12 (each frame's 12th and 13th encoder
+    scores more than 1e-3 apart), the same detections at confidence 0 (each
+    best phrase ahead of the next by 1e-3 of its score, same-class IoUs
+    1e-3 away from 0.5); no kernel of
+    K1-K8 launched: the JAX module reaches no pallas_call."""
+    from bsc_nav_tpu_torch.models import grounding_dino as TG
+    from bsc_nav_tpu_torch.models.weights import (
+        grounding_dino_from_jax_params)
+    from bsc_nav_tpu_torch.models.yolo_world import iou_xyxy
+    from torch_worlds import GDINO_TINY, gdino_numpy_params
+
+    npp = gdino_numpy_params(GDINO_TINY, 0)
+    ids = np.array([[101, 7, 1012, 9, 1012, 102]])
+    rgbs = np.random.default_rng(3).integers(0, 255, (2, 48, 48, 3),
+                                             np.uint8)
+    out = []
+    before = _all_launches()
+    for dev in ("cpu", cuda):
+        p = grounding_dino_from_jax_params(npp, GDINO_TINY, device=dev)
+        det = TG.GroundingDinoDetector(p, GDINO_TINY, ["sofa", "chair"],
+                                       input_ids=ids, confidence=0.0,
+                                       image_size=64)
+        x = det.images(rgbs)
+        sel = TG.forward(p, x, *det.text_inputs(2), GDINO_TINY,
+                         stage="select")
+        scores, boxes = det.scores_boxes(x)
+        out.append((scores.cpu(), boxes.cpu(), sel["topk_idx"].cpu(),
+                    det.detect_batch(rgbs)))
+    assert _all_launches() == before
+    (sc, bc, ic, dc), (sg, bg, ig, dg) = out
+    torch.testing.assert_close(sg, sc, rtol=0, atol=1e-4)
+    torch.testing.assert_close(bg, bc, rtol=0, atol=1e-4)
+    assert torch.equal(ig, ic)
+    s = -np.sort(-sc.numpy(), axis=-1)
+    assert ((s[..., 0] - s[..., 1]) / s[..., 0]).min() > 1e-3
+    for b in range(2):
+        cls = sc[b].argmax(-1).numpy()
+        cxy, wh = bc[b][:, :2].numpy(), bc[b][:, 2:].numpy()
+        xyxy = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1) * 48
+        for c in np.unique(cls):
+            iou = iou_xyxy(xyxy[cls == c], xyxy[cls == c])
+            assert np.abs(iou - 0.5).min() > 1e-3
+    assert [[d.label for d in f] for f in dg] == [[d.label for d in f]
+                                                  for f in dc]
+    for gf, cf in zip(dg, dc):
+        for g, c in zip(gf, cf):
+            assert abs(g.confidence - c.confidence) <= 1e-4
+            np.testing.assert_allclose(g.xyxy, c.xyxy, rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_habitat_world_over_the_mock_on_the_card(cuda, tmp_path,
+                                                 monkeypatch):
+    """``--env habitat --detector grounding-dino`` on the card over the
+    in-memory habitat-sim double (tests/mock_habitat.py), cut to the fake
+    world's size (torch_worlds.small_habitat) with the tiny Grounding DINO
+    from a weights directory: the world builds on the card, resets, and a
+    build step (excute, flush) fills the store and, at confidence 0, the
+    long-term memory."""
+    import mock_habitat
+    import torch_worlds as W
+    from bsc_nav_tpu_torch.drivers import setup as DS
+
+    mock_habitat.install()
+    try:
+        W.small_habitat(monkeypatch, detector_cfg=W.GDINO_TINY)
+        W.write_gdino_dir(str(tmp_path))
+        args = W.habitat_args(tmp_path, device=str(cuda),
+                              weights_dir=str(tmp_path),
+                              detector="grounding-dino")
+        cfg, bench, memory, _ = DS.build_world(args, "objnav")
+        assert (memory.device.type == memory.detector.device.type
+                == torch.device(cuda).type)
+        memory.detector.confidence = 0.0
+        obs = bench.reset()
+        memory.excute(obs, ["turn_left", "move_forward"])
+        memory.flush()
+        assert int(memory.state.num_voxels) > 0
+        assert {o["label"] for o in memory.long_memory_dict} <= set(
+            cfg.detector.classes)
+        assert memory.long_memory_dict
+    finally:
+        mock_habitat.uninstall()

@@ -294,10 +294,11 @@ def _pool_eot(x, ids):
 
 
 @torch.no_grad()
-def encode_text(model: CLIP, token_ids: torch.Tensor, cfg: CLIPConfig,
+def encode_text(model, token_ids: torch.Tensor, cfg: CLIPConfig,
                 normalize: bool = True) -> torch.Tensor:
-    """token_ids: [B, context_length] int -> [B, embed_dim] f32."""
-    t = model.text
+    """token_ids: [B, context_length] int -> [B, embed_dim] f32.  ``model``
+    is a CLIP or its text tower alone (``weights.load_clip_text_npz``)."""
+    t = model.text if isinstance(model, CLIP) else model
     x, ids = _text_embed(t, token_ids)
     x = _tower_forward(x, t.blocks, cfg.text_heads, cfg.ln_eps, causal=True,
                        gelu_exact=cfg.gelu_exact, quick_gelu=cfg.quick_gelu)

@@ -17,8 +17,11 @@ dual-attention branch through ``self_qkv_dispatch``; otherwise -- no
 qk-norm (SD3-medium), or a joint sequence past 4096 tokens (SD3.5-medium
 at 1024^2) -- the composed path splits heads and calls ``attention`` with
 ctx rows first, as the JAX package does, which takes K5 ``mid_attention``
-or K6 ``flash_attention`` by shape.  The tensor-parallel branch,
-``fuse_mods`` and ``convert_sd3`` are queued in ROADMAP.md.
+or K6 ``flash_attention`` by shape.  ``fuse_mods`` stacks every adaLN
+modulation linear into one, which ``forward(mod_layout=)`` and
+``sample(mod_layout=)`` take.  The tensor-parallel branch is queued in
+ROADMAP.md; ``convert_sd3`` stays in the JAX package (the port reads its
+``.npz``).
 
 Dtypes: activations stay in the compute dtype of the latents passed to
 ``forward``.  The conditioning vector is cast to it, where the JAX
@@ -193,13 +196,17 @@ def _stream_qkv(x, s, cfg: MMDiTConfig):
     return q, k, v
 
 
-def _joint_block(x, ctx, c, blk, cfg: MMDiTConfig):
+def _joint_block(x, ctx, c, blk, cfg: MMDiTConfig, mods=None):
     """One dual-stream block (``mmdit.py:182-286``): both streams feed one
-    attention, then mix back into their own residuals."""
-    mods = {}
-    for name in ("x", "ctx"):
-        m = _linear(F.silu(c), blk[name]["mod"])
-        mods[name] = m.split(cfg.dim, dim=-1)
+    attention, then mix back into their own residuals.  ``mods``: the
+    block's precomputed {"x": [chunks], "ctx": [chunks]} adaLN modulation
+    (``fuse_mods``); when None it is computed here from the per-block
+    "mod" linears."""
+    if mods is None:
+        mods = {}
+        for name in ("x", "ctx"):
+            m = _linear(F.silu(c), blk[name]["mod"])
+            mods[name] = m.split(cfg.dim, dim=-1)
     # context_pre_only (the last converted SD3 block): the ctx stream only
     # feeds attention k/v through a 2-chunk shift/scale norm -- no gate, no
     # ctx FFN, ctx not updated
@@ -268,12 +275,50 @@ def unpatchify_latent(tokens: torch.Tensor, p: int, h: int, w: int,
 
 
 @torch.no_grad()
+def fuse_mods(params: Dict[str, Any], cfg: MMDiTConfig) -> tuple:
+    """Stack every adaLN modulation linear (per-block x/ctx "mod" and
+    "final_mod") into ONE [D, total] linear (``mmdit.py:304-356``), so that
+    ``forward`` computes all modulations of a step in one matmul.  Each
+    output column sees the same D-length reduction as on the per-block
+    path, so the two agree up to the GEMM's tiling.
+
+    Returns (params', layout): params' has blocks without "mod", no
+    "final_mod", and a top-level "mods" linear (the other leaves are
+    shared with ``params``); layout is the tuple of (x_chunks, ctx_chunks)
+    per block for ``forward(mod_layout=)``, derived from the parameter
+    shapes, so a converted last block's 2-chunk ``context_pre_only`` ctx
+    modulation is taken as it is.  Composes with ``quantize_params``
+    (disjoint keys).  Allocates one more copy of the modulation weights."""
+    d = cfg.dim
+    ws, bs, layout, blocks = [], [], [], []
+    for blk in params["blocks"]:
+        nb, chunks = {}, []
+        for name in ("x", "ctx"):
+            mod = blk[name]["mod"]
+            nb[name] = {k: v for k, v in blk[name].items() if k != "mod"}
+            ws.append(mod["w"])
+            bs.append(mod["b"])
+            chunks.append(mod["w"].shape[-1] // d)
+        layout.append(tuple(chunks))
+        blocks.append(nb)
+    ws.append(params["final_mod"]["w"])
+    bs.append(params["final_mod"]["b"])
+    out = {k: v for k, v in params.items()
+           if k not in ("blocks", "final_mod")}
+    out["blocks"] = blocks
+    out["mods"] = {"w": torch.cat(ws, dim=-1), "b": torch.cat(bs, dim=-1)}
+    return out, tuple(layout)
+
+
+@torch.no_grad()
 def forward(params, latents: torch.Tensor, t: torch.Tensor,
             context: torch.Tensor, pooled: torch.Tensor,
-            cfg: MMDiTConfig) -> torch.Tensor:
+            cfg: MMDiTConfig, mod_layout=None) -> torch.Tensor:
     """Velocity prediction.  latents [B, H, W, C] (their dtype is the
     compute dtype); t [B] in [0, 1]; context [B, S, context_dim]; pooled
-    [B, pooled_dim]."""
+    [B, pooled_dim].  mod_layout: the layout ``fuse_mods`` returned, when
+    ``params`` carry its fused "mods" linear (one modulation matmul for the
+    whole step)."""
     B, H, W, C = latents.shape
     p = cfg.patch_size
     x = _linear(patchify_latent(latents, p), params["patch_embed"])
@@ -287,9 +332,23 @@ def forward(params, latents: torch.Tensor, t: torch.Tensor,
         params["pooled_embed2"])
     c = (temb + pemb).to(x.dtype)
 
-    for blk in params["blocks"]:
-        x, ctx = _joint_block(x, ctx, c, blk, cfg)
-    shift, scale = _linear(F.silu(c), params["final_mod"]).chunk(2, dim=-1)
+    d = cfg.dim
+    if mod_layout is not None:
+        allm = _linear(F.silu(c), params["mods"])       # [B, total * d]
+        off = 0
+        for blk, (nx, nc) in zip(params["blocks"], mod_layout):
+            mods = {"x": allm[:, off * d:(off + nx) * d].split(d, dim=-1),
+                    "ctx": allm[:, (off + nx) * d:(off + nx + nc) * d
+                                ].split(d, dim=-1)}
+            off += nx + nc
+            x, ctx = _joint_block(x, ctx, c, blk, cfg, mods=mods)
+        shift = allm[:, off * d:(off + 1) * d]
+        scale = allm[:, (off + 1) * d:(off + 2) * d]
+    else:
+        for blk in params["blocks"]:
+            x, ctx = _joint_block(x, ctx, c, blk, cfg)
+        shift, scale = _linear(F.silu(c), params["final_mod"]).chunk(
+            2, dim=-1)
     x = _modulate(_pre_norm(x, cfg.ln_eps), shift, scale)
     out = _linear(x, params["final_out"])
     return unpatchify_latent(out, p, H, W, C)
@@ -312,11 +371,13 @@ def sample(params, context, pooled, cfg: MMDiTConfig,
            num_steps: int = 28, guidance_scale: float = 7.0,
            context_uncond=None, pooled_uncond=None, shift: float = 3.0,
            noise: Optional[torch.Tensor] = None,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           mod_layout=None) -> torch.Tensor:
     """Euler rectified-flow sampling with classifier-free guidance
     (``mmdit.py:446-484``; the reference's 28 steps, scale 7.0).  The
     initial noise [B, H, W, C] is ``noise`` when given, else drawn from
-    ``generator`` (which does not reproduce jax.random).  Returns f32
+    ``generator`` (which does not reproduce jax.random).  mod_layout: the
+    ``fuse_mods`` layout when ``params`` are mod-fused.  Returns f32
     latents [B, H, W, C]."""
     B = context.shape[0]
     H = W = cfg.input_size
@@ -336,7 +397,8 @@ def sample(params, context, pooled, cfg: MMDiTConfig,
     for i in range(num_steps):
         xin = torch.cat([x, x]) if use_cfg else x
         t = sigmas[i].expand(xin.shape[0])
-        v = forward(params, xin.to(dt), t, context, pooled, cfg).float()
+        v = forward(params, xin.to(dt), t, context, pooled, cfg,
+                    mod_layout=mod_layout).float()
         if use_cfg:
             v, vu = v[:B], v[B:]
             v = vu + guidance_scale * (v - vu)

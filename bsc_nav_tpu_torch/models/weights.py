@@ -128,12 +128,17 @@ def load_clip_npz(path: str, cfg: CLIPConfig, dtype=torch.float32,
 
 def load_clip_text_npz(path: str, cfg: CLIPConfig, dtype=torch.float32,
                        device="cuda") -> TextTower:
-    """An SD3 CLIP text tower (``clip.TextTower``) holding the weights of
-    the ``sd3_clip_l.npz`` / ``sd3_clip_g.npz`` that ``tools/
-    convert_weights.py clip-text`` writes (``convert_clip_text_hf``)."""
+    """A CLIP text tower (``clip.TextTower``) holding the weights of the
+    ``sd3_clip_l.npz`` / ``sd3_clip_g.npz`` that ``tools/
+    convert_weights.py clip-text`` writes (``convert_clip_text_hf``), or
+    the text tower of a two-tower CLIP ``.npz`` (``load_clip_npz``'s
+    format, e.g. ``metaclip_vith14.npz``): its ``text.`` leaves, the
+    vision tower left unread."""
     with np.load(path) as z:
-        return _fill(TextTower(cfg, dtype, resolve_device(device)),
-                     dict(z.items()))
+        names = [k for k in z.files if k.startswith("text.")]
+        flat = ({k[len("text."):]: z[k] for k in names} if names
+                else dict(z.items()))
+    return _fill(TextTower(cfg, dtype, resolve_device(device)), flat)
 
 
 def _tree(params: Any, dtype, device, name: str = "") -> Any:

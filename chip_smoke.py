@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's memory spine, CLIP stack, YOLO-World feed,
-Grounding DINO, text queries, robots and local VLM judge once on one NVIDIA
-GPU and check them.
+Grounding DINO, text queries, robots, demos, episode farm, native grid
+runtime and local VLM judge once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernels K2,K4,K5   # those kernels' cases alone
@@ -214,6 +214,46 @@ non-zero):
                 host renderer's share; K1, K2, K3, K4 and K2b launched,
                 none of K5-K8
 
+  profiling     after slice f32, on its store: utils/profiling.trace()
+                around one image query writes a Chrome trace whose device
+                events name K1's tile and K2's kernel; Telemetry.memory_stats
+                of the full store; (in both slices) Stopwatch(sync=True)
+                around each flush against a CUDA event pair inside it
+                (STOPWATCH_TOL_MS)
+  native        runtime_native (g++ at first use): NativeNavGrid on a
+                Config()-sized 1000^2 floor plan against the numpy
+                env/pathfinding copy -- the distance field within f32
+                accumulation (1e-5 relative) and an A* path of equal cost,
+                ms each -- and FrameQueue staging 680x680 RGB-D frames in
+                batches of 8 (push / pop GB/s)
+  farm          the objnav driver on the card as a farm: two worker
+                processes (--num-workers 2) and a single run, started
+                together, 4 episodes; drivers.farm.merge_csvs of the shards
+                equals the single run's rows; the workers' launch counts
+  demo          bsc_nav_tpu_torch.demo.main on --env fake, every mode
+                (localize with two goals, category, text, image from a PNG
+                goal, a scripted interactive session), on the CPU and on the
+                card, the encoder's weights and build draws shared, each
+                card query held to the CPU's within ROBOT_PARITY_TOL and the
+                CPU's handed on: printed lines, .npy top-K, log_data.json
+                and every PNG (decoded) equal, a point cloud's pixels
+                within one level (fused colours: atomics, truncated)
+  demo-detect   bsc_nav_tpu_torch.demo_detect.main through --weights-dir
+                with random weights at the published widths written by the
+                phase: YOLOv8x-worldv2 at 640^2 with the MetaCLIP ViT-H/14
+                text tower's class embeddings and a synthetic BPE merges
+                file, then grounding-dino-tiny at 800^2 with a synthetic
+                vocab.txt, on the fake world's 256^2 frame: detections, the
+                printed lines and the PNG checked; main s, detect ms
+  fuse-mods     after the text queries, on their bf16 SD3.5-medium 512^2
+                weights: fuse_mods in bf16 and W8A8, the forward at B 6 per
+                block and fused in turns (events) and the 28-step CFG
+                sampler once each; the fused velocity within FUSE_TOL of
+                max |v| of the per-block one
+  visualize     after the robot episodes, on their Config() store:
+                render_pointcloud_png (top-K, cluster centres),
+                render_topdown_png (1000^2), TrajectoryDrawer over objnav's
+                poses, render_token_matching; ms each, host clock
   vlm           the offline judge at full width, last: Qwen2.5-VL-3B
                 (QWEN25_VL_3B, 4.07 G parameters) with random bf16 weights
                 drawn on the card from the seed, LocalVLMClient with the
@@ -300,6 +340,11 @@ SEGMENT_CAPACITY = 4_096        # the segments phase's cut voxel_capacity
 # running sums (a few unit-normal tokens, atomics on the card) and the
 # forgetting pass's group means differ by a few f32 ulps of values < ~10
 SEG_PARITY_TOL = 1e-4
+# utils/profiling.Stopwatch(sync=True) around a flush against a CUDA event
+# pair recorded inside it: the host clock also holds the Python before the
+# first launch and the synchronise's return, so it may exceed the events by
+# 1 ms + 5% of the flush, and trail them by at most the clocks' 1 ms
+STOPWATCH_TOL_MS = 1.0
 
 
 def log(phase: str, msg: str) -> None:
@@ -835,7 +880,7 @@ def sdpa_kernels(q, k, v, causal, what) -> None:
     kernel name says which of PyTorch's attention back ends it took."""
     import torch.nn.functional as F
 
-    from bsc_nav_tpu_torch.profiling import device_kernels
+    from bsc_nav_tpu_torch.utils.profiling import device_kernels
     names = device_kernels(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal))
     log("kernels", f"SDPA {str(q.dtype)[6:]} at the {what}: device kernels "
@@ -1257,6 +1302,7 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
         Perception, VoxelTokenMemory)
     from bsc_nav_tpu_torch.memory.store import store_nbytes
     from bsc_nav_tpu_torch.models import vit
+    from bsc_nav_tpu_torch.utils.profiling import Stopwatch
 
     name = f"slice {str(dtype)[6:]}"
     env, frames, queries = world
@@ -1273,17 +1319,29 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
         f"(reckoned from shapes; feats {tuple(mem.state.feats.shape)}, "
         f"slot_map {mem.state.slot_map.numel():,} int32)")
 
-    flush_ms = []
+    # each flush timed by the port's Stopwatch (host clock, synchronised
+    # on the store's device) and by a CUDA event pair around it
+    sw, event_ms = Stopwatch(sync=True), []
     for i in range(N_FRAMES // BATCH):
         before = counts()
-        t0 = time.perf_counter()
-        for obs, pose in frames[i * BATCH:(i + 1) * BATCH]:
-            mem.push_frame(obs, pose)              # the 8th push flushes
-        torch.cuda.synchronize()
-        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with sw("flush") as held:
+            start.record()
+            for obs, pose in frames[i * BATCH:(i + 1) * BATCH]:
+                mem.push_frame(obs, pose)          # the 8th push flushes
+            end.record()
+            held["result"] = mem.state.feats
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
         d = since(before)
         check(d == launches(K1=vcfg.depth),
               f"flush {i}: K1-K8 +{d} (want K1 +{vcfg.depth} only)")
+    flush_ms = [t * 1e3 for t in sw.samples["flush"]]
+    gap = [a - b for a, b in zip(flush_ms, event_ms)]
+    check(all(-STOPWATCH_TOL_MS <= g <= STOPWATCH_TOL_MS + 0.05 * e
+              for g, e in zip(gap, event_ms)),
+          f"{name}: Stopwatch {flush_ms} against CUDA events {event_ms}")
     nv = int(mem.state.num_voxels)
     check(nv > 0, "no voxels after 32 frames")
     check(int(mem.state.feat_count[:nv].min()) >= 1, "empty live voxel")
@@ -1324,9 +1382,13 @@ def phase_slice(dev, dtype, cfg, vcfg, world, seed):
         f"({QUERY_IMAGES} images, top-{cfg.query.top_k}) "
         f"{[round(t, 3) for t in query_ms]}; peak device memory "
         f"{peak:.2f} GB")
+    log(name, f"Stopwatch(sync=True) against CUDA events per flush: "
+        f"{[round(t, 3) for t in event_ms]} ms by events, Stopwatch - "
+        f"events {[round(g, 3) for g in gap]} ms (bound -{STOPWATCH_TOL_MS} "
+        f"/ +{STOPWATCH_TOL_MS} ms + 5%); report: {sw.report()}")
     result = {"dtype": str(dtype)[6:], "num_voxels": nv,
-              "flush_ms": flush_ms, "query_ms": query_ms,
-              "peak_gb": peak, "k1_tile": tile}
+              "flush_ms": flush_ms, "flush_event_ms": event_ms,
+              "query_ms": query_ms, "peak_gb": peak, "k1_tile": tile}
     return result, mem
 
 
@@ -3147,6 +3209,9 @@ def phase_textq_all(dev, cfg, vcfg, world, seed):
     paths["textq"] = tuple(a + b for a, b in zip(paths["textq"], counts()))
     del t5_q
     torch.cuda.empty_cache()
+    reset_counts()
+    out["fuse_mods"] = phase_fuse_mods(dev, w, seed)
+    paths["fuse-mods"] = counts()
     return out, paths, w
 
 
@@ -4103,6 +4168,7 @@ def phase_robot(dev, cfg, world, w, seed):
                                imagination=imagination)
         robot = ObjectNavRobot(mem, bench, llm_client=scripted_llm(
             DS, args, bench, stage), matcher=matcher)
+        queries, poses = recorded_queries(mem), {}
         navigate = robot._navigate_candidates
 
         def staged(best_poses, prompt, max_candidates=3):
@@ -4181,6 +4247,7 @@ def phase_robot(dev, cfg, world, w, seed):
                   and os.path.exists(os.path.join(
                       tmp, f"trajectory_{i}", "log_data.json")),
                   f"robot {task}: {ep}")
+            poses[task] = list(robot.state_hist)
             if task == "objnav":
                 ep["prefetch"] = dict(prefetch)
                 check(prefetch["dispatched"] == prefetch["consumed"] == 1,
@@ -4193,9 +4260,15 @@ def phase_robot(dev, cfg, world, w, seed):
                 + (f", prefetch {ep['prefetch']}" if task == "objnav"
                    else ""))
             out["episodes"].append(ep)
+        path = counts()
+        # the visualisers over this store, a path of their own
+        check(len(queries) > 0, "robot: no voxel_localized query recorded")
+        reset_counts()
+        vis = phase_visualize(rcfg, mem, poses["objnav"], queries[-1], tmp)
+        vis_path = counts()
     del mem, robot, perception, matcher, det, clip, imagination
     torch.cuda.empty_cache()
-    return out
+    return out, path, vis, vis_path
 
 
 def phase_segments_parity(dev, seed):
@@ -4634,6 +4707,792 @@ def phase_vlm(dev, seed):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases: the demos, the episode farm, the native grid runtime, profiling
+# ---------------------------------------------------------------------------
+
+# demo.main's runs, card against CPU: every mode but the keyboard one's
+# live window; "GOAL" stands for a PNG goal the phase writes
+DEMO_RUNS = (("localize", ("--goal", "bed,sofa")),
+             ("category", ("--goal", "bed")),
+             ("text", ("--goal", "the blue sofa")),
+             ("image", ("--goal-image", "GOAL")),
+             ("interactive", ()))
+DEMO_SCRIPT = ("w", "a", "w", "d", "u", "save", "j", "nope", "w", "save", "q")
+DEMO_DETECT_CLASSES = ("bed", "plant", "sofa")
+DETECT_PASS = 6         # the demo frame's candidates over the confidence
+# fuse_mods against the per-block forward on the card, bf16 and int8: one
+# modulation column summed in another GEMM's order rounds to a neighbouring
+# bf16 value (2^-8 relative) now and then, and 24 blocks carry that on; the
+# velocity is held to 2^-5 of its max |value|
+FUSE_TOL = 2.0 ** -5
+NATIVE_ROOMS = 400      # the floor plan's side in cells, inside 1000^2
+FRAME_QUEUE_BATCHES = 4
+
+
+class HeldQueries:
+    """The CPU run's memory queries in call order (``record``); the card
+    run's queries held to them -- the sorted scores within ``tol`` -- and
+    handed the CPU's results (``hand_on``), so that everything downstream
+    of a query runs on equal inputs, as the tests hand JAX's queries on to
+    the port (tests/test_torch_episodes.py ``Queries``).  The fake world's
+    imagination is a plain callable, so no query goes the asynchronous
+    way."""
+
+    NAMES = ("voxel_localized", "voxel_localized_batch")
+
+    def __init__(self, tol):
+        self.tol, self.results, self.errs, self.n = tol, [], [], 0
+
+    def record(self, mem):
+        for name in self.NAMES:
+            fn = getattr(mem, name)
+
+            def call(*a, _fn=fn, _name=name, **k):
+                out = _fn(*a, **k)
+                self.results.append((_name, out))
+                return out
+            setattr(mem, name, call)
+
+    def hand_on(self, mem):
+        for name in self.NAMES:
+            fn = getattr(mem, name)
+
+            def call(*a, _fn=fn, _name=name, **k):
+                got = _fn(*a, **k)
+                check(self.n < len(self.results),
+                      f"demo: a {_name} call the CPU did not make")
+                want_name, want = self.results[self.n]
+                self.n += 1
+                check(want_name == _name, f"demo: {_name} where the CPU "
+                      f"called {want_name}")
+                batch = isinstance(want, list)
+                for g, w in (zip(got, want) if batch else [(got, want)]):
+                    (_, gs), (_, ws) = live_tops(g), live_tops(w)
+                    check(len(gs) == len(ws),
+                          f"demo: {len(gs)} / {len(ws)} scores")
+                    err = (float(np.abs(np.sort(gs) - np.sort(ws)).max())
+                           if len(ws) else 0.0)
+                    check(err <= self.tol, f"demo: query score err {err}")
+                    self.errs.append(err)
+
+                def copy(r):
+                    return tuple(np.array(a) for a in r)
+                return [copy(w) for w in want] if batch else copy(want)
+            setattr(mem, name, call)
+
+
+def run_main(main, argv, patches=(), script=DEMO_SCRIPT):
+    """``main(argv)`` with each (object, attribute, value) of ``patches``
+    set and restored after, the keyboard scripted and stdout captured;
+    returns (main's value, stdout, s)."""
+    import builtins
+    import io
+
+    cmds = iter(script)
+
+    def scripted(prompt=""):
+        try:
+            return next(cmds)
+        except StopIteration:
+            raise EOFError from None
+
+    patches = [*patches, (builtins, "input", scripted)]
+    saved = [getattr(o, a) for o, a, _ in patches]
+    for o, a, v in patches:
+        setattr(o, a, v)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for (o, a, _), v in zip(patches, saved):
+            setattr(o, a, v)
+    return ret, buf.getvalue(), time.perf_counter() - t0
+
+
+def same_outputs(a, b, what) -> tuple:
+    """Two demo output directories: the same files, .npy and .json equal,
+    each PNG decoding to the same pixels -- but a point-cloud PNG
+    (``localize*.png``), whose voxel colours are fused sums that the card
+    adds by atomics in any order and then truncates to uint8: there a
+    pixel may differ by one level.  Returns (PNGs compared, point-cloud
+    pixels one level apart)."""
+    from bsc_nav_tpu_torch.agents.llm import decode_png
+
+    files = sorted(os.listdir(a))
+    check(sorted(os.listdir(b)) == files, f"{what}: files {files} / "
+          f"{sorted(os.listdir(b))}")
+    pngs = off = 0
+    for f in files:
+        pa, pb = os.path.join(a, f), os.path.join(b, f)
+        if f.endswith(".npy"):
+            same = np.array_equal(np.load(pa), np.load(pb))
+        elif f.endswith(".json"):
+            with open(pa) as fa, open(pb) as fb:
+                same = json.load(fa) == json.load(fb)
+        elif f.endswith(".png"):
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                da, db = (decode_png(x.read()).astype(int) for x in (fa, fb))
+            diff = np.abs(da - db).max(-1) if da.shape == db.shape else None
+            same = diff is not None and int(diff.max()) <= (
+                1 if f.startswith("localize") else 0)
+            off += int((diff > 0).sum()) if same else 0
+            pngs += 1
+        else:
+            continue
+        check(same, f"{what}: {f} differs, card vs CPU")
+    return pngs, off
+
+
+def phase_demo(dev, seed):
+    """demo.main's modes (DEMO_RUNS) on --env fake, on the CPU and on the
+    card in one process, the card's encoder holding the CPU one's weights
+    and both builds the same draws; each card query held to the CPU's
+    within ROBOT_PARITY_TOL and the CPU's handed on.  The printed lines,
+    the .npy top-K, log_data.json and every PNG (decoded) must be equal,
+    a point cloud's pixels within one level (``same_outputs``).
+    Returns (result, the card runs' launch counts)."""
+    from bsc_nav_tpu_torch import demo
+    from bsc_nav_tpu_torch.agents.llm import encode_png
+    from bsc_nav_tpu_torch.drivers import setup as DS
+    from bsc_nav_tpu_torch.env.fake import BoxScene
+
+    build, path, out = DS.build_world, launches(), {"modes": []}
+    with build_tmp() as tmp:
+        goal = os.path.join(tmp, "goal.png")
+        cfg0 = DS.fake_config(driver_args(["--seed", str(seed)]))
+        with open(goal, "wb") as f:
+            f.write(encode_png(DS.SceneImagination(cfg0, BoxScene.default())(
+                "a plant")[0]))
+        for mode, extra in DEMO_RUNS:
+            held, params, draws = HeldQueries(ROBOT_PARITY_TOL), {}, []
+            rng, runs = np.random.default_rng(seed + 11), {}
+            for side, d in (("cpu", "cpu"), ("card", str(dev))):
+                root = os.path.join(tmp, side)
+
+                def wrapped(args, task="objnav", side=side):
+                    cfg, bench, mem, extras = build(args, task)
+                    if side == "cpu":
+                        params["vit"] = mem.perception.vit_params.state_dict()
+                        held.record(mem)
+                    else:
+                        mem.perception.vit_params.load_state_dict(
+                            params["vit"])
+                        held.hand_on(mem)
+                    same_draws(mem.perception, cfg, draws, rng)
+                    runs[side] = {"mem": mem}
+                    return cfg, bench, mem, extras
+
+                argv = ["--env", "fake", "--llm", "mock", "--device", d,
+                        "--seed", str(seed), "--nav-mode", mode,
+                        "--log-root", os.path.join(root, "logs"),
+                        "--memory-root", os.path.join(root, "mem"),
+                        "--out-dir", os.path.join(root, mode),
+                        *[goal if a == "GOAL" else a for a in extra]]
+                before = counts()
+                _, text, s = run_main(demo.main, argv,
+                                      [(DS, "build_world", wrapped)])
+                runs[side].update(s=s, launched=since(before),
+                                  lines=text.replace(root, "<d>")
+                                  .splitlines(),
+                                  dir=os.path.join(root, mode))
+            cpu, card = runs["cpu"], runs["card"]
+            check(cpu["launched"] == launches(),
+                  f"demo {mode}: the CPU run launched {fmt(cpu['launched'])}")
+            path = add(path, card["launched"])
+            check(held.n == len(held.results),
+                  f"demo {mode}: the card made {held.n} of the CPU's "
+                  f"{len(held.results)} queries")
+            check(card["lines"] == cpu["lines"],
+                  f"demo {mode}: printed lines differ, card {card['lines']} "
+                  f"/ CPU {cpu['lines']}")
+            pngs, off = same_outputs(cpu["dir"], card["dir"], f"demo {mode}")
+            n = int(cpu["mem"].state.num_voxels)
+            store_equal = all(torch.equal(
+                getattr(cpu["mem"].state, f)[:n],
+                getattr(card["mem"].state, f)[:n].cpu())
+                for f in ("slot_pos", "feat_count"))
+            check(store_equal, f"demo {mode}: store differs card vs CPU")
+            res = {"mode": mode, "cpu_s": cpu["s"], "card_s": card["s"],
+                   "lines": len(cpu["lines"]), "pngs": pngs,
+                   "cloud_pixels_one_level_apart": off,
+                   "files": sorted(os.listdir(cpu["dir"])),
+                   "queries": len(held.results),
+                   "query_err": max(held.errs, default=0.0),
+                   "voxels": n, "store_equal": store_equal,
+                   "launches": fmt(card["launched"])}
+            out["modes"].append(res)
+            log("demo", f"{mode}: card == CPU ({res['lines']} printed lines, "
+                f"{len(res['files'])} files, {pngs} PNGs decoded equal, "
+                f"{off} point-cloud pixels one level apart; "
+                f"{res['queries']} queries, score err "
+                f"{res['query_err']:.3g} <= {ROBOT_PARITY_TOL}); {n} voxels, "
+                f"store {'equal' if store_equal else 'NOT equal'}; CPU "
+                f"{cpu['s']:.1f} s, card {card['s']:.1f} s; card launches "
+                f"{res['launches']}")
+    return out, path
+
+
+def phase_visualize(cfg, mem, poses, query, tmp) -> dict:
+    """utils/visualize over the robot phase's full-width store: the point
+    cloud with the query's top-K and cluster centres, the 1000^2 top-down
+    map, TrajectoryDrawer over an episode's poses, and the token-matching
+    panels of a 680^2 view.  Host clock; each PNG decoded and checked; no
+    kernel launches."""
+    from bsc_nav_tpu_torch.agents.clustering import weighted_cluster_centers
+    from bsc_nav_tpu_torch.agents.llm import decode_png
+    from bsc_nav_tpu_torch.utils import visualize as V
+
+    def timed(fn, reps=3):
+        t = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return res, statistics.median(t)
+
+    def png(path):
+        with open(path, "rb") as f:
+            return decode_png(f.read())
+
+    out = {"voxels": int(mem.state.num_voxels)}
+    _, pos, sims = query
+    centers, _, _ = weighted_cluster_centers(
+        pos, sims, eps=cfg.query.cluster_eps,
+        min_samples=cfg.query.cluster_min_samples)
+    p = os.path.join(tmp, "cloud.png")
+    _, out["pointcloud_ms"] = timed(lambda: V.render_pointcloud_png(
+        mem.state, p, highlight=pos, centers=centers))
+    img = png(p)
+    check(img.shape == V.POINTCLOUD_SIZE + (3,)
+          and (img == V.HIGHLIGHT_COLOR).all(-1).any()
+          and (img == V.CENTER_COLOR).all(-1).any() == (len(centers) > 0),
+          "visualize: point cloud")
+    p = os.path.join(tmp, "topdown.png")
+    _, out["topdown_ms"] = timed(lambda: V.render_topdown_png(
+        mem.state, p, cfg.memory.grid_size))
+    G = cfg.memory.grid_size
+    k = max(1, V.TOPDOWN_SIDE // G)
+    check(np.array_equal(png(p)[::k, ::k], V.topdown_image(mem.state, G)),
+          "visualize: the top-down PNG is not the cv_map")
+    drawer = V.TrajectoryDrawer(mem.state, cfg,
+                                mem.Env.original_state.position)
+    t0 = time.perf_counter()
+    frames = [drawer.step(np.asarray(st.position), st.rotation.yaw())
+              for st in poses]
+    out["trajectory_ms_per_step"] = ((time.perf_counter() - t0) * 1e3
+                                     / max(1, len(poses)))
+    check(len(frames) == len(poses) > 0
+          and frames[-1].shape == (G, G, 3)
+          and (frames[-1] == drawer.AGENT_COLOR).all(-1).any(),
+          "visualize: trajectory frames")
+    # the three panels at a 680^2 view and the query's patch grid (a
+    # seeded heat map: the renderer's cost does not depend on its values)
+    view = np.asarray(mem.Env.sims.get_sensor_observations(0)["rgb"])[
+        ..., :3]
+    g = cfg.query.query_height // mem.perception.vit_cfg.patch_size
+    sim2d = np.random.default_rng(0).uniform(-1, 1, (g, g))
+    p = os.path.join(tmp, "matching.png")
+    _, out["token_matching_ms"] = timed(lambda: V.render_token_matching(
+        view, view, sim2d, p))
+    check(png(p).shape[0] == view.shape[0], "visualize: token matching")
+    out.update(steps=len(poses), centers=len(centers), top_k=len(pos))
+    log("visualize", f"over the robot phase's store ({out['voxels']} voxels "
+        f"of {cfg.memory.voxel_capacity:,}; grid {G}^2), host clock, median "
+        f"of 3: point cloud {out['pointcloud_ms']:.1f} ms (top-{len(pos)}, "
+        f"{len(centers)} centres), top-down {out['topdown_ms']:.1f} ms; "
+        f"TrajectoryDrawer {out['trajectory_ms_per_step']:.2f} ms a step "
+        f"over objnav's {len(poses)} poses; token matching "
+        f"{out['token_matching_ms']:.1f} ms")
+    return out
+
+
+def bpe_merges(path, words):
+    """A synthetic CLIP merges file (``bpe_simple_vocab_16e6.txt.gz``'s
+    format): merges that build each of ``words`` from its characters,
+    right to left."""
+    import gzip
+
+    merges = []
+    for w in words:
+        parts = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(parts) > 1:
+            m = (parts[-2], parts[-1])
+            if m not in merges:
+                merges.append(m)
+            parts[-2:] = ["".join(m)]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges)
+                + "\n")
+    return len(merges)
+
+
+def host_tree(tree):
+    """A port tree as numpy leaves, K8's folded copies left out."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()
+                if k not in ("w9", "b9")}
+    if isinstance(tree, list):
+        return [host_tree(v) for v in tree]
+    return tree.detach().cpu().numpy()
+
+
+@torch.no_grad()
+def write_detect_weights(dev, d, seed, frame) -> dict:
+    """The converted files demo_detect reads, at the published widths with
+    random weights from the seed: yolov8x_worldv2.npz (its head's
+    logit_bias set so that DETECT_PASS anchors of ``frame`` pass 0.3),
+    metaclip_vith14.npz (the text tower's leaves; the loader reads no
+    other), a synthetic bpe_simple_vocab_16e6.txt.gz, and
+    grounding_dino_tiny.npz (the decoder's last LayerNorm scaled 1/16, as
+    the gdino phase does) with a synthetic vocab.txt.  Returns the
+    Grounding DINO confidence that DETECT_PASS queries of ``frame`` pass,
+    and the parameter counts."""
+    from bsc_nav_tpu_torch.models import clip as C
+    from bsc_nav_tpu_torch.models import grounding_dino as G
+    from bsc_nav_tpu_torch.models import tokenizer as T
+    from bsc_nav_tpu_torch.models import yolo_world as Y
+    from bsc_nav_tpu_torch.models.weights import flatten_params
+    from bsc_nav_tpu_torch.models.wordpiece import WordPieceTokenizer
+
+    classes = list(DEMO_DETECT_CLASSES)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ccfg = C.METACLIP_VITH14
+    tower = C.init_text_params(ccfg, gen, device=dev)
+    np.savez(os.path.join(d, "metaclip_vith14.npz"), **{
+        "text." + k: v.cpu().numpy() for k, v in tower.state_dict().items()})
+    words = sorted({w for c in classes for w in f"a photo of a {c}".split()})
+    n_merges = bpe_merges(os.path.join(d, "bpe_simple_vocab_16e6.txt.gz"),
+                          words)
+    tok = T.default_tokenizer(os.path.join(d, "bpe_simple_vocab_16e6.txt.gz"))
+    ids = torch.from_numpy(np.asarray(T.tokenize(
+        [f"a photo of a {c}" for c in classes], tok), np.int64)).to(dev)
+    emb = C.encode_text(tower, ids, ccfg).cpu().numpy()
+    n_text = sum(p.numel() for p in tower.parameters())
+    del tower
+
+    ycfg = Y.YOLOV8X_WORLDV2
+    yp = Y.init_params(ycfg, gen, text_dim=ccfg.embed_dim, device=dev)
+    det = Y.YoloWorldDetector(yp, ycfg, classes, emb, confidence=0.3)
+    levels = Y.forward(yp, det._images(frame[None]), det.text_emb, ycfg)
+    best = torch.cat([c.amax(-1).reshape(1, -1) for _, c in levels], 1)
+    top = best.topk(DETECT_PASS + 1, dim=1).values[0]
+    shift = math.log(0.3 / 0.7) - float(top[-2] + top[-1]) / 2
+    for hp in yp["head"]:
+        hp["logit_bias"] = hp["logit_bias"] + shift
+    np.savez(os.path.join(d, "yolov8x_worldv2.npz"),
+             **flatten_params(host_tree(yp)))
+    n_yolo = n_leaves(yp)
+    del yp, det, levels
+
+    gcfg = G.GROUNDING_DINO_TINY
+    gp = G.init_params(gcfg, gen, device=dev)
+    gp["decoder"]["norm"]["scale"].mul_(gcfg.d_model ** -0.5)
+    gtok = WordPieceTokenizer.from_vocab_file(gdino_vocab(
+        os.path.join(d, "vocab.txt"), classes))
+    gdet = G.GroundingDinoDetector(gp, gcfg, classes, tokenizer=gtok)
+    scores, _ = gdet.scores_boxes(gdet.images(frame[None]))
+    top = scores.amax(-1)[0].topk(DETECT_PASS + 1).values
+    conf = float(top[-2] + top[-1]) / 2
+    np.savez(os.path.join(d, "grounding_dino_tiny.npz"),
+             **flatten_params(host_tree(gp)))
+    n_gdino = n_params(gp)
+    del gp, gdet
+    torch.cuda.empty_cache()
+    return {"gdino_confidence": conf, "yolo_params": n_yolo,
+            "clip_text_params": n_text, "gdino_params": n_gdino,
+            "bpe_merges": n_merges}
+
+
+def phase_demo_detect(dev, seed):
+    """demo_detect.main through --weights-dir at the published widths
+    (write_detect_weights) on the fake world's 256^2 frame: YOLOv8x-worldv2
+    at 640^2 with MetaCLIP ViT-H/14's text tower (its class embeddings),
+    then grounding-dino-tiny at 800^2; detections, the printed lines, the
+    PNG; the main's seconds, and ms per detect call (the call inside main,
+    then 3 more).  Returns (result, launch counts of the two mains)."""
+    from bsc_nav_tpu_torch import demo_detect
+    from bsc_nav_tpu_torch.agents.llm import decode_png
+    from bsc_nav_tpu_torch.config import Config, SensorConfig
+    from bsc_nav_tpu_torch.env.fake import BoxScene, FakeNavEnv
+
+    frame = FakeNavEnv(Config(sensor=SensorConfig(width=256, height=256)),
+                       scene=BoxScene.default(), seed=3)._observe()["rgb"]
+    out, path = {}, launches()
+    with build_tmp() as d:
+        t0 = time.perf_counter()
+        out["weights"] = write_detect_weights(dev, d, seed, frame)
+        out["weights"]["write_s"] = time.perf_counter() - t0
+        log("demo-detect", f"random weights at the published widths written "
+            f"in {out['weights']['write_s']:.1f} s: {out['weights']}")
+        for det_name, conf in (
+                ("yolo-world", 0.3),
+                ("grounding-dino", out["weights"]["gdino_confidence"])):
+            made, real = {}, demo_detect.build_detector
+
+            def capture(args, classes, made=made, real=real):
+                det = made["det"] = real(args, classes)
+                detect, made["ms"] = det.detect, []
+
+                def timed(rgb):
+                    t = time.perf_counter()
+                    res = detect(rgb)
+                    torch.cuda.synchronize()
+                    made["ms"].append((time.perf_counter() - t) * 1e3)
+                    return res
+                det.detect = timed
+                return det
+
+            png = os.path.join(d, f"{det_name}.png")
+            argv = ["--weights-dir", d, "--detector", det_name,
+                    "--classes", ". ".join(DEMO_DETECT_CLASSES),
+                    "--confidence", repr(conf),
+                    "--out", png, "--device", str(dev)]
+            before = counts()
+            dets, text, s = run_main(demo_detect.main, argv,
+                                     [(demo_detect, "build_detector",
+                                       capture)])
+            path = add(path, since(before))
+            with uncounted():
+                for _ in range(3):
+                    made["det"].detect(frame)
+            with open(png, "rb") as f:
+                img = decode_png(f.read())
+            lines = text.splitlines()
+            boxes = np.reshape([dt.xyxy for dt in dets], (-1, 4))
+            check(len(dets) >= 1 and len(lines) == len(dets) + 1
+                  and lines[-1] == f"wrote {png} ({len(dets)} detections)"
+                  and img.shape == (256, 256, 3)
+                  and all(dt.label in DEMO_DETECT_CLASSES
+                          and conf <= dt.confidence <= 1 for dt in dets)
+                  and bool(np.isfinite(boxes).all()),
+                  f"demo-detect {det_name}: {len(dets)} detections, "
+                  f"{lines[-1:]}, image {img.shape}")
+            res = {"s": s, "detect_ms": made["ms"], "confidence": conf,
+                   "detections": len(dets),
+                   "labels": sorted({dt.label for dt in dets})}
+            out[det_name] = res
+            log("demo-detect", f"{det_name}: {len(dets)} detections "
+                f"({res['labels']}) at confidence {conf:.4g}; main "
+                f"{s:.1f} s (weights read, the detector built, one detect, "
+                f"the PNG); detect ms {[round(t, 1) for t in made['ms']]} "
+                f"(host clock to a synchronise; the first inside main)")
+            del made, img
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out, path
+
+
+FARM_EPISODES = 4
+FARM_CHILD = """import json, sys
+import chip_smoke
+from bsc_nav_tpu_torch.drivers import objnav
+objnav.main(sys.argv[1:])
+print(json.dumps(chip_smoke.counts()))
+"""
+
+
+def phase_farm(dev, seed):
+    """The port's objnav driver on the card as a farm: two worker processes
+    (--num-workers 2, --worker-id 0 / 1) and one single run, all three
+    started together, FARM_EPISODES episodes on the fake world; the
+    workers' CSV shards merged by drivers.farm must equal the single
+    run's rows.  Returns (result, the workers' launch counts)."""
+    import csv
+
+    from bsc_nav_tpu_torch.drivers import farm
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with build_tmp() as tmp:
+        common = ["--env", "fake", "--llm", "mock", "--device", str(dev),
+                  "--seed", str(seed), "--episodes", str(FARM_EPISODES),
+                  "--log-root", os.path.join(tmp, "logs"),
+                  "--memory-root", os.path.join(tmp, "mem")]
+        runs = [(f"worker {w}", os.path.join(tmp, f"r.worker{w}.csv"),
+                 ["--num-workers", "2", "--worker-id", str(w)])
+                for w in range(2)]
+        runs.append(("single", os.path.join(tmp, "single.csv"), []))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", FARM_CHILD, *common, "--csv", path,
+             *extra], cwd=repo, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for _, path, extra in runs]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for (name, _, _), p, (so, se) in zip(runs, procs, outs):
+            check(p.returncode == 0, f"farm {name}: exit {p.returncode}: "
+                  f"{se[-2000:]}")
+        child = [tuple(json.loads(so.strip().splitlines()[-1]))
+                 for so, _ in outs]
+        merged = os.path.join(tmp, "merged.csv")
+        n = farm.merge_csvs([runs[0][1], runs[1][1]], merged)
+
+        def rows(path):
+            with open(path, newline="") as f:
+                return sorted(csv.DictReader(f),
+                              key=lambda r: r["id"] + r["object_goal"])
+        got, want = rows(merged), rows(runs[2][1])
+        check(n == FARM_EPISODES and got == want,
+              f"farm: merged {n} rows {got} / single {want}")
+        shards = [len(rows(path)) for _, path, _ in runs[:2]]
+    path = add(child[0], child[1])
+    # the builds' ViT (K3); a query (K2, K2b) only where stage 1 fails
+    check(path[2] > 0 and not any(path[i] for i in (0, 3, 4, 5, 6, 7)),
+          f"farm launches {fmt(path)} (want K3, and K2 / K2b at most)")
+    out = {"episodes": FARM_EPISODES, "shards": shards, "wall_s": wall,
+           "single_launches": fmt(child[2]), "rows_equal": True}
+    log("farm", f"objnav on the card, {FARM_EPISODES} episodes: 2 workers "
+        f"({shards} episodes) merged by drivers.farm equal the single run's "
+        f"{FARM_EPISODES} rows; three processes together {wall:.1f} s wall; "
+        f"the workers' launches {fmt(path)}, the single run's "
+        f"{fmt(child[2])}")
+    return out, path
+
+
+def floor_plan(n=1000, side=NATIVE_ROOMS, seed=0):
+    """A Config()-sized navigability grid (n^2 cells of 5 cm): a house of
+    side^2 cells in its middle, rooms of 100 cells with 20-cell doors,
+    furniture boxes; the rest unknown (not navigable)."""
+    rng = np.random.default_rng(seed)
+    nav = np.zeros((n, n), bool)
+    o = (n - side) // 2
+    nav[o:o + side, o:o + side] = True
+    for k in range(0, side + 1, 100):
+        for axis in (0, 1):
+            wall = (slice(o + k - 2, o + k + 2), slice(o, o + side))
+            nav[wall if axis == 0 else wall[::-1]] = False
+            if 0 < k < side:
+                for d0 in range(50, side, 100):
+                    door = (slice(o + k - 2, o + k + 2),
+                            slice(o + d0 - 10, o + d0 + 10))
+                    nav[door if axis == 0 else door[::-1]] = True
+    for _ in range(40):
+        i, j = rng.integers(o + 10, o + side - 40, 2)
+        h, w = rng.integers(6, 30, 2)
+        nav[i:i + h, j:j + w] = False
+    return nav
+
+
+def phase_native(seed):
+    """runtime_native on the host: NativeNavGrid against the port's numpy
+    env/pathfinding on a Config()-sized floor plan (floor_plan): the
+    distance field (cells) and the A* path's cost, ms each; FrameQueue
+    staging Config()'s 680^2 RGB-D frames: push and pop GB/s."""
+    from bsc_nav_tpu_torch import runtime_native as RN
+    from bsc_nav_tpu_torch.config import Config
+    from bsc_nav_tpu_torch.env.pathfinding import GridPathfinder
+
+    cfg = Config()
+    t0 = time.perf_counter()
+    RN.build()
+    build_s = time.perf_counter() - t0
+    n = cfg.memory.grid_size
+    nav = floor_plan(n, seed=seed)
+    o = (n - NATIVE_ROOMS) // 2
+    start, goal = (o + 20, o + 20), (o + NATIVE_ROOMS - 20,
+                                     o + NATIVE_ROOMS - 20)
+    pf = GridPathfinder(nav, (0.0, 0.0), 1.0)
+    grid = RN.NativeNavGrid(nav)
+    t0 = time.perf_counter()
+    field = grid.distance_field(*start)
+    field_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = pf.distance_field(pf.cell_to_world(*start))
+    field_py_ms = (time.perf_counter() - t0) * 1e3
+    fin = np.isfinite(want)
+    check(np.array_equal(fin, np.isfinite(field)),
+          "native: reachable cells differ from env/pathfinding's")
+    # f32 sums of up to ~1,000 unit / sqrt(2) steps against f64
+    rel = float((np.abs(field[fin] - want[fin])
+                 / np.maximum(want[fin], 1)).max())
+    check(rel <= 1e-5, f"native: distance field rel err {rel}")
+    t0 = time.perf_counter()
+    path = grid.astar(*start, *goal)
+    astar_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    py = pf.shortest_path(pf.cell_to_world(*start), pf.cell_to_world(*goal))
+    astar_py_ms = (time.perf_counter() - t0) * 1e3
+
+    def cost(cells):
+        c = np.asarray(cells, float)
+        return float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
+    check(path is not None and py is not None
+          and abs(cost(path) - cost([pf.world_to_cell(p) for p in py]))
+          <= 1e-5 * cost(path)
+          and abs(cost(path) - float(field[goal])) <= 1e-4 * cost(path)
+          and all(nav[i, j] for i, j in path),
+          "native: A* path differs from env/pathfinding's")
+
+    H, W = cfg.sensor.height, cfg.sensor.width
+    q = RN.FrameQueue(capacity=BATCH, h=H, w=W)
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 255, (BATCH, H, W, 3), dtype=np.uint8)
+    depth = rng.uniform(0.1, 10, (BATCH, H, W)).astype(np.float32)
+    poses = rng.normal(size=(BATCH, 7)).astype(np.float32)
+    push_s = pop_s = 0.0
+    for _ in range(FRAME_QUEUE_BATCHES):
+        t0 = time.perf_counter()
+        for i in range(BATCH):
+            check(q.push(rgb[i], depth[i], poses[i]), "native: queue full")
+        push_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r, dpt, ps, m = q.pop_batch(BATCH)
+        pop_s += time.perf_counter() - t0
+        check(m == BATCH and np.array_equal(r, rgb)
+              and np.array_equal(dpt, depth) and np.array_equal(ps, poses),
+              "native: FrameQueue round trip")
+    frame_bytes = H * W * 3 + H * W * 4 + 7 * 4
+    nbytes = frame_bytes * BATCH * FRAME_QUEUE_BATCHES
+    out = {"grid": n, "navigable": int(nav.sum()), "build_s": build_s,
+           "field_ms": field_ms, "field_numpy_ms": field_py_ms,
+           "field_rel_err": rel, "astar_ms": astar_ms,
+           "astar_numpy_ms": astar_py_ms, "path_cells": len(path),
+           "path_cost": cost(path),
+           "frame_queue_push_gb_s": nbytes / push_s / 1e9,
+           "frame_queue_pop_gb_s": nbytes / pop_s / 1e9}
+    log("native", f"g++ build {build_s:.1f} s; floor plan {n}^2 "
+        f"({out['navigable']:,} navigable cells): distance field "
+        f"{field_ms:.1f} ms native, {field_py_ms:.0f} ms env/pathfinding "
+        f"(rel err {rel:.2g}); A* {astar_ms:.1f} ms native, "
+        f"{astar_py_ms:.0f} ms env/pathfinding ({len(path)} cells, equal "
+        f"cost {cost(path):.2f}); FrameQueue {BATCH} x {H}x{W} RGB-D a batch "
+        f"({frame_bytes / 1e6:.2f} MB a frame): push "
+        f"{out['frame_queue_push_gb_s']:.2f} GB/s, pop_batch "
+        f"{out['frame_queue_pop_gb_s']:.2f} GB/s (host clock)")
+    return out
+
+
+def phase_profiling(dev, mem, world, cfg) -> dict:
+    """utils/profiling on the f32 spine's store: trace() around one image
+    query (a one-element fill first: late in a long process the profiler
+    has dropped a window's first kernel) writes a Chrome trace whose
+    device events name K1's tile and K2's kernel; Telemetry.memory_stats
+    of the full store against the store itself."""
+    from bsc_nav_tpu_torch.utils.profiling import Telemetry, trace
+
+    _, _, queries = world
+    with build_tmp() as tmp:
+        first = torch.empty(1, device=dev)
+        torch.cuda.synchronize()
+        with trace(os.path.join(tmp, "trace")):
+            first.fill_(0)
+            mem.voxel_localized(queries[0], K=cfg.query.top_k)
+        path = os.path.join(tmp, "trace", "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    k1 = sorted(k for k in kernels if F32_TILE in k)
+    k2 = sorted(k for k in kernels if "max_cosine_kernel" in k)
+    check(k1 and k2, f"profiling: the trace names no K1 ({k1}) or K2 "
+          f"({k2}) kernel among {sorted(kernels)[:8]}")
+    tel = Telemetry()
+    t0 = time.perf_counter()
+    tel.memory_stats(mem.state)
+    ms = (time.perf_counter() - t0) * 1e3
+    n = int(mem.state.num_voxels)
+    counts_ = mem.state.feat_count[:n]
+    check(tel.gauges["memory/num_voxels"] == n
+          and tel.gauges["memory/total_tokens"] == float(counts_.sum())
+          and tel.gauges["memory/dropped_voxels"]
+          == int(mem.state.dropped_voxels),
+          f"profiling: Telemetry {tel.gauges}")
+    log("profiling", f"trace(): Chrome trace {size / 1e6:.2f} MB, "
+        f"{len(events)} events; its device kernels name {F32_TILE} (K1, "
+        f"{len(k1)} instance(s)) and max_cosine_kernel (K2, {len(k2)}); "
+        f"Telemetry.memory_stats of the "
+        f"{mem.state.feat_count.shape[0]:,}-slot store {ms:.2f} ms: "
+        f"{tel.gauges}")
+    return {"trace_mb": size / 1e6, "trace_events": len(events),
+            "k1_kernel": k1[0], "k2_kernel": k2[0], "telemetry_ms": ms,
+            "gauges": tel.gauges}
+
+
+def phase_fuse_mods(dev, w, seed) -> dict:
+    """fuse_mods on the text query's SD3.5-medium 512^2 weights, bf16 and
+    W8A8 (quantize_params, then fuse_mods): the forward at the query's
+    batch (B 6: 3 images, CFG) by CUDA events, per-block and fused in
+    turns (per-block, fused, fused, per-block), and the 28-step CFG
+    sampler (the query's MMDiT part) by host clock to a synchronise, once
+    each; the fused velocity held to the per-block one within FUSE_TOL of
+    max |v|.  The imagination itself stays on the per-block path, as in
+    the JAX package.  Returns the result (its launches are K4's)."""
+    from bsc_nav_tpu_torch.models import mmdit as M
+
+    cfg = M.SD35_MEDIUM
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    B, S_ctx, bf = 6, 77 + 512, torch.bfloat16
+    n = cfg.input_size
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+    lat, ctx, pooled = (randn(B, n, n, cfg.in_channels),
+                        randn(B, S_ctx, cfg.context_dim),
+                        randn(B, cfg.pooled_dim))
+    t = torch.linspace(1.0, 0.1, B, device=dev)
+    out = {}
+    for name in ("bf16", "int8"):
+        per_block = w["mmdit"] if name == "bf16" else M.quantize_params(
+            w["mmdit"])
+        fused, layout = M.fuse_mods(per_block, cfg)
+        check(layout[0] == (9, 6) and layout[-1] == (6, 6)
+              and len(layout) == cfg.depth,
+              f"fuse-mods {name}: layout {layout[:2]}..{layout[-1:]}")
+        trees = {"per-block": (per_block, None), "fused": (fused, layout)}
+
+        def fwd(k):
+            p, lay = trees[k]
+            return M.forward(p, lat, t, ctx, pooled, cfg, mod_layout=lay)
+        v = {k: fwd(k).float() for k in trees}
+        vmax = float(v["per-block"].abs().max())
+        err = float((v["fused"] - v["per-block"]).abs().max())
+        check(vmax > 0.1 and err <= FUSE_TOL * vmax,
+              f"fuse-mods {name}: fused velocity err {err} of max {vmax}")
+        ms = {k: [] for k in trees}
+        for k in ("per-block", "fused", "fused", "per-block"):
+            ms[k].append(cuda_ms(lambda k=k: fwd(k), reps=5, warmup=1))
+        sample_s = {}
+        for k in ("per-block", "fused"):
+            p, lay = trees[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.sample(p, ctx[:3], pooled[:3], cfg, num_steps=28,
+                     guidance_scale=7.0, context_uncond=ctx[3:],
+                     pooled_uncond=pooled[3:], generator=gen,
+                     mod_layout=lay)
+            torch.cuda.synchronize()
+            sample_s[k] = time.perf_counter() - t0
+        mods_gb = (fused["mods"]["w"].numel()
+                   * fused["mods"]["w"].element_size()) / 1e9
+        out[name] = {"forward_ms": ms, "sample_s": sample_s,
+                     "velocity_err": err, "velocity_max": vmax,
+                     "mods_weights_gb": mods_gb}
+        log("fuse-mods", f"SD3.5-medium 512^2 {name}: forward at B {B} "
+            f"(CUDA events, median of 5, turns per-block / fused / fused / "
+            f"per-block) per-block {[round(x, 2) for x in ms['per-block']]} "
+            f"ms, fused {[round(x, 2) for x in ms['fused']]} ms; 28-step CFG "
+            f"sample (3 images) per-block {sample_s['per-block']:.2f} s, "
+            f"fused {sample_s['fused']:.2f} s; the fused mods linear "
+            f"{mods_gb:.2f} GB; fused velocity within {err:.3g} of the "
+            f"per-block one (max |v| {vmax:.3g}, bound {FUSE_TOL} x max)")
+        del fused, per_block, trees, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_cases_only(names, seed) -> int:
     """``--kernels``: the named kernels' cases alone, on the card."""
     from bsc_nav_tpu_torch.ops import _build
@@ -4736,6 +5595,11 @@ def main(argv=None) -> int:
             params32 = mem.perception.vit_params
             spine_pos = mem.state.slot_pos[:int(mem.state.num_voxels)
                                            ].cpu().numpy()
+            reset_counts()
+            profiling = phase_profiling(dev, mem, world, cfg)
+            profiling_path = counts()
+            check(profiling_path == launches(K1=vcfg.depth, K2=1),
+                  f"profiling launches {fmt(profiling_path)}")
         forgets.append(forget_case(f"spine {str(dt)[6:]}", mem.state))
         del mem
         torch.cuda.empty_cache()
@@ -4795,10 +5659,18 @@ def main(argv=None) -> int:
     explore = phase_explore(dev, cfg, vcfg, params32, args.seed)
     explore_path = counts()
     log("explore", f"launches on the path: {fmt(explore_path)}")
+    native = phase_native(args.seed)
     reset_counts()
     robot_parity, robot_parity_path = phase_robot_parity(dev, args.seed)
     log("robot-parity", f"launches on the card's path: "
         f"{fmt(robot_parity_path)}")
+    farm, farm_path = phase_farm(dev, args.seed)
+    reset_counts()
+    demo, demo_path = phase_demo(dev, args.seed)
+    log("demo", f"launches on the card's runs: {fmt(demo_path)}")
+    # the drivers' ViT has head_dim 16 (K3); the batched localize: K2b
+    check(all((demo_path[i] > 0) == (i in (1, 2, 8)) for i in range(9)),
+          f"demo launches {fmt(demo_path)} (want K2, K3, K2b)")
     seg_parity = phase_segments_parity(dev, args.seed)
     del params32
     torch.cuda.empty_cache()
@@ -4828,15 +5700,22 @@ def main(argv=None) -> int:
         f"JAX Grounding DINO reaches no pallas_call)")
     check(gdino_path == launches(), f"gdino launches {fmt(gdino_path)}")
     gdino_parity = phase_gdino_parity(dev, args.seed)
+    demo_detect, detect_path = phase_demo_detect(dev, args.seed)
+    log("demo-detect", f"launches of the two mains: {fmt(detect_path)}")
+    # the MetaCLIP text tower's 24 layers (K3) and one YOLO forward (K8)
+    check(detect_path == launches(K3=24, K8=K8_PER_FORWARD),
+          f"demo-detect launches {fmt(detect_path)}")
 
     textq, textq_paths, textq_w = phase_textq_all(dev, cfg, vcfg, world,
                                                   args.seed)
     for name, c in textq_paths.items():
-        log(name, f"launches on the path (DINOv2 ingest included): {fmt(c)}")
+        ingest = "" if name == "fuse-mods" else " (DINOv2 ingest included)"
+        log(name, f"launches on the path{ingest}: {fmt(c)}")
     # the robots at full width, on the text-query phases' bf16 weights
     reset_counts()
-    robot = phase_robot(dev, cfg, world, textq_w, args.seed)
-    robot_path = counts()
+    robot, robot_path, visualize, vis_path = phase_robot(
+        dev, cfg, world, textq_w, args.seed)
+    check(vis_path == launches(), f"visualize launches {fmt(vis_path)}")
     del textq_w
     torch.cuda.empty_cache()
     log("robot", f"launches on the path (memory build and three episodes): "
@@ -4846,6 +5725,11 @@ def main(argv=None) -> int:
               for i in range(9)), f"robot launches {fmt(robot_path)}")
     # path: the kernels it must have launched; K7 lies on no path, K8 on
     # the YOLO path alone
+    # fuse-mods: 2 forwards, 4 x 6 timed, 2 samples of 28 steps, bf16 and
+    # int8, each with K4 in the 24 joint and 13 dual self-attentions
+    sd35 = 24 + 13
+    check(textq_paths["fuse-mods"] == launches(K4=2 * (2 + 24 + 56) * sd35),
+          f"fuse-mods launches {fmt(textq_paths['fuse-mods'])}")
     for name, used in (("textq", (0, 1, 2, 3)),
                        ("textq-sd3-medium", (0, 1, 2, 4)),
                        ("textq-sd35-1024", (0, 1, 2, 3, 5))):
@@ -4863,8 +5747,14 @@ def main(argv=None) -> int:
         f"phase {vlm['phase_s']:.1f} s")
     check(vlm_path == launches(), f"vlm launches {fmt(vlm_path)}")
     stray = sorted(m for m in sys.modules
-                   if m.split(".")[0] in ("jax", "jaxlib", "bsc_nav_tpu"))
+                   if m.split(".")[0] in ("jax", "jaxlib", "bsc_nav_tpu",
+                                          "matplotlib", "PIL", "cv2",
+                                          "open3d"))
     check(not stray, f"imported {stray[:5]}")
+    ran = ("demo", "demo_detect", "drivers.farm", "runtime_native",
+           "utils.profiling", "utils.visualize", "models.mmdit")
+    missing = [m for m in ran if f"bsc_nav_tpu_torch.{m}" not in sys.modules]
+    check(not missing, f"this run never imported {missing}")
 
     paths = {"spine": spine, "batch": batch_path, "int8": int8_path,
              "persist": persist_path, "int8-encoder": enc_path,
@@ -4872,7 +5762,10 @@ def main(argv=None) -> int:
              "explore": explore_path, "robot-parity": robot_parity_path,
              "clip": clip_path, "yolo": yolo_path, "gdino": gdino_path,
              **textq_paths,
-             "robot": robot_path, "vlm": vlm_path}
+             "robot": robot_path, "vlm": vlm_path,
+             "profiling": profiling_path, "demo": demo_path,
+             "demo-detect": detect_path, "farm": farm_path,
+             "visualize": vis_path}
 
     def main_case(kernel, dtype="float32", **match):
         match = match or {"B": 8}
@@ -4967,7 +5860,9 @@ def main(argv=None) -> int:
         "gdino": gdino, "gdino_parity": gdino_parity,
         "textq": textq,
         "textq_parity": textq_parity, "robot_parity": robot_parity,
-        "robot": robot, "vlm": vlm}), flush=True)
+        "robot": robot, "vlm": vlm, "profiling": profiling, "native": native,
+        "farm": farm, "demo": demo, "demo_detect": demo_detect,
+        "visualize": visualize}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -31,7 +31,7 @@ from bsc_nav_tpu_torch.ops import conv2d as tconv
 from bsc_nav_tpu_torch.ops import flash_attention as tfa
 from bsc_nav_tpu_torch.ops import layernorm as tln
 from bsc_nav_tpu_torch.ops import similarity as tsim
-from bsc_nav_tpu_torch.profiling import device_kernels
+from bsc_nav_tpu_torch.utils.profiling import device_kernels
 
 
 @pytest.fixture

@@ -253,3 +253,75 @@ def test_weights_without_qk_norm_carry_over(tmp_path):
                               dataclasses.replace(_port_cfg(MMDIT_HD64),
                                                   qk_norm=False),
                               device="cpu")
+
+
+@pytest.fixture(scope="module")
+def pre_only_params():
+    """MMDIT_HD64 (K4's route, a dual block) with a 2-chunk last block."""
+    return _params(MMDIT_HD64, pre_only=True, seed=12)
+
+
+@pytest.mark.parametrize("case", ["k4-dual", "k4-int8"])
+def test_fuse_mods_matches_jax_and_the_per_block_path(case, pre_only_params):
+    """``fuse_mods`` applied on each side to the carried per-block tree (a
+    2-chunk ``context_pre_only`` last block; int8: after
+    ``quantize_params``): the same layout as JAX's, no "mod" or
+    "final_mod" left; the fused forward against JAX's fused forward at the
+    forward tolerances above (f32 2e-4, int8 2e-3), and against the port's
+    per-block forward on the same tree: f32 within 2e-5 (each modulation
+    column is the same D-long sum, in another GEMM's order;
+    tests/test_mmdit.py's bound), int8 within 2e-3 (a modulation an ulp
+    apart can move an activation across a rounding boundary).  f32: the
+    fused CFG sampler against JAX's fused sampler with its noise injected
+    (5e-4, as above) and against the port's per-block sampler (2e-5)."""
+    jcfg = MMDIT_HD64
+    cfg = _port_cfg(jcfg)
+    jp = pre_only_params
+    if case == "k4-int8":
+        jp = JM.quantize_params(jp)
+    tp = mmdit_from_jax_params(numpy_tree(jp), cfg, device="cpu")
+    jf, jlayout = JM.fuse_mods(jp, jcfg)
+    tf, layout = TM.fuse_mods(tp, cfg)
+    assert layout == jlayout and layout[-1][1] == 2
+    assert layout[0] == (9 if 0 in cfg.dual_attention_layers else 6, 6)
+    assert "final_mod" not in tf and all(
+        "mod" not in blk[s] for blk in tf["blocks"] for s in ("x", "ctx"))
+    assert tf["mods"]["w"].shape == (cfg.dim, sum(map(sum, layout))
+                                     * cfg.dim + 2 * cfg.dim)
+    lat, t, ctx, pooled = _inputs(jcfg, 2, 5, seed=13)
+    want = np.asarray(JM.forward(jf, *map(jnp.asarray, (lat, t, ctx, pooled)),
+                                 jcfg, mod_layout=jlayout))
+    args = [torch.from_numpy(a) for a in (lat, t, ctx, pooled)]
+    got = TM.forward(tf, *args, cfg, mod_layout=layout).numpy()
+    per_block = TM.forward(tp, *args, cfg).numpy()
+    assert np.abs(want).max() > 0.5
+    int8 = case == "k4-int8"
+    np.testing.assert_allclose(got, want, atol=2e-3 if int8 else 2e-4,
+                               rtol=0)
+    np.testing.assert_allclose(got, per_block, atol=2e-3 if int8 else 2e-5,
+                               rtol=0 if int8 else 2e-5)
+    if int8:
+        # quantize_params and fuse_mods compose in either order
+        q = TM.fuse_mods(TM.quantize_params(mmdit_from_jax_params(
+            numpy_tree(pre_only_params), cfg, device="cpu")), cfg)[0]
+        np.testing.assert_array_equal(
+            TM.forward(q, *args, cfg, mod_layout=layout).numpy(), got)
+        return
+    _, _, ctx_u, pooled_u = _inputs(jcfg, 1, 5, seed=14)
+    key = jax.random.PRNGKey(15)
+    jsamp = np.asarray(JM.sample(
+        jf, key, jnp.asarray(ctx[:1]), jnp.asarray(pooled[:1]), jcfg,
+        num_steps=2, guidance_scale=2.0, context_uncond=jnp.asarray(ctx_u),
+        pooled_uncond=jnp.asarray(pooled_u), mod_layout=jlayout))
+    noise = torch.from_numpy(np.array(jax.random.normal(
+        key, (1, jcfg.input_size, jcfg.input_size, jcfg.in_channels),
+        jnp.float32)))
+    kw = dict(num_steps=2, guidance_scale=2.0,
+              context_uncond=torch.from_numpy(ctx_u),
+              pooled_uncond=torch.from_numpy(pooled_u), noise=noise)
+    samp = TM.sample(tf, args[2][:1], args[3][:1], cfg, mod_layout=layout,
+                     **kw).numpy()
+    np.testing.assert_allclose(samp, jsamp, atol=5e-4, rtol=0)
+    np.testing.assert_allclose(
+        samp, TM.sample(tp, args[2][:1], args[3][:1], cfg, **kw).numpy(),
+        atol=2e-5, rtol=2e-5)

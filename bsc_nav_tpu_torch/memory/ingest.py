@@ -52,6 +52,15 @@ Differences from the JAX version, by design:
 - ``rgb_sum`` and ``weight`` are summed with ``index_add_``; on CUDA that
   uses atomics, so their float sums vary in the last bits from run to
   run.  Every integer field is deterministic.
+
+A store split over mp ranks along its capacity axis (``ShardedStoreState``,
+``parallel/mesh.shard_store``) takes the same batch on every rank: the
+index side (slot assignment, ``slot_map``, the top-down map, every
+conflict resolution) is computed whole and identically on each, and each
+rank applies only the reads and writes of its own slot rows, at ``slot -
+shard_base``; writes to other ranks' rows (and the garbage row's) are
+dropped.  The surprise policy reads neighbour rows that may sit on another
+rank and is refused on a sharded store (``ShardedSurpriseError``).
 """
 
 from __future__ import annotations
@@ -65,6 +74,12 @@ from bsc_nav_tpu_torch.config import Config
 from bsc_nav_tpu_torch import geometry as G
 from bsc_nav_tpu_torch.memory.store import (
     VoxelStoreState, linear_voxel_id, quantize_rows)
+
+
+class ShardedSurpriseError(NotImplementedError):
+    """``replacement="surprise"`` on a store sharded over mp > 1: the gate
+    reads neighbour voxels' rows, which may sit on another rank (no JAX
+    test runs the surprise policy on a mesh either)."""
 
 _BIG = torch.iinfo(torch.int64).max
 SURPRISE_CHUNK = 512      # points per gather of the exact surprise gate
@@ -163,6 +178,33 @@ def _most_similar(state, slot_g, token, tok_norm, K) -> torch.Tensor:
     return torch.where(kmask, csim, float("-inf")).argmax(dim=-1)
 
 
+def _scatter_rows(t: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+                  keep: torch.Tensor, garbage: int,
+                  lo: Optional[int]) -> None:
+    """t[rows[i]] = vals[i] where ``keep``.  A whole store (``lo`` None)
+    sends the others to row ``garbage``; a shard whose first global row is
+    ``lo`` writes only its own rows, at ``row - lo``, and drops the rest."""
+    if lo is None:
+        t[torch.where(keep, rows, garbage)] = vals
+        return
+    sel = torch.nonzero(keep & (rows >= lo)
+                        & (rows < lo + t.shape[0])).squeeze(1)
+    t[rows[sel] - lo] = vals[sel]
+
+
+def _add_rows(t: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+              lo: Optional[int]) -> None:
+    """t[rows[i]] += vals[i] (``index_add_``); a shard adds only its own
+    rows' terms (the others add zero to its row 0)."""
+    if lo is not None:
+        local = rows - lo
+        mine = (local >= 0) & (local < t.shape[0])
+        rows = torch.where(mine, local, 0)
+        vals = torch.where(mine.view((-1,) + (1,) * (vals.dim() - 1)), vals,
+                           torch.zeros_like(vals))
+    t.index_add_(0, rows, vals)
+
+
 def frame_points(depth: torch.Tensor, pix: torch.Tensor,
                  cam2world: torch.Tensor, cfg: Config):
     """Depth, camera-frame and world points of the pixels ``pix`` [B, P]
@@ -214,7 +256,14 @@ def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
     B, H, W = depth.shape
     Gs, Hc = mem.grid_size, mem.num_height_cells
     V, K, D = mem.voxel_capacity, mem.cache_size, mem.token_dim
-    V1 = state.feat_count.shape[0]        # padded slot rows; garbage slot V
+    V1l = state.feat_count.shape[0]       # this store's slot rows
+    shards = getattr(state, "shard_count", 1)
+    V1 = V1l * shards                     # padded slot rows; garbage slot V
+    # a shard's first global slot (None: a whole store)
+    lo = state.shard_base if shards > 1 else None
+    if surprise and lo is not None:
+        raise ShardedSurpriseError(
+            f"replacement='surprise' on a store sharded over {shards} ranks")
     nh, nw = patch_tokens.shape[1], patch_tokens.shape[2]
     P = points_per_frame(cfg)
     N = B * P
@@ -293,7 +342,7 @@ def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
     state.slot_map[torch.where(fits, lid, GARBAGE_LID)] = torch.where(
         fits, new_slot, -1).to(torch.int32)
     state.slot_map[GARBAGE_LID] = -1
-    state.slot_pos[torch.where(fits, new_slot, V)] = rc.to(torch.int32)
+    _scatter_rows(state.slot_pos, new_slot, rc.to(torch.int32), fits, V, lo)
 
     total = state.num_voxels + n_new_total
     state.dropped_voxels += (total - V).clamp_min(0).to(torch.int32)
@@ -308,8 +357,8 @@ def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
     # 2. RGB fusion: weighted sums (order-free)
     # ======================================================================
     a = torch.where(valid, alpha, 0.0)
-    state.rgb_sum.index_add_(0, slot_g, a[:, None] * rgb_v)
-    state.weight.index_add_(0, slot_g, a)
+    _add_rows(state.rgb_sum, slot_g, a[:, None] * rgb_v, lo)
+    _add_rows(state.weight, slot_g, a, lo)
 
     # ======================================================================
     # 3. top-down cv_map: the (height, order)-max point wins
@@ -351,28 +400,35 @@ def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
     rank_by_point = torch.empty_like(pos_in_sort)
     rank_by_point[idx_sorted] = pos_in_sort - run_start  # rank within voxel
 
-    pos_k = state.feat_count[slot_g] + rank_by_point
+    # a shard reads its own slots' counts; the other points' rows belong to
+    # other shards, whatever is read for them here
+    count_g = (state.feat_count[slot_g] if lo is None else
+               state.feat_count[(slot_g - lo).clamp(0, V1l - 1)])
+    pos_k = count_g + rank_by_point
     write_k = torch.where(pos_k < K, pos_k, repl_idx)
     target = torch.where(cache_valid, slot_g * K + write_k, V1 * K)
     cache_best = torch.full((V1 * K + 1,), -1, dtype=torch.int64,
                             device=dev).scatter_reduce_(0, target, order,
                                                         "amax")
     cache_won = cache_valid & (cache_best[target] == order)
-    wrow = torch.where(cache_won, slot_g * K + write_k, V * K)
+    row = slot_g * K + write_k
+    row_lo = None if lo is None else lo * K
 
     if state.feats.dtype == torch.int8:
         # per-token absmax codes (JAX ingest.py:352-362); the scale cancels
         # in the cosine, so feat_norm holds the int8 row's norm
         stored, tok_norm, scale = quantize_rows(token)
-        state.feat_scale[wrow] = scale
+        _scatter_rows(state.feat_scale, row, scale, cache_won, V * K, row_lo)
     else:
         stored = token.to(state.feats.dtype)
-    state.feats[wrow] = stored
-    state.feat_norm[wrow] = tok_norm
-    state.feat_dist[wrow] = radial_sq
+    for t, vals in ((state.feats, stored), (state.feat_norm, tok_norm),
+                    (state.feat_dist, radial_sq)):
+        _scatter_rows(t, row, vals, cache_won, V * K, row_lo)
 
     inserted = torch.zeros(V1, dtype=torch.int32, device=dev).index_add_(
         0, slot_g, cache_valid.to(torch.int32))
+    if lo is not None:
+        inserted = inserted[lo:lo + V1l]
     state.feat_count.copy_((state.feat_count + inserted).clamp_max(K))
 
     state.inv_init_base_tf.copy_(inv_init)

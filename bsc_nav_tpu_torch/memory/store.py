@@ -64,6 +64,27 @@ class VoxelStoreState:
     initialized: torch.Tensor       # [] bool
 
 
+@dataclasses.dataclass
+class ShardedStoreState(VoxelStoreState):
+    """One rank's shard of a store split over ``shard_count`` ranks along
+    the capacity axis (``parallel/mesh.shard_store``): slot rows
+    [shard_index * Vl, (shard_index + 1) * Vl) of ``feats``, ``feat_norm``,
+    ``feat_scale``, ``feat_dist``, ``feat_count``, ``rgb_sum``, ``weight``,
+    ``slot_pos`` (and ``feat_sum`` / ``feat_obs`` where they are per slot),
+    Vl = V1 / shard_count; the index side (``slot_map``, ``num_voxels``,
+    ``dropped_voxels``, ``cv_map``, ``max_height``, the frame chain) whole
+    and equal on every rank.  ``ingest_frames`` writes only this shard's
+    rows."""
+
+    shard_index: int = 0
+    shard_count: int = 1
+
+    @property
+    def shard_base(self) -> int:
+        """The global slot of this shard's first row."""
+        return self.shard_index * self.feat_count.shape[0]
+
+
 def linear_voxel_id(rc: torch.Tensor, grid_size: int,
                     num_h: int) -> torch.Tensor:
     """(row, col, h-shifted) -> flat id in [0, G*G*H)."""

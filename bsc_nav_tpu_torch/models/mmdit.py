@@ -19,9 +19,11 @@ at 1024^2) -- the composed path splits heads and calls ``attention`` with
 ctx rows first, as the JAX package does, which takes K5 ``mid_attention``
 or K6 ``flash_attention`` by shape.  ``fuse_mods`` stacks every adaLN
 modulation linear into one, which ``forward(mod_layout=)`` and
-``sample(mod_layout=)`` take.  The tensor-parallel branch is queued in
-ROADMAP.md; ``convert_sd3`` stays in the JAX package (the port reads its
-``.npz``).
+``sample(mod_layout=)`` take.  ``forward(tp_mesh=)`` runs a tree sharded by
+``parallel/mesh.shard_mmdit_params`` tensor-parallel: the joint attention
+per rank on its heads (K4 at heads/mp), the dual attention whole on
+``attention`` (K5 at 512^2), as the JAX package's TP branch does.
+``convert_sd3`` stays in the JAX package (the port reads its ``.npz``).
 
 Dtypes: activations stay in the compute dtype of the latents passed to
 ``forward``.  The conditioning vector is cast to it, where the JAX
@@ -41,8 +43,9 @@ import torch.nn.functional as F
 
 from bsc_nav_tpu_torch import resolve_device
 from bsc_nav_tpu_torch.ops.flash_attention import (
-    attention, joint_qkv_attention, self_qkv_dispatch,
-    use_joint_qkv_attention)
+    attention, joint_qkv_attention, joint_qkv_attention_tp,
+    self_qkv_dispatch, use_joint_qkv_attention)
+from bsc_nav_tpu_torch.ops.quant import full_columns
 from bsc_nav_tpu_torch.ops.quant import linear as _linear
 from bsc_nav_tpu_torch.ops.quant import quantize_weight
 
@@ -186,9 +189,15 @@ def _pre_norm(x, eps):
         x.dtype)
 
 
+def _qkv(x, leaf):
+    """The whole fused qkv projection of ``x`` (gathered over mp where the
+    leaf is column-parallel)."""
+    return full_columns(_linear(x, leaf), leaf.get("tp"))
+
+
 def _stream_qkv(x, s, cfg: MMDiTConfig):
     B, S, _ = x.shape
-    qkv = _linear(x, s["qkv"]).reshape(B, S, 3, cfg.heads, cfg.head_dim)
+    qkv = _qkv(x, s["qkv"]).reshape(B, S, 3, cfg.heads, cfg.head_dim)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     if cfg.qk_norm:
         q = _rms_head_norm(q, s["q_norm"])
@@ -196,12 +205,23 @@ def _stream_qkv(x, s, cfg: MMDiTConfig):
     return q, k, v
 
 
-def _joint_block(x, ctx, c, blk, cfg: MMDiTConfig, mods=None):
+def _tp_heads(blk, cfg: MMDiTConfig, tp_mesh) -> bool:
+    """True when the block's joint attention runs per rank: ``tp_mesh``
+    with mp > 1, both streams' qkv head-blocked and column-parallel, and
+    the heads splitting over mp."""
+    if tp_mesh is None or tp_mesh.mp == 1 or cfg.heads % tp_mesh.mp:
+        return False
+    tps = [blk[s]["qkv"].get("tp") for s in ("x", "ctx")]
+    return all(t is not None and t.perm is not None for t in tps)
+
+
+def _joint_block(x, ctx, c, blk, cfg: MMDiTConfig, mods=None, tp_mesh=None):
     """One dual-stream block (``mmdit.py:182-286``): both streams feed one
     attention, then mix back into their own residuals.  ``mods``: the
     block's precomputed {"x": [chunks], "ctx": [chunks]} adaLN modulation
     (``fuse_mods``); when None it is computed here from the per-block
-    "mod" linears."""
+    "mod" linears.  ``tp_mesh``: see ``forward``; a sharded block called
+    otherwise gathers its qkv columns and attends whole."""
     if mods is None:
         mods = {}
         for name in ("x", "ctx"):
@@ -218,12 +238,21 @@ def _joint_block(x, ctx, c, blk, cfg: MMDiTConfig, mods=None):
                    mods["ctx"][1])
 
     Sx, Sc = x.shape[1], ctx.shape[1]
-    if use_joint_qkv_attention(Sx + Sc, cfg.heads, cfg.head_dim,
-                               cfg.qk_norm):
+    if _tp_heads(blk, cfg, tp_mesh):
+        # this rank's heads from its head-blocked [B, S, 3D/mp] chunks; the
+        # row-parallel proj below carries the sum
+        att = joint_qkv_attention_tp(
+            _linear(xn, blk["x"]["qkv"]), _linear(cn, blk["ctx"]["qkv"]),
+            cfg.heads, blk["x"].get("q_norm"), blk["x"].get("k_norm"),
+            blk["ctx"].get("q_norm"), blk["ctx"].get("k_norm"),
+            mesh=tp_mesh)
+        att_x, att_c = att[:, :Sx], att[:, Sx:]
+    elif use_joint_qkv_attention(Sx + Sc, cfg.heads, cfg.head_dim,
+                                 cfg.qk_norm):
         # K4 reads head column blocks straight from the two [B, S, 3D]
         # projections (x rows first) and applies the qk-norm in kernel
         att = joint_qkv_attention(
-            _linear(xn, blk["x"]["qkv"]), _linear(cn, blk["ctx"]["qkv"]),
+            _qkv(xn, blk["x"]["qkv"]), _qkv(cn, blk["ctx"]["qkv"]),
             cfg.heads, blk["x"]["q_norm"], blk["x"]["k_norm"],
             blk["ctx"]["q_norm"], blk["ctx"]["k_norm"], eps=1e-6)
         att_x, att_c = att[:, :Sx], att[:, Sx:]
@@ -241,9 +270,20 @@ def _joint_block(x, ctx, c, blk, cfg: MMDiTConfig, mods=None):
         # MMDiT-X dual attention: a second self-attention over the latent
         # stream, modulated by the extra 3 chunks
         xn2 = _modulate(xpn, mods["x"][6], mods["x"][7])
-        att2 = self_qkv_dispatch(
-            _linear(xn2, blk["x"]["qkv2"]), cfg.heads,
-            blk["x"].get("q_norm2"), blk["x"].get("k_norm2"))
+        if tp_mesh is None:
+            att2 = self_qkv_dispatch(
+                _linear(xn2, blk["x"]["qkv2"]), cfg.heads,
+                blk["x"].get("q_norm2"), blk["x"].get("k_norm2"))
+        else:
+            # under TP qkv2 / proj2 stay whole and the JAX package takes
+            # the split-head path on attention() (K5 at S 1024)
+            s2 = {"qkv": blk["x"]["qkv2"]}
+            if cfg.qk_norm:
+                s2["q_norm"] = blk["x"]["q_norm2"]
+                s2["k_norm"] = blk["x"]["k_norm2"]
+            att2 = attention(*(t.contiguous()
+                               for t in _stream_qkv(xn2, s2, cfg)))
+            att2 = att2.transpose(1, 2).reshape(x.shape[0], Sx, cfg.dim)
         x = x + mods["x"][8][:, None] * _linear(att2, blk["x"]["proj2"])
 
     xm = _modulate(_pre_norm(x, cfg.ln_eps), mods["x"][3], mods["x"][4])
@@ -313,12 +353,15 @@ def fuse_mods(params: Dict[str, Any], cfg: MMDiTConfig) -> tuple:
 @torch.no_grad()
 def forward(params, latents: torch.Tensor, t: torch.Tensor,
             context: torch.Tensor, pooled: torch.Tensor,
-            cfg: MMDiTConfig, mod_layout=None) -> torch.Tensor:
+            cfg: MMDiTConfig, mod_layout=None, tp_mesh=None) -> torch.Tensor:
     """Velocity prediction.  latents [B, H, W, C] (their dtype is the
     compute dtype); t [B] in [0, 1]; context [B, S, context_dim]; pooled
     [B, pooled_dim].  mod_layout: the layout ``fuse_mods`` returned, when
     ``params`` carry its fused "mods" linear (one modulation matmul for the
-    whole step)."""
+    whole step).  tp_mesh: the mesh of a tree sharded by
+    ``parallel/mesh.shard_mmdit_params``: the joint attention runs per
+    rank on heads/mp heads with no collective, the row-parallel proj and
+    fc2 all-reduce over mp (JAX ``mmdit.py:240-286``)."""
     B, H, W, C = latents.shape
     p = cfg.patch_size
     x = _linear(patchify_latent(latents, p), params["patch_embed"])
@@ -341,12 +384,13 @@ def forward(params, latents: torch.Tensor, t: torch.Tensor,
                     "ctx": allm[:, (off + nx) * d:(off + nx + nc) * d
                                 ].split(d, dim=-1)}
             off += nx + nc
-            x, ctx = _joint_block(x, ctx, c, blk, cfg, mods=mods)
+            x, ctx = _joint_block(x, ctx, c, blk, cfg, mods=mods,
+                                  tp_mesh=tp_mesh)
         shift = allm[:, off * d:(off + 1) * d]
         scale = allm[:, (off + 1) * d:(off + 2) * d]
     else:
         for blk in params["blocks"]:
-            x, ctx = _joint_block(x, ctx, c, blk, cfg)
+            x, ctx = _joint_block(x, ctx, c, blk, cfg, tp_mesh=tp_mesh)
         shift, scale = _linear(F.silu(c), params["final_mod"]).chunk(
             2, dim=-1)
     x = _modulate(_pre_norm(x, cfg.ln_eps), shift, scale)

@@ -6,7 +6,9 @@ tanh-GELU (``gelu_exact`` for the erf form), swiglu, and the same
 names -- linear weights are ``w [fan_in, fan_out]`` -- so a module's
 ``state_dict`` keys are exactly the dotted keys ``save_params_npz``
 writes (``blocks.3.qkv.w``).  Attention runs through
-``ops.flash_attention.attention_from_qkv`` (kernel K1 on the card).
+``ops.flash_attention.attention_from_qkv`` (kernel K1 on the card); a
+model sharded by ``parallel/mesh.shard_vit_params`` runs tensor-parallel
+(``forward_features(tp_mesh=)``).
 
 Resizes (``preprocess``, ``interpolate_pos_embed``) reproduce
 ``jax.image.resize``: a separable resampling matrix per axis, built in
@@ -29,8 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from bsc_nav_tpu_torch import resolve_device
-from bsc_nav_tpu_torch.ops.flash_attention import attention_from_qkv
-from bsc_nav_tpu_torch.ops.quant import linear_q8, quantize_weight
+from bsc_nav_tpu_torch.ops.flash_attention import (attention_from_qkv,
+                                                   attention_from_qkv_tp)
+from bsc_nav_tpu_torch.ops.quant import (full_columns, linear_q8,
+                                         quantize_weight)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,11 +178,18 @@ class Linear(nn.Module):
     ``quantized=True`` holds the JAX package's int8 leaves instead --
     ``w_q`` int8 [fan_in, fan_out], ``w_s`` f32 [fan_out], ``b`` -- and
     serves them through ``ops.quant.linear_q8``, as JAX's ``_linear``
-    does (``vit.py:148-151``)."""
+    does (``vit.py:148-151``).
+
+    ``tp``: the leaf's tensor-parallel split (``parallel/mesh.TPSplit``,
+    set by ``shard_vit_params``), None for a whole leaf.  A row-parallel
+    leaf takes the whole input or this rank's columns of it and
+    all-reduces its product; a column-parallel one returns this rank's
+    output columns."""
 
     def __init__(self, fan_in, fan_out, bias=True, dtype=torch.float32,
                  device=None, quantized=False):
         super().__init__()
+        self.tp = None
         if quantized:
             self.w = None
             self.w_q = _param((fan_in, fan_out), torch.int8, device)
@@ -192,6 +203,8 @@ class Linear(nn.Module):
         if self.w_q is not None:
             return linear_q8(x, {"w_q": self.w_q, "w_s": self.w_s,
                                  "b": self.b})
+        if self.tp is not None and self.tp.kind == "row":
+            return self.tp.row_linear(x, self.w, self.b)
         ct = torch.promote_types(x.dtype, self.w.dtype)
         x2 = x.reshape(-1, x.shape[-1]).to(ct)
         w = self.w.to(ct)
@@ -236,21 +249,32 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, x):
+    def forward(self, x, tp_mesh=None):
+        """One block (JAX ``vit.py:190-225``).  With ``tp_mesh`` and a
+        head-blocked column-parallel qkv whose heads split over mp, the
+        rank's heads attend with no collective; a column-parallel qkv
+        otherwise is all-gathered and the whole attention runs (GSPMD's
+        path).  The row-parallel proj and fc2 take either form."""
         cfg = self.cfg
-        att = attention_from_qkv(self.qkv(self.ln1(x)), heads=cfg.heads)
+        qkv = self.qkv(self.ln1(x))
+        tp = self.qkv.tp
+        if (tp_mesh is not None and tp_mesh.mp > 1 and tp is not None
+                and tp.perm is not None and cfg.heads % tp_mesh.mp == 0):
+            att = attention_from_qkv_tp(qkv, heads=cfg.heads, mesh=tp_mesh)
+        else:
+            att = attention_from_qkv(full_columns(qkv, tp), heads=cfg.heads)
         att = self.proj(att)
         if self.ls1 is not None:
             att = att * self.ls1.to(att.dtype)
         x = x + att
 
-        y = self.ln2(x)
+        h = self.fc1(self.ln2(x))
         if cfg.ffn == "swiglu":
-            a, b = self.fc1(y).chunk(2, dim=-1)
+            # a rank's fc1 columns do not pair swiglu's (a, b) halves
+            a, b = full_columns(h, self.fc1.tp).chunk(2, dim=-1)
             y = self.fc2(F.silu(a) * b)
         else:
-            y = self.fc2(F.gelu(self.fc1(y),
-                                approximate="none" if cfg.gelu_exact
+            y = self.fc2(F.gelu(h, approximate="none" if cfg.gelu_exact
                                 else "tanh"))
         if self.ls2 is not None:
             y = y * self.ls2.to(y.dtype)
@@ -281,11 +305,13 @@ class ViT(nn.Module):
             Block(cfg, dtype, dev, quantized) for _ in range(cfg.depth))
 
     @torch.no_grad()
-    def forward_features(self, images: torch.Tensor
+    def forward_features(self, images: torch.Tensor, tp_mesh=None
                          ) -> Dict[str, torch.Tensor]:
         """images: [B, H, W, 3] normalized float (its dtype is the compute
         dtype).  Returns x_norm_clstoken, x_norm_regtokens and
-        x_norm_patchtokens."""
+        x_norm_patchtokens.  ``tp_mesh``: the mesh of a model sharded by
+        ``parallel/mesh.shard_vit_params(..., tp_qkv_layout=True)``, whose
+        blocks then attend per rank (JAX ``vit.py:228-263``)."""
         cfg = self.cfg
         B, H, W, _ = images.shape
         grid_hw = (H // cfg.patch_size, W // cfg.patch_size)
@@ -301,7 +327,7 @@ class ViT(nn.Module):
             x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
 
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, tp_mesh=tp_mesh)
 
         x = self.norm(x)
         return {

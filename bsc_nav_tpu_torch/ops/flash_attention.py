@@ -32,6 +32,11 @@ by dtype:
   accuracy: they are held to their plain versions by 2e-5 abs (K4 after
   its f32 pre-pass).
 
+Tensor parallelism (``parallel/mesh``): ``qkv_tp_permutation`` puts a
+fused qkv projection's columns in the head-blocked layout, and
+``attention_from_qkv_tp`` / ``joint_qkv_attention_tp`` run one rank's
+heads (K1 / K4 at heads/mp) with no collective.
+
 Layouts follow the JAX package: ``attention``, ``short_attention``,
 ``mid_attention``, ``flash_attention`` and ``reference_attention`` take
 [B, H, S, Dh]; the fused-QKV functions take [B, S, 3*D] (q | k | v column
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from bsc_nav_tpu_torch.ops import _build
@@ -404,6 +410,43 @@ def attention_from_qkv(qkv, heads: int, causal: bool = False):
 
 
 # --------------------------------------------------------------------------
+# tensor-parallel attention (one rank of an mp group)
+#
+# A column-parallel qkv projection gives each of mp ranks 3*D/mp output
+# columns.  In the [q | k | v] layout a rank's chunk is not head-aligned,
+# so the weight's columns are permuted into the head-blocked layout
+# [q_0 k_0 v_0 | q_1 k_1 v_1 | ...] (``qkv_tp_permutation``); rank s's
+# chunk then holds whole heads and attention runs on it with no
+# collective.  The row-parallel projection after it carries the sum.
+# --------------------------------------------------------------------------
+
+def qkv_tp_permutation(dim: int, mp: int) -> np.ndarray:
+    """Column permutation [3*dim] turning the fused [q | k | v] qkv layout
+    into the per-shard head-blocked layout (``flash_attention.py:277-291``):
+    chunk s of the permuted columns is [q_s | k_s | v_s]."""
+    if dim % mp:
+        raise ValueError(f"qkv_tp_permutation: dim {dim} does not split "
+                         f"over mp {mp}")
+    blk = dim // mp
+    return np.asarray([g * dim + s * blk + i for s in range(mp)
+                       for g in range(3) for i in range(blk)], np.int64)
+
+
+def attention_from_qkv_tp(qkv, heads: int, mesh, axis: str = "mp",
+                          causal: bool = False):
+    """Tensor-parallel ``attention_from_qkv`` on this rank's chunk of a
+    head-blocked qkv (``flash_attention.py:294-318``): qkv [B, S, 3*D/mp]
+    -> [B, S, D/mp], the rank's heads in global head order.  No
+    collective.  ``heads`` is the whole model's count (K1 at heads/mp on
+    the card)."""
+    mp = mesh.shape[axis]
+    if heads % mp:
+        raise ValueError(f"attention_from_qkv_tp: {heads} heads do not "
+                         f"split over {axis} {mp}")
+    return attention_from_qkv(qkv, heads // mp, causal=causal)
+
+
+# --------------------------------------------------------------------------
 # K4: MMDiT joint attention from the two streams' fused qkv
 # --------------------------------------------------------------------------
 
@@ -712,3 +755,19 @@ def self_qkv_dispatch(qkv, heads: int, q_gamma, k_gamma, eps: float = 1e-6):
     branch, ``flash_attention.py:644-654``)."""
     return joint_qkv_dispatch(qkv, qkv[:, :0], heads, q_gamma, k_gamma,
                               q_gamma, k_gamma, eps=eps)
+
+
+def joint_qkv_attention_tp(qkv_x, qkv_c, heads: int, q_gamma_x, k_gamma_x,
+                           q_gamma_c, k_gamma_c, mesh, axis: str = "mp",
+                           eps: float = 1e-6):
+    """Tensor-parallel MMDiT joint attention on this rank's chunks of the
+    two streams' head-blocked qkv (``flash_attention.py:657-700``): [B, Sx,
+    3*D/mp] and [B, Sc, 3*D/mp] -> [B, Sx+Sc, D/mp].  ``joint_qkv_dispatch``
+    on heads/mp heads with the replicated gammas (None: no qk-norm, the
+    composed path); K4 on the card.  No collective."""
+    mp = mesh.shape[axis]
+    if heads % mp:
+        raise ValueError(f"joint_qkv_attention_tp: {heads} heads do not "
+                         f"split over {axis} {mp}")
+    return joint_qkv_dispatch(qkv_x, qkv_c, heads // mp, q_gamma_x,
+                              k_gamma_x, q_gamma_c, k_gamma_c, eps=eps)

@@ -109,15 +109,29 @@ def linear(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
     A plain leaf computes in the promoted dtype of ``x`` and ``w``, as
     ``vit.Linear`` does: cuBLAS accumulates a bf16 product in f32 and adds
     the bias in that accumulator (addmm) before the one rounding to
-    ``x.dtype`` that ``vit._linear``'s f32 einsum and cast make."""
+    ``x.dtype`` that ``vit._linear``'s f32 einsum and cast make.  A leaf
+    with a ``"tp"`` split (``parallel/mesh.shard_mmdit_params``) is this
+    rank's shard: row-parallel leaves all-reduce their product
+    (``TPSplit.row_linear``), column-parallel ones return this rank's
+    columns."""
     if "w_q" in p:
         return linear_q8(x, p)
+    tp = p.get("tp")
+    if tp is not None and tp.kind == "row":
+        return tp.row_linear(x, p["w"], p.get("b"))
     ct = torch.promote_types(x.dtype, p["w"].dtype)
     x2 = x.reshape(-1, x.shape[-1]).to(ct)
     w = p["w"].to(ct)
     b = p.get("b")
     y = torch.addmm(b.to(ct), x2, w) if b is not None else x2 @ w
     return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+
+def full_columns(y: torch.Tensor, tp) -> torch.Tensor:
+    """The whole output of a linear leaf whose tensor-parallel split is
+    ``tp`` (``parallel/mesh.TPSplit``): all-gathered over mp when it is
+    column-parallel, ``y`` as it is otherwise."""
+    return tp.gather(y) if tp is not None and tp.kind == "col" else y
 
 
 def quantize_conv_weight(p: Mapping[str, torch.Tensor]) -> dict:

@@ -105,8 +105,8 @@ non-zero):
                 D2H and the stream back (GB/s, pinned and pageable), a
                 query on the spilled segment, its scan against the plain
                 version on the host rows
-  explore       exploring_create_memory (random_move_num 3) and
-                explore_entire_space (max_iterations 2) on FakeNavEnv at
+  explore       exploring_create_memory (random_move_num 2) and
+                explore_entire_space (max_iterations 1) on FakeNavEnv at
                 Config(): steps, flushes, s
   robot-parity  the drivers' fake world (drivers/setup.build_world: 64x64
                 frames, a tiny ViT) on the CPU and on the card in one
@@ -271,6 +271,29 @@ non-zero):
                 (and the shapes torch._int_mm refuses unpadded, counted),
                 (d) a tiny f32 judge on the card against the CPU (equal
                 tokens, or a parting under VLM_MARGIN); no K1-K8 launch
+
+  parallel      last, bsc_nav_tpu_torch.parallel on the one card, each
+                rank a fresh process of this script (--parallel-rank),
+                started after the earlier phases are freed.  2 ranks on
+                cuda:0 over gloo (NCCL takes one rank a card; gloo stages
+                CUDA tensors through the host, so these times are no
+                forecast of NCCL): (a) ViT-L/14-reg f32 at B 8, the
+                head-blocked TP forward at mp 2 (K1 at 8 heads) against the
+                whole one; (b) the build step into a full Config() store at
+                dp 2 x mp 1 and at dp 1 x mp 2 (the store split over mp,
+                2.68 GB a rank) against the whole build: voxels, slot_pos,
+                feat_count and slot_map equal, feats within PAR_F32_TOL; (c)
+                sharded_localize on the split store's f32, bf16 and int8
+                rows (K2, K2, K2b at Q 1 per slab) against the whole scan
+                with JAX's sharded semantics, positions equal past the
+                bound; (d) SD3.5-medium 512^2 bf16 at B 6, the TP forward
+                at mp 2 (K4 at 12 heads, K5 in the whole dual attention)
+                within PAR_MMDIT_TOL of max |v|; then dryrun_all(2) over
+                gloo.  1 rank over NCCL, a 1 x 1 mesh: (b) and (c).  One
+                line a check: max_abs_err against its tolerance, the times,
+                the card's name and power limit; each rank's launch counts
+                (the references' uncounted), summed into the "parallel"
+                path
 
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  The last two lines are a JSON object of the kernels'
@@ -3828,18 +3851,24 @@ def phase_segments(dev, cfg, vcfg, world, params, spine_pos, seed):
     return out, path
 
 
+# the exploration flows' depth: host rendering is nearly all of their
+# time, so they are cut (from random_move_num 3 and max_iterations 2) to
+# keep the whole smoke inside its time limit
+EXPLORE_MOVES, EXPLORE_ITERATIONS = 2, 1
+
+
 def phase_explore(dev, cfg, vcfg, params, seed):
-    """exploring_create_memory (random_move_num 3) then
-    explore_entire_space (max_iterations 2) on FakeNavEnv at the default
-    Config(): steps, flushes, s; the store grows, the frames the flows
-    push are flushed, no count past K."""
+    """exploring_create_memory (random_move_num EXPLORE_MOVES) then
+    explore_entire_space (max_iterations EXPLORE_ITERATIONS) on FakeNavEnv
+    at the default Config(): steps, flushes, s; the store grows, the
+    frames the flows push are flushed, no count past K."""
     from bsc_nav_tpu_torch.agents.spatial_memory import (
         Perception, VoxelTokenMemory)
     from bsc_nav_tpu_torch.env.fake import BoxScene, FakeNavEnv
     from bsc_nav_tpu_torch.env.pathfinding import AgentState, Quat
 
-    ecfg = cfg.replace(agent=dataclasses.replace(cfg.agent,
-                                                 random_move_num=3))
+    ecfg = cfg.replace(agent=dataclasses.replace(
+        cfg.agent, random_move_num=EXPLORE_MOVES))
     env = FakeNavEnv(ecfg, scene=BoxScene.default(), seed=seed)
     env.reset(init_state=AgentState(np.zeros(3), Quat.from_yaw(0.0)),
               build_map=True)
@@ -3851,8 +3880,8 @@ def phase_explore(dev, cfg, vcfg, params, seed):
     for flow, run in (("exploring_create_memory",
                        lambda: mem.exploring_create_memory(save=False)),
                       ("explore_entire_space",
-                       lambda: mem.explore_entire_space(max_iterations=2,
-                                                        save=False))):
+                       lambda: mem.explore_entire_space(
+                           max_iterations=EXPLORE_ITERATIONS, save=False))):
         steps0, flushes0, before = mem.step_count, len(stats), counts()
         t0 = time.perf_counter()
         run()
@@ -5493,6 +5522,347 @@ def phase_fuse_mods(dev, w, seed) -> dict:
     return out
 
 
+# the parallel phase: ranks of bsc_nav_tpu_torch.parallel on one card
+PAR_F32_TOL = 2e-4       # (a), (b): JAX's TP forward / build-step feats bound
+PAR_SCORE_RTOL = 1e-5    # (c) f32 and bf16 rows: JAX's sharded scores
+PAR_INT8_TOL = (1e-2, 1e-3)   # (c) int8 rows (rtol, atol): JAX's
+PAR_MMDIT_TOL = 2.0 ** -5     # (d) bf16, of max |v|: see par_mmdit
+PAR_FRAMES = BATCH       # (a), (b): the spine's flush
+PAR_TOP_K = 100
+
+
+def par_check(out: dict, name: str, err: float, tol: float, **extra):
+    """Record one check of a rank and raise if it failed."""
+    out[name] = {"max_abs_err": err, "tol": tol, **extra}
+    check(err <= tol, f"parallel {name}: max_abs_err {err} > {tol} "
+          f"({extra})")
+
+
+def par_vit(dev, seed, cfg, vcfg, mesh, rgb, out):
+    """(a) ViT-L/14-reg f32 at B 8: the head-blocked TP forward at mp 2
+    (K1 at 8 heads a rank) against the rank's own whole forward."""
+    from bsc_nav_tpu_torch.memory.pipeline import encode_patch_grid
+    from bsc_nav_tpu_torch.models import vit
+    from bsc_nav_tpu_torch.parallel import mesh as PM
+
+    model = vit.init_params(vcfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    sharded = PM.shard_vit_params(model, mesh, tp_qkv_layout=True)
+    with uncounted():
+        ref = encode_patch_grid(model, rgb, vcfg, cfg)
+        whole_ms = cuda_ms(lambda: encode_patch_grid(model, rgb, vcfg, cfg),
+                           reps=3, warmup=1)
+        tp_ms = cuda_ms(lambda: encode_patch_grid(
+            sharded, rgb, vcfg, cfg, tp_mesh=mesh), reps=3, warmup=1)
+    before = counts()
+    got = encode_patch_grid(sharded, rgb, vcfg, cfg, tp_mesh=mesh)
+    one = since(before)
+    check(one == launches(K1=vcfg.depth), f"parallel (a) launches {fmt(one)}")
+    par_check(out, "a vit-l tp", float((got - ref).abs().max()), PAR_F32_TOL,
+              tp_ms=tp_ms, whole_ms=whole_ms, launches=fmt(one),
+              max_abs=float(ref.abs().max()))
+    return model, sharded, ref
+
+
+def par_build(dev, seed, cfg, vcfg, model, sharded, meshes, frames, out):
+    """(b) the spine's build step into a full Config() store: at dp 2 x mp 1
+    (each rank encodes 4 frames) and at dp 1 x mp 2 (the TP encoder, the
+    store split over mp), against the rank's own whole build."""
+    from bsc_nav_tpu_torch.memory.pipeline import make_build_step
+    from bsc_nav_tpu_torch.memory.store import init_store
+    from bsc_nav_tpu_torch.parallel import mesh as PM
+
+    K = cfg.memory.cache_size
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(seed + 1)
+
+    with uncounted():
+        (whole, _), _ = make_build_step(cfg, vcfg)(
+            (init_store(cfg.memory, device=dev), gen()), model, *frames)
+    n = int(whole.num_voxels)
+    for i, (tag, mesh) in enumerate(meshes.items()):
+        state = PM.shard_store(init_store(cfg.memory, device=dev), mesh)
+        params = sharded if mesh.mp > 1 else model
+        local = [PM.frames_shard(mesh, f) for f in frames]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, _), _ = make_build_step(cfg, vcfg, mesh=mesh)(
+            (state, gen()), params, *local)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        # this rank's slot rows [lo, hi) of the whole store, the garbage
+        # slot V (written only by the whole store) left out
+        lo = getattr(state, "shard_base", 0)
+        rows = state.feat_count.shape[0]
+        hi = min(lo + rows, cfg.memory.voxel_capacity)
+        check(int(state.num_voxels) == n, f"parallel (b) {tag}: voxels "
+              f"{int(state.num_voxels)} != {n}")
+        same = (torch.equal(state.slot_pos[:hi - lo], whole.slot_pos[lo:hi])
+                and torch.equal(state.feat_count[:hi - lo],
+                                whole.feat_count[lo:hi])
+                and torch.equal(state.slot_map, whole.slot_map))
+        check(same, f"parallel (b) {tag}: slot_pos / feat_count / slot_map "
+              "differ from the whole build's")
+        err = float((state.feats[:(hi - lo) * K]
+                     - whole.feats[lo * K:hi * K]).abs().max())
+        par_check(out, f"b build {tag}", err, PAR_F32_TOL, ms=ms, voxels=n,
+                  slab_rows=rows, slab_gb=state.feats.numel() * 4 / 1e9)
+        if i < len(meshes) - 1:
+            del state
+    return whole, state
+
+
+def par_localize(dev, whole, slab, mesh, query, out):
+    """(c) sharded_localize on the mp-split store's f32, bf16 and int8 rows
+    (K2, K2 and K2b at Q 1 on each rank's slab) against the rank's whole
+    scan with JAX's sharded semantics (a bf16 store's query rounded to
+    bf16: the sharded function on a one-shard mesh over the whole store);
+    positions equal wherever the neighbouring scores differ by more than
+    the tolerance."""
+    from bsc_nav_tpu_torch.memory.store import quantize_store
+    from bsc_nav_tpu_torch.parallel.mesh import Mesh
+    from bsc_nav_tpu_torch.parallel.sharded_query import (
+        make_sharded_localize, sharded_localize)
+
+    scan = make_sharded_localize(Mesh(1, 1), PAR_TOP_K)
+    for name in ("float32", "bfloat16", "int8"):
+        if name == "float32":
+            w, s = whole, slab
+        elif name == "bfloat16":
+            w = dataclasses.replace(whole, feats=whole.feats.to(torch.bfloat16))
+            s = dataclasses.replace(slab, feats=slab.feats.to(torch.bfloat16))
+        else:
+            w, s = quantize_store(whole), quantize_store(slab)
+
+        def whole_scan():
+            return scan(w.feats, w.feat_norm, w.feat_count, w.slot_pos,
+                        w.num_voxels, query)
+        with uncounted():
+            p_ref, s_ref = whole_scan()
+            whole_ms = cuda_ms(whole_scan, reps=5, warmup=1)
+            sh_ms = cuda_ms(lambda: sharded_localize(s, query, mesh, PAR_TOP_K),
+                            reps=5, warmup=1)
+        before = counts()
+        pos, sc = sharded_localize(s, query, mesh, top_k=PAR_TOP_K)
+        one = since(before)
+        want = (launches(K2b=1) if name == "int8" else launches(K2=1))
+        check(one == want, f"parallel (c) {name} launches {fmt(one)}")
+        live = torch.isfinite(s_ref)
+        check(torch.equal(live, torch.isfinite(sc)),
+              f"parallel (c) {name}: -inf padding differs")
+        rtol, atol = (PAR_INT8_TOL if name == "int8"
+                      else (PAR_SCORE_RTOL, 0.0))
+        bound = atol + rtol * s_ref[live].abs()
+        err = float((sc[live] - s_ref[live]).abs().max())
+        check(bool(((sc[live] - s_ref[live]).abs() <= bound).all()),
+              f"parallel (c) {name}: scores beyond rtol {rtol}, atol {atol}")
+        gap = torch.full_like(s_ref, float("inf"))
+        d = (s_ref[1:] - s_ref[:-1]).abs()
+        gap[1:] = torch.minimum(gap[1:], d)
+        gap[:-1] = torch.minimum(gap[:-1], d)
+        sure = live & (gap > 2 * (atol + rtol * s_ref.abs()))
+        # scores equal to the bit: the merge keeps lax.top_k's tie order
+        # (the lower slot first), so every position must match
+        if torch.equal(sc, s_ref):
+            sure = torch.ones_like(sure)
+        check(torch.equal(pos[sure], p_ref[sure]),
+              f"parallel (c) {name}: positions differ past the bound")
+        par_check(out, f"c localize {name}", err, float(bound.max()),
+                  sharded_ms=sh_ms, whole_ms=whole_ms,
+                  positions_checked=int(sure.sum()), launches=fmt(one))
+        del w, s
+
+
+def par_mmdit(dev, seed, mesh, out):
+    """(d) SD3.5-medium 512^2 bf16 at B 6: the TP forward at mp 2 (K4 at 12
+    heads a rank; the dual attention whole on attention(), K5 at S 1024)
+    against the whole forward.  Bound PAR_MMDIT_TOL of max |v|: bf16
+    activations through 24 blocks, where TP rounds each rank's partial
+    product to bf16 before the f32 sum (one more bf16 rounding, 2^-9, in
+    each row-parallel product) and K4 / K5 run other tiles than the whole
+    forward's K4."""
+    from bsc_nav_tpu_torch.models import mmdit as MM
+    from bsc_nav_tpu_torch.parallel import mesh as PM
+
+    cfg = MM.SD35_MEDIUM
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    bf = torch.bfloat16
+    params = MM.init_params(cfg, gen, dtype=bf, device=dev)
+    fill_zero_mods(params, gen)
+    B, n = 6, cfg.input_size
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+    args = (randn(B, n, n, cfg.in_channels),
+            torch.linspace(1.0, 0.1, B, device=dev),
+            randn(B, 77 + 512, cfg.context_dim), randn(B, cfg.pooled_dim))
+    sp = PM.shard_mmdit_params(params, mesh)
+    with uncounted():
+        ref = MM.forward(params, *args, cfg).float()
+        whole_ms = cuda_ms(lambda: MM.forward(params, *args, cfg), reps=3,
+                           warmup=1)
+        tp_ms = cuda_ms(lambda: MM.forward(sp, *args, cfg, tp_mesh=mesh),
+                        reps=3, warmup=1)
+    before = counts()
+    got = MM.forward(sp, *args, cfg, tp_mesh=mesh).float()
+    one = since(before)
+    dual = len(cfg.dual_attention_layers)
+    check(one == launches(K4=cfg.depth, K5=dual),
+          f"parallel (d) launches {fmt(one)}")
+    vmax = float(ref.abs().max())
+    check(vmax > 0.1, f"parallel (d): max |v| {vmax}")
+    err = float((got - ref).abs().max())
+    par_check(out, "d sd35 tp", err, PAR_MMDIT_TOL * vmax, max_abs=vmax,
+              rel=err / vmax, tp_ms=tp_ms, whole_ms=whole_ms,
+              launches=fmt(one))
+
+
+def parallel_rank(spec: str, workdir: str, seed: int) -> int:
+    """One rank of the parallel phase (``--parallel-rank``): "gloo2" runs
+    (a)-(d) and dryrun_all(2) as rank RANK of 2 on one card over gloo,
+    "nccl1" runs (b) and (c) as the one rank of a 1 x 1 mesh over NCCL.
+    Writes WORKDIR/rank{RANK}.json: each check, the launch counts of the
+    rank's path (the references' launches uncounted), the modules it
+    imported that the port must not."""
+    from bsc_nav_tpu_torch.config import Config
+    from bsc_nav_tpu_torch.memory.query import gaussian_center_pool
+    from bsc_nav_tpu_torch.models.vit import CONFIGS
+    from bsc_nav_tpu_torch.ops import _build
+    from bsc_nav_tpu_torch.parallel import mesh as PM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.kernels()                  # built by the parent, loaded here
+    rank = int(os.environ["RANK"])
+    backend = "gloo" if spec == "gloo2" else "nccl"
+    t0 = time.perf_counter()
+    world = {"gloo2": (1, 2), "nccl1": (1, 1)}[spec]
+    mesh_mp = PM.make_mesh(*world, device="cuda", backend=backend)
+    dev = mesh_mp.device
+    mesh_dp = PM.make_mesh(world[1], world[0], device="cuda",
+                           backend=backend)
+    out = {"init_s": time.perf_counter() - t0}
+    cfg = Config()
+    vcfg = CONFIGS[cfg.models.encoder]
+    z = np.load(os.path.join(workdir, "..", "frames.npz"))
+    frames = [torch.from_numpy(z[k]).to(dev) for k in ("rgb", "depth",
+                                                       "poses")]
+    reset_counts()
+    if spec == "gloo2":
+        model, sharded, ref = par_vit(dev, seed, cfg, vcfg, mesh_mp,
+                                      frames[0], out)
+    else:
+        from bsc_nav_tpu_torch.models import vit
+        model = sharded = vit.init_params(vcfg, torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+        with uncounted():
+            from bsc_nav_tpu_torch.memory.pipeline import encode_patch_grid
+            ref = encode_patch_grid(model, frames[0], vcfg, cfg)
+    query = gaussian_center_pool(ref[:3].reshape(3, -1, ref.shape[-1]))
+    meshes = ({"dp 2 x mp 1": mesh_dp, "dp 1 x mp 2": mesh_mp}
+              if spec == "gloo2" else {"1 x 1 nccl": mesh_mp})
+    whole, slab = par_build(dev, seed, cfg, vcfg, model, sharded, meshes,
+                            frames, out)
+    par_localize(dev, whole, slab, mesh_mp, query, out)
+    del whole, slab, model, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec == "gloo2":
+        par_mmdit(dev, seed, mesh_mp, out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        from bsc_nav_tpu_torch.parallel.dryrun import dryrun_all
+        t1 = time.perf_counter()
+        out["dryrun"] = {"lines": dryrun_all(2, device="cuda",
+                                             backend="gloo"),
+                         "s": time.perf_counter() - t1}
+    out["launches"] = counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["stray"] = sorted(m for m in sys.modules
+                          if m.split(".")[0] in ("jax", "jaxlib",
+                                                 "bsc_nav_tpu"))
+    out["rank_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_parallel(dev, world, seed, smi) -> tuple:
+    """The parallel phase: bsc_nav_tpu_torch.parallel on the one card.
+    Two ranks over gloo on cuda:0 (NCCL takes one rank a card), then one
+    rank over NCCL (a 1 x 1 mesh), each a fresh process of this script
+    (``--parallel-rank``), started after the earlier phases' memory is
+    freed; the kernels are already built.  Returns (result, the ranks'
+    launch counts summed)."""
+    from bsc_nav_tpu_torch.parallel.launch import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    _, frames, _ = world
+    t0 = time.perf_counter()
+    result, path = {}, launches()
+    with build_tmp() as tmp:
+        np.savez(os.path.join(tmp, "frames.npz"),
+                 rgb=np.stack([o["rgb"][..., :3]
+                               for o, _ in frames[:PAR_FRAMES]]),
+                 depth=np.stack([np.asarray(o["depth"], np.float32)
+                                 for o, _ in frames[:PAR_FRAMES]]),
+                 poses=np.stack([np.asarray(p, np.float32)
+                                 for _, p in frames[:PAR_FRAMES]]))
+        for spec, n in (("gloo2", 2), ("nccl1", 1)):
+            wd = os.path.join(tmp, spec)
+            t1 = time.perf_counter()
+            spawn(lambda r: [sys.executable, os.path.abspath(__file__),
+                             "--parallel-rank", spec, "--parallel-dir", wd,
+                             "--seed", str(seed)], n, wd, timeout_s=400,
+                  cwd=repo)
+            ranks = []
+            for r in range(n):
+                with open(os.path.join(wd, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            for r in ranks:
+                check(not r["stray"], f"parallel {spec}: a rank imported "
+                      f"{r['stray'][:5]}")
+                path = add(path, tuple(r["launches"]))
+            result[spec] = {"ranks": ranks,
+                            "s": time.perf_counter() - t1}
+    wall = time.perf_counter() - t0
+    # K1 (a), K2 (c), K4 (d), K5 (d's dual attention), K2b (c, int8),
+    # K8 (the dry run's YOLO leg); K3 (the dry run's tiny towers) may run;
+    # K6 and K7 lie on no path here
+    check(all(path[i] > 0 for i in (0, 1, 3, 4, 7, 8))
+          and not any(path[i] for i in (5, 6)),
+          f"parallel launches {fmt(path)}")
+    for spec, res in result.items():
+        how = ("2 ranks on cuda:0 over gloo: CUDA tensors staged through "
+               "the host, no forecast of NCCL" if spec == "gloo2"
+               else "1 rank, a 1 x 1 mesh over NCCL")
+        for name, c in res["ranks"][0].items():
+            if not isinstance(c, dict) or "tol" not in c:
+                continue
+            errs = [r[name]["max_abs_err"] for r in res["ranks"]]
+            extra = {k: (round(v, 3) if isinstance(v, float) else v)
+                     for k, v in c.items()
+                     if k not in ("max_abs_err", "tol")}
+            log("parallel", f"{spec} {name}: max_abs_err {max(errs):.3g} "
+                f"(ranks {[f'{e:.3g}' for e in errs]}) <= {c['tol']:.3g}; "
+                f"{extra}; {how}; {smi}")
+        if spec == "gloo2":
+            for line in res["ranks"][0]["dryrun"]["lines"]:
+                log("parallel", f"dryrun_all(2) over gloo on the card: "
+                    f"{line} ({res['ranks'][0]['dryrun']['s']:.1f} s)")
+        log("parallel", f"{spec}: {res['s']:.1f} s (process group and "
+            f"meshes {[round(r['init_s'], 1) for r in res['ranks']]} s, peak "
+            f"{[round(r['peak_gb'], 2) for r in res['ranks']]} GB a rank)")
+    log("parallel", f"launches of the ranks' paths: {fmt(path)}; phase "
+        f"{wall:.1f} s")
+    result["phase_s"] = wall
+    return result, path
+
+
 def kernel_cases_only(names, seed) -> int:
     """``--kernels``: the named kernels' cases alone, on the card."""
     from bsc_nav_tpu_torch.ops import _build
@@ -5529,11 +5899,16 @@ def main(argv=None) -> int:
                     "Q-query scan): build, check, time, "
                     "print their cases as JSON, and stop -- a measurement "
                     "run, not the smoke")
+    ap.add_argument("--parallel-rank", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False -- this "
               "script runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.parallel_rank:
+        return parallel_rank(args.parallel_rank, args.parallel_dir,
+                             args.seed)
     if args.kernels:
         return kernel_cases_only(args.kernels.split(","), args.seed)
     from bsc_nav_tpu_torch.config import Config
@@ -5746,6 +6121,7 @@ def main(argv=None) -> int:
         f"kernel of K1-K8, as the JAX judge reaches no pallas_call); "
         f"phase {vlm['phase_s']:.1f} s")
     check(vlm_path == launches(), f"vlm launches {fmt(vlm_path)}")
+    parallel, parallel_path = phase_parallel(dev, world, args.seed, smi)
     stray = sorted(m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "bsc_nav_tpu",
                                           "matplotlib", "PIL", "cv2",
@@ -5765,7 +6141,7 @@ def main(argv=None) -> int:
              "robot": robot_path, "vlm": vlm_path,
              "profiling": profiling_path, "demo": demo_path,
              "demo-detect": detect_path, "farm": farm_path,
-             "visualize": vis_path}
+             "visualize": vis_path, "parallel": parallel_path}
 
     def main_case(kernel, dtype="float32", **match):
         match = match or {"B": 8}
@@ -5862,7 +6238,7 @@ def main(argv=None) -> int:
         "textq_parity": textq_parity, "robot_parity": robot_parity,
         "robot": robot, "vlm": vlm, "profiling": profiling, "native": native,
         "farm": farm, "demo": demo, "demo_detect": demo_detect,
-        "visualize": visualize}), flush=True)
+        "visualize": visualize, "parallel": parallel}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

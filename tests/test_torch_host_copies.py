@@ -78,17 +78,33 @@ def test_port_imports_without_sklearn_or_h5py(tmp_path):
     PNG images), the demo's localize mode (its PNG renders) and the
     detection demo's colour path, and the local judge loads from a
     directory (its own BPE and PNG reader) and answers a chat with a PNG
-    view."""
+    view.  The parallel package imports so too, and the two ranks of a
+    dry run (``dryrun_all(2)`` on the CPU), each with the same modules
+    blocked, run and import none of them."""
     import torch_parity as TP
     judge = tmp_path / "judge"
     judge.mkdir()
     TP.write_tiny_judge(str(judge))
-    code = (
+    block = (
         "import sys\n"
         "for m in ('sklearn', 'h5py', 'PIL', 'pandas', 'imageio', "
         "'networkx', 'transformers', 'tokenizers', 'regex', 'matplotlib', "
         "'cv2', 'open3d', 'jax', 'bsc_nav_tpu', 'habitat_sim', 'magnum'):\n"
-        "    sys.modules[m] = None\n"
+        "    sys.modules[m] = None\n")
+    bad = (
+        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None\n"
+        "             and k.split('.')[0] in ('jax', 'bsc_nav_tpu', 'PIL',\n"
+        "                                     'transformers', 'tokenizers',\n"
+        "                                     'regex', 'habitat_sim',\n"
+        "                                     'matplotlib', 'cv2', 'open3d',\n"
+        "                                     'imageio'))\n"
+        "assert not bad, bad\n")
+    rank = (block + "from bsc_nav_tpu_torch.parallel.dryrun import "
+            "dryrun_all\nimport torch.distributed as dist\n"
+            "dryrun_all(2, device='cpu')\n" + bad
+            + "dist.destroy_process_group()\n")
+    code = (
+        block +
         "import importlib, pkgutil, tempfile, os\n"
         "import bsc_nav_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'bsc_nav_tpu_torch.'):\n"
@@ -141,13 +157,11 @@ def test_port_imports_without_sklearn_or_h5py(tmp_path):
         "    raise SystemExit('habitat_sim imported')\n"
         "except ImportError as e:\n"
         "    assert 'habitat-sim' in str(e)\n"
-        "bad = sorted(k for k in sys.modules if sys.modules[k] is not None\n"
-        "             and k.split('.')[0] in ('jax', 'bsc_nav_tpu', 'PIL',\n"
-        "                                     'transformers', 'tokenizers',\n"
-        "                                     'regex', 'habitat_sim',\n"
-        "                                     'matplotlib', 'cv2', 'open3d',\n"
-        "                                     'imageio'))\n"
-        "assert not bad, bad\n"
+        "from bsc_nav_tpu_torch.parallel import (dryrun, launch, mesh,\n"
+        "                                        sharded_query)\n"
+        "launch.spawn(lambda r: [sys.executable, '-c', "
+        f"{rank!r}], 2, tempfile.mkdtemp(), 240)\n"
+        + bad +
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)

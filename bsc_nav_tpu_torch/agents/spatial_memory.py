@@ -56,6 +56,7 @@ from bsc_nav_tpu_torch.memory.segments import SegmentedStore
 from bsc_nav_tpu_torch.memory.store import init_store
 from bsc_nav_tpu_torch.models import vit
 from bsc_nav_tpu_torch.models.weights import load_dinov2_npz
+from bsc_nav_tpu_torch.utils.profiling import SPANS, TELEMETRY
 
 
 @dataclasses.dataclass
@@ -190,23 +191,36 @@ class VoxelTokenMemory:
         return tf @ self._base_tf @ self._base2cam
 
     def push_frame(self, obs, pose: np.ndarray) -> None:
-        rgb = np.asarray(obs["rgb"])[:, :, :3]
-        depth = np.asarray(obs["depth"], np.float32)
-        cam_tf = self._host_cam_to_world(pose)
-        self._queue.append((rgb, depth, np.asarray(pose, np.float32)))
-        if self.detector is not None and not hasattr(self.detector,
-                                                     "detect_batch"):
-            # host detectors run inline; batch detectors once per flush
-            self._add_instances(self.detector.detect(rgb), depth, cam_tf)
-        if len(self._queue) >= self.perception.batch_size:
-            self.flush()
+        with SPANS("memory.push"):
+            rgb = np.asarray(obs["rgb"])[:, :, :3]
+            depth = np.asarray(obs["depth"], np.float32)
+            cam_tf = self._host_cam_to_world(pose)
+            self._queue.append((rgb, depth, np.asarray(pose, np.float32)))
+            TELEMETRY.count("memory.frames_pushed")
+            if self.detector is not None and not hasattr(self.detector,
+                                                         "detect_batch"):
+                # host detectors run inline; batch detectors once per flush
+                self._add_instances(self.detector.detect(rgb), depth, cam_tf)
+            if len(self._queue) >= self.perception.batch_size:
+                self.flush()
 
     def flush(self) -> None:
         """Ingest all queued frames, padding the last batch with
-        zero-depth frames; a segmented store rotates after each batch."""
+        zero-depth frames; a segmented store rotates after each batch.
+        Spans (``utils.profiling.SPANS``): memory.flush, and inside it
+        memory.stage and memory.h2d a batch; the ingest's counts go to the
+        device counters of ``TELEMETRY``."""
+        if not self._queue:
+            return
+        with SPANS("memory.flush"):
+            self._flush()
+        TELEMETRY.count("memory.flushes")
+        SPANS.next_flush()
+
+    def _flush(self) -> None:
         B = self.perception.batch_size
         H, W = self.cfg.sensor.height, self.cfg.sensor.width
-        if self._queue and hasattr(self.detector, "detect_batch_instances"):
+        if hasattr(self.detector, "detect_batch_instances"):
             # the device long-term feed: forward -> decode -> NMS ->
             # backprojection on the device, one small copy back
             new = self.detector.detect_batch_instances(
@@ -217,7 +231,7 @@ class VoxelTokenMemory:
             if new:
                 self.long_memory_dict.extend(new)
                 self.long_memory_integration()
-        elif self._queue and hasattr(self.detector, "detect_batch"):
+        elif hasattr(self.detector, "detect_batch"):
             all_dets = self.detector.detect_batch(
                 np.stack([f[0] for f in self._queue]))
             for (_, depth_f, pose_f), dets in zip(self._queue, all_dets):
@@ -229,16 +243,22 @@ class VoxelTokenMemory:
                 self.long_memory_integration()
         while self._queue:
             chunk, self._queue = self._queue[:B], self._queue[B:]
-            rgb = np.zeros((B, H, W, 3), np.uint8)
-            depth = np.zeros((B, H, W), np.float32)
-            poses = np.tile(chunk[0][2], (B, 1))
-            for i, (r, d, p) in enumerate(chunk):
-                rgb[i], depth[i], poses[i] = r, d, p
-            dev = self.device
-            carry, _ = self.perception.build_step(
+            with SPANS("memory.stage"):
+                rgb = np.zeros((B, H, W, 3), np.uint8)
+                depth = np.zeros((B, H, W), np.float32)
+                poses = np.tile(chunk[0][2], (B, 1))
+                for i, (r, d, p) in enumerate(chunk):
+                    rgb[i], depth[i], poses[i] = r, d, p
+            n_bytes = rgb.nbytes + depth.nbytes + poses.nbytes
+            with SPANS("memory.h2d", count=n_bytes):
+                frames = [torch.from_numpy(a).to(self.device)
+                          for a in (rgb, depth, poses)]
+            carry, stats = self.perception.build_step(
                 (self.state, self._generator), self.perception.vit_params,
-                torch.from_numpy(rgb).to(dev), torch.from_numpy(depth).to(dev),
-                torch.from_numpy(poses).to(dev))
+                *frames)
+            TELEMETRY.count_ingest(stats)
+            TELEMETRY.count("memory.frames_padded", B - len(chunk))
+            TELEMETRY.count("memory.h2d_bytes", n_bytes)
             self.state, self._generator = carry
             if self.segments is not None:
                 self.segments.state = self.state

@@ -303,6 +303,7 @@ def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
     # --- patch-token lookup ------------------------------------------------
     ppx, ppy, _ = G.project_points(patch_intr, p_local)
     valid &= (ppx >= 0) & (ppy >= 0) & (ppx < nw) & (ppy < nh)
+    n_pass = valid.sum()                 # points through every gate
     ppx = ppx.clamp(0, nw - 1).long()
     ppy = ppy.clamp(0, nh - 1).long()
     b_idx = torch.arange(B, device=dev)[:, None]
@@ -351,6 +352,7 @@ def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
     # re-gather: every valid point now has a slot (or -1 over capacity)
     slot = state.slot_map[lid]
     valid &= slot >= 0
+    n_kept = valid.sum()
     slot_g = torch.where(valid, slot.long(), V)           # garbage slot V
 
     # ======================================================================
@@ -406,6 +408,10 @@ def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
                state.feat_count[(slot_g - lo).clamp(0, V1l - 1)])
     pos_k = count_g + rank_by_point
     write_k = torch.where(pos_k < K, pos_k, repl_idx)
+    # this store's (a shard: its own rows') appends and replacements
+    own = cache_valid if lo is None else (
+        cache_valid & (slot_g >= lo) & (slot_g < lo + V1l))
+    n_appended = (own & (pos_k < K)).sum()
     target = torch.where(cache_valid, slot_g * K + write_k, V1 * K)
     cache_best = torch.full((V1 * K + 1,), -1, dtype=torch.int64,
                             device=dev).scatter_reduce_(0, target, order,
@@ -433,11 +439,21 @@ def _ingest(state, rgb, depth, poses, patch_tokens, generator, cfg, pix,
 
     state.inv_init_base_tf.copy_(inv_init)
     state.initialized.fill_(True)
+    # the counts are the reference's (navbench/reference/voxel_memory.py):
+    # gated outside the depth range, the grid or the patch grid; voxels that
+    # took a slot; points that found a free row or replaced one; points
+    # whose new voxel found the store full
     stats = {
-        "points_valid": valid.sum(),
+        "points_valid": n_kept,
         "points_cached": cache_valid.sum(),
         "new_voxels": n_new_total,
         "num_voxels": state.num_voxels.clone(),
         "dropped_voxels": state.dropped_voxels.clone(),
+        "points_drawn": torch.full_like(n_pass, N),
+        "points_gated": N - n_pass,
+        "voxels_added": fits.sum(),
+        "rows_appended": n_appended,
+        "rows_replaced": own.sum() - n_appended,
+        "points_dropped_full": n_pass - n_kept,
     }
     return state, stats

@@ -37,6 +37,7 @@ from bsc_nav_tpu_torch.memory.query import (
     gaussian_center_pool, localize, localize_batch)
 from bsc_nav_tpu_torch.memory.store import VoxelStoreState
 from bsc_nav_tpu_torch.models import vit
+from bsc_nav_tpu_torch.utils.profiling import SPANS
 
 
 def encode_patch_grid(params: vit.ViT, images_uint8: torch.Tensor,
@@ -90,22 +91,28 @@ def make_build_step(cfg: Config, vit_cfg: vit.ViTConfig,
     this rank's dp slice of the batch (``parallel/mesh.frames_shard``),
     ``params`` the (possibly sharded) ViT, ``state`` the whole store or
     this rank's mp shard, and the injected draws, points and the
-    generator's draws are the whole batch's, equal on every rank."""
+    generator's draws are the whole batch's, equal on every rank.
+
+    The encode and the ingest are the spans ``perception.encode`` and
+    ``perception.ingest`` of ``utils.profiling.SPANS`` (host time, as
+    enqueued)."""
 
     def build_step(carry, params: vit.ViT, rgb, depth, poses,
                    pix: Optional[torch.Tensor] = None,
                    repl_idx: Optional[torch.Tensor] = None,
                    points=None):
         state, generator = carry
-        patch = encode_patch_grid(params, rgb, vit_cfg, cfg, compute_dtype,
-                                  tp_mesh=mesh)
+        with SPANS("perception.encode"):
+            patch = encode_patch_grid(params, rgb, vit_cfg, cfg,
+                                      compute_dtype, tp_mesh=mesh)
         if mesh is not None:
             patch, rgb, depth, poses = gather_frames(mesh, patch, rgb, depth,
                                                      poses)
             check_replicas(patch)
-        state, stats = ingest_frames(
-            state, rgb, depth, poses, patch.to(torch.float32), generator,
-            cfg, pix=pix, repl_idx=repl_idx, points=points)
+        with SPANS("perception.ingest"):
+            state, stats = ingest_frames(
+                state, rgb, depth, poses, patch.to(torch.float32), generator,
+                cfg, pix=pix, repl_idx=repl_idx, points=points)
         return (state, generator), stats
 
     return build_step

@@ -1,16 +1,34 @@
 """Tracing / profiling subsystem.
 
-Counterpart of ``bsc_nav_tpu/utils/profiling.py``:
+Counterpart of ``bsc_nav_tpu/utils/profiling.py``, and the port's own
+tracing:
 
   - Stopwatch: named, nestable wall-clock scopes with aggregated stats
     (count / total / mean / p50 / p95) and optional device sync, so that
-    timings of asynchronous CUDA work are real;
+    timings of asynchronous CUDA work are real.  Each scope is also a
+    span record (``Span``) in a ring of ``CAPACITY``; while a
+    ``torch.profiler`` is active each scope is a ``record_function`` range
+    of its own name too, so a Chrome trace shows it over its kernels;
   - trace(): context manager around torch.profiler writing a Chrome trace;
   - Telemetry: structured counters (the reference's printed token counts
-    become queryable metrics), dumped as one json blob per run;
+    become queryable metrics) and gauges, dumped as one json blob per run;
+    its device counters are one int64 tensor a device, added to in place
+    and read with one copy when a snapshot is asked for;
   - device_kernels(): the names of the device kernels a call launches,
     from one profiled window (how the card tests check the tile each
     attention kernel took).
+
+The memory build records into the process-wide ``SPANS`` and
+``TELEMETRY``, with no synchronise:
+
+  spans     memory.push (one frame's host work; a batch's last push holds
+            its flush), memory.flush, and under it memory.stage (the padded
+            batch built on the host), memory.h2d (the frames' copies to the
+            device; count = bytes), perception.encode and perception.ingest
+            (as the host enqueues them, ``memory/pipeline.py``'s step)
+  counters  memory.frames_pushed, memory.frames_padded, memory.flushes,
+            memory.h2d_bytes on the host; ingest.<name> for each name of
+            ``INGEST_COUNTERS`` on the device, from ``ingest_frames``' stats
 """
 
 from __future__ import annotations
@@ -19,11 +37,19 @@ import contextlib
 import json
 import os
 import time
-from collections import defaultdict
-from typing import Dict, List, Optional
+from collections import defaultdict, deque
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+# span records kept: a 51 s window of the memory build at 8 frames a flush
+# makes ~17,500 (13 a flush), so the ring holds minutes of mapping
+CAPACITY = 65536
+
+# ingest_frames' per-batch counts that the device counters sum
+INGEST_COUNTERS = ("points_drawn", "points_gated", "voxels_added",
+                   "rows_appended", "rows_replaced", "points_dropped_full")
 
 
 def _first_leaf(x):
@@ -43,6 +69,22 @@ def _first_leaf(x):
     return x
 
 
+class Span(NamedTuple):
+    """One closed scope: ``start`` and ``end`` in ``time.perf_counter``
+    seconds, ``parent`` the ``id`` of the scope it opened in (-1 at the
+    top), ``flush`` the number of flushes ended before it opened (a
+    batch's pushes, its flush and the flush's children share it), and an
+    optional ``count`` (memory.h2d: the bytes copied)."""
+
+    name: str
+    start: float
+    end: float
+    parent: int
+    flush: int
+    count: Optional[int]
+    id: int
+
+
 class Stopwatch:
     """Named wall-clock scopes with aggregation.
 
@@ -50,28 +92,54 @@ class Stopwatch:
         with sw("ingest") as h:
             h["result"] = memory.flush()
         print(sw.report())
-    """
+
+    ``samples`` holds each name's last ``CAPACITY`` durations, ``records``
+    the last ``CAPACITY`` spans (oldest dropped first).  Scopes nest within
+    one thread."""
 
     def __init__(self, sync: bool = False):
-        self.samples: Dict[str, List[float]] = defaultdict(list)
+        self.samples: Dict[str, deque] = defaultdict(
+            lambda: deque(maxlen=CAPACITY))
+        self.records: deque = deque(maxlen=CAPACITY)
         self.sync = sync
+        self.flush_id = 0
+        self._open: List[int] = []
+        self._next_id = 0
 
     @contextlib.contextmanager
-    def __call__(self, name: str):
+    def __call__(self, name: str, count: Optional[int] = None):
         """sync=True: assign the computation's output to
         ``holder["result"]`` inside the block; the scope then ends after
         ``torch.cuda.synchronize`` on the device of its first tensor leaf
         (CUDA launches return before the device finishes).  A result on
         the CPU, or none, ends the scope at once."""
-        t0 = time.perf_counter()
+        sid, self._next_id = self._next_id, self._next_id + 1
+        parent = self._open[-1] if self._open else -1
+        flush = self.flush_id
+        self._open.append(sid)
+        rf = (torch.profiler.record_function(name)
+              if torch.autograd._profiler_enabled() else None)
         holder: Dict[str, object] = {"result": None}
+        t0 = time.perf_counter()
+        if rf is not None:
+            rf.__enter__()
         try:
             yield holder
         finally:
             leaf = _first_leaf(holder.get("result")) if self.sync else None
             if getattr(leaf, "is_cuda", False):
                 torch.cuda.synchronize(leaf.device)
-            self.samples[name].append(time.perf_counter() - t0)
+            if rf is not None:
+                rf.__exit__(None, None, None)
+            t1 = time.perf_counter()
+            self._open.pop()
+            self.samples[name].append(t1 - t0)
+            self.records.append(Span(name, t0, t1, parent, flush, count,
+                                     sid))
+
+    def next_flush(self) -> None:
+        """End the current flush id: later scopes take the next."""
+        self.flush_id += 1
 
     def stats(self, name: str) -> Dict[str, float]:
         s = np.asarray(self.samples.get(name, []), float)
@@ -103,7 +171,8 @@ class Stopwatch:
 def trace(log_dir: str):
     """A torch.profiler trace of the block (host and, where there is a
     card, device activity), written as a Chrome trace
-    ``<log_dir>/trace.json`` (open it in chrome://tracing or Perfetto)."""
+    ``<log_dir>/trace.json`` (open it in chrome://tracing or Perfetto).
+    The program's spans in the block appear as ranges of their names."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -120,17 +189,43 @@ def trace(log_dir: str):
 
 
 class Telemetry:
-    """Structured run counters + gauges (json-dumpable)."""
+    """Structured run counters + gauges (json-dumpable).  ``counters`` are
+    host numbers; ``count_ingest`` adds an ingest batch's device counts to
+    a tensor on their device, which ``snapshot`` reads."""
 
     def __init__(self):
         self.counters: Dict[str, float] = defaultdict(float)
         self.gauges: Dict[str, float] = {}
+        self.device: Dict[torch.device, torch.Tensor] = {}
 
     def count(self, name: str, inc: float = 1.0) -> None:
         self.counters[name] += inc
 
     def gauge(self, name: str, value: float) -> None:
         self.gauges[name] = float(value)
+
+    def count_ingest(self, stats: Dict) -> None:
+        """Add one batch's counts (``ingest_frames``' stats: 0-d int64
+        tensors named by ``INGEST_COUNTERS``) to the device counters in
+        place, with no synchronise.  Stats without them (or none) add
+        nothing."""
+        if not stats or any(k not in stats for k in INGEST_COUNTERS):
+            return
+        counts = torch.stack([stats[k] for k in INGEST_COUNTERS])
+        acc = self.device.get(counts.device)
+        if acc is None:
+            self.device[counts.device] = counts
+        else:
+            acc += counts
+
+    def snapshot(self) -> Dict[str, float]:
+        """The host counters and the device counters (``ingest.<name>``),
+        the latter read with one copy a device (a synchronise)."""
+        out = dict(self.counters)
+        for acc in self.device.values():
+            for k, v in zip(INGEST_COUNTERS, acc.tolist()):
+                out[f"ingest.{k}"] = out.get(f"ingest.{k}", 0) + v
+        return out
 
     def memory_stats(self, state) -> None:
         """Snapshot voxel-store occupancy (replaces the reference's HDF5
@@ -146,8 +241,14 @@ class Telemetry:
     def dump(self, path: str, extra: Optional[Dict] = None) -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
-            json.dump({"counters": dict(self.counters),
+            json.dump({"counters": self.snapshot(),
                        "gauges": self.gauges, **(extra or {})}, f, indent=2)
+
+
+# the program's process-wide recorder and counter registry (the memory
+# build records into them; a benchmark's readers find them by import)
+SPANS = Stopwatch()
+TELEMETRY = Telemetry()
 
 
 def device_kernels(fn) -> list:

@@ -14,7 +14,10 @@ PyTorch runs eagerly, so each "step" is a plain function; kernels are
 queued on the current CUDA stream and nothing synchronises until a caller
 reads a result, so the imagined images never leave the device between
 the diffusion sampler and the encoder.  The carry is ``(state,
-generator)``; the state is updated in place.
+generator)``; the state is updated in place.  The build step's encode is
+the exception: on one card it replays a CUDA graph of its fixed-shape
+launches (``encode_patch_grid``), so that the host enqueues one launch
+where it enqueued ViT-L's hundreds.
 
 Over a dp x mp mesh (``parallel/mesh``) the build step takes this rank's
 B/dp frames, encodes them (tensor-parallel over mp with a sharded ViT),
@@ -26,6 +29,7 @@ the shard with the distributed top-K (``parallel/sharded_query``).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -37,7 +41,115 @@ from bsc_nav_tpu_torch.memory.query import (
     gaussian_center_pool, localize, localize_batch)
 from bsc_nav_tpu_torch.memory.store import VoxelStoreState
 from bsc_nav_tpu_torch.models import vit
-from bsc_nav_tpu_torch.utils.profiling import SPANS
+from bsc_nav_tpu_torch.ops import _build
+from bsc_nav_tpu_torch.ops import flash_attention as fa
+from bsc_nav_tpu_torch.utils.profiling import SPANS, TELEMETRY
+
+
+def _encode(params: vit.ViT, images_uint8: torch.Tensor,
+            vit_cfg: vit.ViTConfig, cfg: Config, compute_dtype,
+            tp_mesh=None) -> torch.Tensor:
+    q = (cfg.query.query_height, cfg.query.query_width)
+    x = vit.preprocess(images_uint8, out_hw=q).to(compute_dtype)
+    feats = params.forward_features(
+        x, tp_mesh=tp_mesh)["x_norm_patchtokens"]
+    B = images_uint8.shape[0]
+    return feats.reshape(B, q[0] // vit_cfg.patch_size,
+                         q[1] // vit_cfg.patch_size, -1)
+
+
+# the kernel wrappers a ViT forward reaches (``attention_from_qkv``'s
+# routes), each counting its launches in ``.launches``
+_COUNTED = (fa.short_attention_qkv, fa.short_attention, fa.mid_attention,
+            fa.flash_attention)
+
+
+def _tile_counts():
+    """The kernel library's launches by tile (``bsc_tile_launches``), as
+    a ctypes array that writes through."""
+    lib = _build.kernels()
+    n = ctypes.c_int.in_dll(lib, "bsc_tile_kinds").value
+    return (ctypes.c_longlong * n).in_dll(lib, "bsc_tile_launches")
+
+
+def _launch_counts() -> list:
+    return [f.launches for f in _COUNTED] + list(_tile_counts())
+
+
+def _add_launch_counts(delta) -> None:
+    for f, n in zip(_COUNTED, delta):
+        f.launches += n
+    tiles = _tile_counts()
+    for i, n in enumerate(delta[len(_COUNTED):]):
+        tiles[i] += n
+
+
+def _param_slots(params: torch.nn.Module) -> list:
+    return [(m._parameters, name) for m in params.modules()
+            for name, p in m._parameters.items() if p is not None]
+
+
+def _storage(slots) -> list:
+    return [d[name].data_ptr() for d, name in slots]
+
+
+# device -> the stream on which a key's warm-up and capture run: cuBLAS
+# makes its workspace for a stream on first use, which then lies outside
+# the graph's memory pool
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    s = _CAPTURE_STREAMS.get(dev)
+    if s is None:
+        s = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return s
+
+
+def _warm_up(run, images: torch.Tensor) -> torch.Tensor:
+    """run(images) on the capture stream, after the current stream's work
+    so far and before its later work."""
+    cur = torch.cuda.current_stream(images.device)
+    side = _capture_stream(images.device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = run(images)
+    cur.wait_stream(side)
+    out.record_stream(cur)
+    return out
+
+
+class _EncodeGraph:
+    """One batch shape's encode captured as a CUDA graph: the frames are
+    copied into ``static_in``, the graph replays every launch of the
+    eager encode on the current stream, and the caller gets a copy of
+    ``static_out``.  The graph reads the parameters' storage as it was at
+    capture (``stale`` tells when one was replaced); weights loaded into
+    it in place show in the next replay."""
+
+    def __init__(self, run, params: vit.ViT, images: torch.Tensor):
+        self.slots = _param_slots(params)
+        self.storage = _storage(self.slots)
+        self.static_in = torch.empty(images.shape, dtype=images.dtype,
+                                     device=images.device)
+        self.static_in.copy_(images)
+        before = _launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph,
+                              stream=_capture_stream(images.device)):
+            self.static_out = run(self.static_in)
+        # the capture ran nothing: its launches count on each replay
+        self.launched = [a - b for a, b in zip(_launch_counts(), before)]
+        _add_launch_counts([-n for n in self.launched])
+
+    def stale(self) -> bool:
+        return _storage(self.slots) != self.storage
+
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        self.static_in.copy_(images)
+        self.graph.replay()
+        _add_launch_counts(self.launched)
+        return self.static_out.clone()
 
 
 def encode_patch_grid(params: vit.ViT, images_uint8: torch.Tensor,
@@ -46,14 +158,44 @@ def encode_patch_grid(params: vit.ViT, images_uint8: torch.Tensor,
                       tp_mesh=None) -> torch.Tensor:
     """uint8 frames [B, H, W, 3] -> patch-token grid [B, nh, nw, D]:
     resize to the query resolution, ImageNet-normalize, ViT forward
-    (``tp_mesh``: see ``ViT.forward_features``)."""
-    q = (cfg.query.query_height, cfg.query.query_width)
-    x = vit.preprocess(images_uint8, out_hw=q).to(compute_dtype)
-    feats = params.forward_features(
-        x, tp_mesh=tp_mesh)["x_norm_patchtokens"]
-    B = images_uint8.shape[0]
-    return feats.reshape(B, q[0] // vit_cfg.patch_size,
-                         q[1] // vit_cfg.patch_size, -1)
+    (``tp_mesh``: see ``ViT.forward_features``).
+
+    On the card, with no ``tp_mesh`` (whose collectives cannot be
+    captured) and outside a capture, the encode is a CUDA graph held in
+    ``params.graphs``, one per key (the frames' shape, dtype and device,
+    the compute dtype, the query size, the matmul precision flags): a
+    key's first call runs eagerly as its warm-up, the second captures the
+    graph, and every call from the second on copies the frames in and
+    replays it.  A parameter whose storage was replaced drops the graph
+    (the key starts over).  The result is the caller's own.  Counted in
+    ``TELEMETRY``: encode.eager_calls, encode.graph_captures,
+    encode.graph_replays."""
+    def run(images):
+        return _encode(params, images, vit_cfg, cfg, compute_dtype, tp_mesh)
+
+    if (not images_uint8.is_cuda or tp_mesh is not None
+            or torch.cuda.is_current_stream_capturing()):
+        TELEMETRY.count("encode.eager_calls")
+        return run(images_uint8)
+    mm = torch.backends.cuda.matmul
+    key = (tuple(images_uint8.shape), images_uint8.dtype,
+           images_uint8.device, compute_dtype,
+           (cfg.query.query_height, cfg.query.query_width), vit_cfg,
+           mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+           torch.get_float32_matmul_precision())
+    graphs = params.graphs
+    graph = graphs.get(key)
+    if graph is not None and graph.stale():
+        del graphs[key]
+    if key not in graphs:
+        graphs[key] = None
+        TELEMETRY.count("encode.eager_calls")
+        return _warm_up(run, images_uint8)
+    if graph is None:
+        graph = graphs[key] = _EncodeGraph(run, params, images_uint8)
+        TELEMETRY.count("encode.graph_captures")
+    TELEMETRY.count("encode.graph_replays")
+    return graph(images_uint8)
 
 
 def gather_frames(mesh, *local) -> list:

@@ -21,6 +21,7 @@ edges and, without antialias, in its cubic coefficient.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Dict, Optional
@@ -109,13 +110,22 @@ def resize_weights(in_size: int, out_size: int, method: str) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(f)
 
 
+@functools.lru_cache(maxsize=64)
+def resize_matrix(in_size: int, out_size: int, method: str,
+                  dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``resize_weights`` as a tensor on ``device``, built once a key and
+    shared by every later call (read-only): a resize then makes no host
+    work and no copy to the device, so that it can be captured in a CUDA
+    graph."""
+    return torch.from_numpy(resize_weights(in_size, out_size, method)).to(
+        device=device, dtype=dtype)
+
+
 def resize_bhwc(x: torch.Tensor, out_hw, method: str) -> torch.Tensor:
     """[B, H, W, C] float -> [B, oh, ow, C], as jax.image.resize."""
     H, W = x.shape[1], x.shape[2]
-    wh = torch.from_numpy(resize_weights(H, out_hw[0], method)).to(
-        device=x.device, dtype=x.dtype)
-    ww = torch.from_numpy(resize_weights(W, out_hw[1], method)).to(
-        device=x.device, dtype=x.dtype)
+    wh = resize_matrix(H, out_hw[0], method, x.dtype, x.device)
+    ww = resize_matrix(W, out_hw[1], method, x.dtype, x.device)
     return torch.einsum("bhwc,hH,wW->bHWc", x, wh, ww)
 
 
@@ -123,15 +133,23 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=8)
+def imagenet_stats(device: torch.device) -> tuple:
+    """(mean, std) float32 [3] on ``device``, built once a device."""
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (IMAGENET_MEAN, IMAGENET_STD))
+
+
 def preprocess(images_uint8: torch.Tensor,
                out_hw: Optional[tuple] = None) -> torch.Tensor:
     """uint8 [B, H, W, 3] -> ImageNet-normalized float32, optionally
-    resized (antialiased bilinear)."""
+    resized (antialiased bilinear).  Its constants are built once
+    (``resize_matrix``, ``imagenet_stats``), so nothing inside waits for
+    the device."""
     x = images_uint8.to(torch.float32) / 255.0
     if out_hw is not None and tuple(out_hw) != tuple(images_uint8.shape[1:3]):
         x = resize_bhwc(x, out_hw, "bilinear")
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    mean, std = imagenet_stats(x.device)
     return (x - mean) / std
 
 
@@ -281,11 +299,24 @@ class Block(nn.Module):
         return x + y
 
 
+class GraphCache(dict):
+    """CUDA graphs captured over a model's forward, under their caller's
+    key (``memory/pipeline.encode_patch_grid``).  A copy of the model
+    starts with none, since a graph reads the storage it was captured on."""
+
+    def __deepcopy__(self, memo):
+        return type(self)()
+
+    def __reduce__(self):
+        return type(self), ()
+
+
 class ViT(nn.Module):
     """DINOv2-style encoder.  Parameters are created empty; fill them with
     ``init_params`` or the loaders in ``models.weights``.  ``quantized``
     makes every block's qkv / proj / fc1 / fc2 an int8 leaf
-    (``quantize_params``)."""
+    (``quantize_params``).  ``graphs`` holds the CUDA graphs of its
+    encodes, which die with the model."""
 
     def __init__(self, cfg: ViTConfig, dtype=torch.float32, device="cuda",
                  quantized: bool = False):
@@ -303,6 +334,7 @@ class ViT(nn.Module):
         self.norm = LayerNorm(d, cfg.ln_eps, dtype, dev)
         self.blocks = nn.ModuleList(
             Block(cfg, dtype, dev, quantized) for _ in range(cfg.depth))
+        self.graphs = GraphCache()
 
     @torch.no_grad()
     def forward_features(self, images: torch.Tensor, tp_mesh=None

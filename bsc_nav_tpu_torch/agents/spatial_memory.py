@@ -208,8 +208,11 @@ class VoxelTokenMemory:
         """Ingest all queued frames, padding the last batch with
         zero-depth frames; a segmented store rotates after each batch.
         Spans (``utils.profiling.SPANS``): memory.flush, and inside it
-        memory.stage and memory.h2d a batch; the ingest's counts go to the
-        device counters of ``TELEMETRY``."""
+        memory.stage and memory.h2d a batch; with a ``detect_batch``
+        detector, its own spans and longterm.feed (the instances located
+        and integrated) first.  The ingest's counts go to the device
+        counters of ``TELEMETRY``, the long-term feed's to its host
+        counters."""
         if not self._queue:
             return
         with SPANS("memory.flush"):
@@ -234,13 +237,20 @@ class VoxelTokenMemory:
         elif hasattr(self.detector, "detect_batch"):
             all_dets = self.detector.detect_batch(
                 np.stack([f[0] for f in self._queue]))
-            for (_, depth_f, pose_f), dets in zip(self._queue, all_dets):
-                if dets:
-                    self.long_memory_dict.extend(LT.instances_from_detections(
-                        dets, depth_f, self._host_cam_to_world(pose_f),
-                        self.cfg))
-            if any(all_dets):
-                self.long_memory_integration()
+            with SPANS("longterm.feed"):
+                n0 = len(self.long_memory_dict)
+                for (_, depth_f, pose_f), dets in zip(self._queue, all_dets):
+                    if dets:
+                        self.long_memory_dict.extend(
+                            LT.instances_from_detections(
+                                dets, depth_f, self._host_cam_to_world(pose_f),
+                                self.cfg))
+                n1 = len(self.long_memory_dict)
+                if any(all_dets):
+                    self.long_memory_integration()
+            TELEMETRY.count("longterm.instances_added", n1 - n0)
+            TELEMETRY.count("longterm.instances_merged",
+                            n1 - len(self.long_memory_dict))
         while self._queue:
             chunk, self._queue = self._queue[:B], self._queue[B:]
             with SPANS("memory.stage"):

@@ -61,7 +61,10 @@ class CLIPConfig:
         return self.image_size // self.patch_size
 
 
-METACLIP_VITH14 = CLIPConfig()
+# MetaCLIP ViT-H/14 as published (open_clip ``ViT-H-14-quickgelu``, HF
+# ``hidden_act: quick_gelu``); the JAX package's preset states the tanh
+# form, a deliberate divergence.  The detector and ``CLIPMatcher`` follow it.
+METACLIP_VITH14 = CLIPConfig(quick_gelu=True)
 CLIP_VITB32_TEST = CLIPConfig(
     embed_dim=64, image_size=32, patch_size=8, vision_width=96,
     vision_layers=2, vision_heads=3, context_length=16, vocab_size=512,

@@ -6,6 +6,10 @@ is MaskCLIP-style dense zero-shot detection: the vision tower runs its
 blocks but the last (kernel K3 in every layer on the card), the last block
 contributes its value path only, and ``ln_post`` + ``proj`` turn each
 patch token into an embedding compared with the class text embeddings.
+Unlike the JAX package's, whose blocks always take the tanh GELU, the
+blocks take the activation the ``CLIPConfig`` states.  ``detect_batch``
+records the spans ``detector.forward`` and ``detector.post`` and counts
+``detector.frames`` and ``detector.boxes`` (``utils/profiling.py``).
 The host side -- ``Detection``, the heat-map to boxes step and the
 ``ColorPrototypeDetector`` test double -- is the port's own copy of the
 JAX package's (``detector.py:28-59, 147-182``).
@@ -22,6 +26,7 @@ import torch
 from bsc_nav_tpu_torch.agents.matchers import model_device
 from bsc_nav_tpu_torch.models import clip as C
 from bsc_nav_tpu_torch.models import tokenizer as T
+from bsc_nav_tpu_torch.utils.profiling import SPANS, TELEMETRY
 
 
 @dataclasses.dataclass
@@ -62,11 +67,13 @@ def _boxes_from_heatmap(heat: np.ndarray, labels_idx: np.ndarray,
 def dense_embed(model: C.CLIP, images_uint8: torch.Tensor,
                 cfg: C.CLIPConfig) -> torch.Tensor:
     """uint8 [B, H, W, 3] -> unit patch embeddings [B, grid^2, embed_dim]
-    f32 (``detector.py:93-118``).  As there, the blocks run with the tanh
-    GELU whatever ``cfg`` says."""
+    f32 (``detector.py:93-118``).  The blocks take the activation ``cfg``
+    states, as ``encode_image`` does."""
     v = model.visual
     h = C.vision_tokens(v, C.preprocess(images_uint8, cfg), cfg)
-    h = C._tower_forward(h, v.blocks[:-1], cfg.vision_heads, cfg.ln_eps)
+    h = C._tower_forward(h, v.blocks[:-1], cfg.vision_heads, cfg.ln_eps,
+                         gelu_exact=cfg.gelu_exact,
+                         quick_gelu=cfg.quick_gelu)
     # value-only path of the last block (MaskCLIP)
     blk = v.blocks[-1]
     val = blk.qkv(blk.ln1(h))[..., 2 * cfg.vision_width:]
@@ -94,10 +101,13 @@ class ClipPatchDetector:
             clip_cfg).cpu().numpy()
 
     def embed(self, rgbs: np.ndarray) -> np.ndarray:
-        """[B, H, W, 3+] uint8 frames -> [B, grid^2, embed_dim] numpy."""
-        imgs = torch.from_numpy(np.ascontiguousarray(rgbs[:, :, :, :3]))
-        return dense_embed(self.params, imgs.to(self.device),
-                           self.cfg).cpu().numpy()
+        """[B, H, W, 3+] uint8 frames -> [B, grid^2, embed_dim] numpy.
+        Span ``detector.forward``: it ends in the blocking copy back, so
+        it holds the device work."""
+        with SPANS("detector.forward"):
+            imgs = torch.from_numpy(np.ascontiguousarray(rgbs[:, :, :, :3]))
+            return dense_embed(self.params, imgs.to(self.device),
+                               self.cfg).cpu().numpy()
 
     def detect(self, rgb: np.ndarray) -> List[Detection]:
         return self.detect_batch(rgb[None])[0]
@@ -109,15 +119,19 @@ class ClipPatchDetector:
         embs = self.embed(rgbs)
         g = self.cfg.grid
         out: List[List[Detection]] = []
-        for b in range(B):
-            sims = embs[b] @ self.text_emb.T             # [T, C]
-            p = np.exp(sims * 100.0 - sims.max(axis=1, keepdims=True) * 100.0)
-            p /= p.sum(axis=1, keepdims=True)
-            heat = p.max(axis=1).reshape(g, g)
-            labels_idx = p.argmax(axis=1).reshape(g, g)
-            out.append(_boxes_from_heatmap(
-                heat, labels_idx, self.classes, self.confidence,
-                scale_y=H / g, scale_x=W / g))
+        with SPANS("detector.post"):
+            for b in range(B):
+                sims = embs[b] @ self.text_emb.T             # [T, C]
+                p = np.exp(sims * 100.0
+                           - sims.max(axis=1, keepdims=True) * 100.0)
+                p /= p.sum(axis=1, keepdims=True)
+                heat = p.max(axis=1).reshape(g, g)
+                labels_idx = p.argmax(axis=1).reshape(g, g)
+                out.append(_boxes_from_heatmap(
+                    heat, labels_idx, self.classes, self.confidence,
+                    scale_y=H / g, scale_x=W / g))
+        TELEMETRY.count("detector.frames", B)
+        TELEMETRY.count("detector.boxes", sum(map(len, out)))
         return out
 
 

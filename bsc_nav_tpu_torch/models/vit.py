@@ -64,7 +64,9 @@ class ViTConfig:
 
 DINOV2_VITS14_REG = ViTConfig(dim=384, depth=12, heads=6)
 DINOV2_VITB14_REG = ViTConfig(dim=768, depth=12, heads=12)
-DINOV2_VITL14_REG = ViTConfig(dim=1024, depth=24, heads=16)
+# exact (erf) GELU as published (nn.GELU); the JAX package's preset states
+# the tanh form, a deliberate divergence
+DINOV2_VITL14_REG = ViTConfig(dim=1024, depth=24, heads=16, gelu_exact=True)
 DINOV2_VITG14_REG = ViTConfig(dim=1536, depth=40, heads=24, ffn="swiglu")
 
 CONFIGS = {

@@ -25,10 +25,18 @@ The memory build records into the process-wide ``SPANS`` and
             its flush), memory.flush, and under it memory.stage (the padded
             batch built on the host), memory.h2d (the frames' copies to the
             device; count = bytes), perception.encode and perception.ingest
-            (as the host enqueues them, ``memory/pipeline.py``'s step)
+            (as the host enqueues them, ``memory/pipeline.py``'s step);
+            with a patch detector (``models/detector.ClipPatchDetector``),
+            first detector.forward (the frames to the host embeddings,
+            ending in the blocking copy), detector.post (heat maps and
+            boxes on the host) and longterm.feed (the boxes located and
+            integrated into the long-term memory)
   counters  memory.frames_pushed, memory.frames_padded, memory.flushes,
-            memory.h2d_bytes on the host; ingest.<name> for each name of
-            ``INGEST_COUNTERS`` on the device, from ``ingest_frames``' stats
+            memory.h2d_bytes, detector.frames, detector.boxes,
+            longterm.instances_added (before integration) and
+            longterm.instances_merged (removed by it) on the host;
+            ingest.<name> for each name of ``INGEST_COUNTERS`` on the
+            device, from ``ingest_frames``' stats
 """
 
 from __future__ import annotations

@@ -75,17 +75,65 @@ def _jnp(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree)
 
 
+ACTIVATION = ("gelu_exact", "quick_gelu")
+# presets whose activation the port states as published where the JAX
+# package's states the tanh form (ROADMAP, "Deliberate divergences"):
+# MetaCLIP ViT-H/14 is published with quick GELU (open_clip
+# ViT-H-14-quickgelu, HF hidden_act quick_gelu)
+PUBLISHED_ACTIVATION = {"METACLIP_VITH14": {"gelu_exact": False,
+                                            "quick_gelu": True}}
+
+
+def _but_activation(cfg, name):
+    """The preset's fields, its activation left out where it diverges."""
+    out = dataclasses.asdict(cfg)
+    if name in PUBLISHED_ACTIVATION:
+        for k in ACTIVATION:
+            out.pop(k)
+    return out
+
+
 @pytest.mark.parametrize("name", ["METACLIP_VITH14", "CLIP_VITB32_TEST",
                                   "SD3_CLIP_L", "SD3_CLIP_G",
                                   "SD3_CLIP_L_TEST", "SD3_CLIP_G_TEST"])
 def test_configs_match_jax(name):
+    """Every field of every preset equals the JAX package's, but the
+    activation of a preset that diverges, which is the published one."""
     j, t = getattr(JC, name), getattr(TC, name)
     assert ([(f.name, f.default) for f in dataclasses.fields(t)]
             == [(f.name, f.default) for f in dataclasses.fields(j)])
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert _but_activation(t, name) == _but_activation(j, name)
+    if name in PUBLISHED_ACTIVATION:
+        assert {k: getattr(t, k) for k in ACTIVATION} == \
+            PUBLISHED_ACTIVATION[name]
+        assert {k: getattr(j, k) for k in ACTIVATION} != \
+            PUBLISHED_ACTIVATION[name]
+    else:
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.grid == j.grid
-    assert {k: dataclasses.asdict(v) for k, v in TC.CONFIGS.items()} == {
-        k: dataclasses.asdict(v) for k, v in JC.CONFIGS.items()}
+    # CONFIGS' keys are the presets' names in lower case
+    assert {k: _but_activation(v, k.upper()) for k, v in TC.CONFIGS.items()} \
+        == {k: _but_activation(v, k.upper()) for k, v in JC.CONFIGS.items()}
+
+
+@pytest.mark.parametrize("name", ["DINOV2_VITS14_REG", "DINOV2_VITB14_REG",
+                                  "DINOV2_VITL14_REG", "DINOV2_VITG14_REG"])
+def test_vit_configs_match_jax(name):
+    """Every field of every DINOv2 preset equals the JAX package's, but
+    ViT-L's activation, the exact (erf) GELU as published (``nn.GELU``)
+    where JAX's states the tanh form (ROADMAP, "Deliberate
+    divergences"): the habitat world builds ViT-L from it."""
+    from bsc_nav_tpu.models import vit as JV
+    from bsc_nav_tpu_torch.models import vit as TV
+    j, t = getattr(JV, name), getattr(TV, name)
+    assert ([(f.name, f.default) for f in dataclasses.fields(t)]
+            == [(f.name, f.default) for f in dataclasses.fields(j)])
+    ours, theirs = dataclasses.asdict(t), dataclasses.asdict(j)
+    if name == "DINOV2_VITL14_REG":
+        assert ours.pop("gelu_exact") is True
+        assert theirs.pop("gelu_exact") is False
+    assert ours == theirs
+    assert TV.CONFIGS[name.lower()] is t
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -274,6 +322,55 @@ def test_clip_patch_detector_matches_jax(jax_params):
                                    [d.confidence for d in want[b]],
                                    atol=1e-4)
     assert compared >= 3 and sum(map(len, want)) > 0
+
+
+def _jax_dense(params, images_uint8, cfg):
+    """The JAX detector's dense path (``bsc_nav_tpu/models/detector.py:
+    93-118``) with the activation ``cfg`` states passed to JAX's
+    ``clip._tower_forward``; the JAX detector itself takes the tanh form."""
+    from bsc_nav_tpu.models.vit import _linear, layer_norm, patchify
+    v = params["visual"]
+    h = _linear(patchify(JC.preprocess(images_uint8, cfg), cfg.patch_size),
+                v["patch_embed"])
+    cls = jnp.broadcast_to(v["class_embedding"][None, None, :],
+                           (h.shape[0], 1, cfg.vision_width)).astype(h.dtype)
+    h = jnp.concatenate([cls, h], axis=1) + v["pos_embed"][None]
+    h = layer_norm(h, v["ln_pre"], cfg.ln_eps)
+    h = JC._tower_forward(h, v["blocks"][:-1], cfg.vision_heads, cfg.ln_eps,
+                          gelu_exact=cfg.gelu_exact,
+                          quick_gelu=cfg.quick_gelu)
+    blk = v["blocks"][-1]
+    val = _linear(layer_norm(h, blk["ln1"], cfg.ln_eps), blk["qkv"])
+    val = _linear(val[..., 2 * cfg.vision_width:], blk["proj"]) + h
+    val = layer_norm(val, v["ln_post"], cfg.ln_eps)
+    emb = jnp.einsum("bsd,de->bse", val, v["proj"],
+                     preferred_element_type=jnp.float32)
+    emb = emb / jnp.maximum(jnp.linalg.norm(emb, axis=-1, keepdims=True),
+                            1e-12)
+    return np.asarray(emb[:, 1:])
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_exact", "tanh"])
+def test_dense_embed_follows_the_activation(jax_params, act):
+    """The port's dense path takes the configuration's activation: unit
+    patch embeddings within FEAT_TOL of JAX's dense path given the same
+    activation, and further than 1e-5 from it under another."""
+    from bsc_nav_tpu_torch.models.detector import dense_embed
+    kw = dict(HD80, gelu_exact=act == "gelu_exact",
+              quick_gelu=act == "quick_gelu")
+    jcfg, tcfg = JC.CLIPConfig(**kw), TC.CLIPConfig(**kw)
+    params = jax_params["hd80"][0]
+    model = clip_from_jax_params(params, tcfg, device="cpu")
+    rgbs = np.random.default_rng(6).integers(0, 256, size=(2, 64, 64, 3),
+                                             dtype=np.uint8)
+    got = dense_embed(model, torch.from_numpy(rgbs), tcfg).numpy()
+    np.testing.assert_allclose(got, _jax_dense(_jnp(params),
+                                               jnp.asarray(rgbs), jcfg),
+                               atol=FEAT_TOL, rtol=0)
+    other = JC.CLIPConfig(**dict(kw, quick_gelu=act != "quick_gelu",
+                                 gelu_exact=False))
+    assert np.abs(got - _jax_dense(_jnp(params), jnp.asarray(rgbs),
+                                   other)).max() > 1e-5
 
 
 def test_clip_slice_never_imports_jax():

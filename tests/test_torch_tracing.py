@@ -8,6 +8,7 @@ spans (``navbench/metrics/``), on tiny runs on the CPU."""
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import time
@@ -21,6 +22,7 @@ from bsc_nav_tpu_torch.agents.spatial_memory import (
 from bsc_nav_tpu_torch.config import small_test_config
 from bsc_nav_tpu_torch.models import vit
 from bsc_nav_tpu_torch.utils import profiling as TP
+from torch_worlds import split_traced_run
 
 FLUSH_CHILDREN = ("memory.stage", "memory.h2d", "perception.encode",
                   "perception.ingest")
@@ -196,6 +198,75 @@ def test_ranges_only_under_a_profiler(monkeypatch):
     assert inner.parent == outer.id and outer.parent == -1
 
 
+DETECTOR_SPANS = ("detector.forward", "detector.post", "longterm.feed")
+
+
+@pytest.fixture(scope="module")
+def detector_build():
+    """Eight frames pushed at B 4 with a tiny CLIP patch detector whose
+    confidence 0 puts every patch in a box: the records, the boxes each
+    ``detect_batch`` returned, the host counters' deltas and the memory."""
+    from bsc_nav_tpu_torch.models import clip as C
+    from bsc_nav_tpu_torch.models.detector import ClipPatchDetector
+    from bsc_nav_tpu_torch.models.tokenizer import HashTokenizer
+    cfg = small_test_config()
+    vcfg = vit.ViTConfig(img_size=28, patch_size=14, dim=32, depth=1,
+                         heads=2, num_registers=0)
+    perception = Perception.create(cfg, vit_cfg=vcfg, batch_size=4,
+                                   device="cpu")
+    ccfg = dataclasses.replace(C.CLIP_VITB32_TEST, quick_gelu=True)
+    det = ClipPatchDetector(
+        C.init_params(ccfg, torch.Generator().manual_seed(0), device="cpu"),
+        ccfg, HashTokenizer(vocab_size=ccfg.vocab_size,
+                            context_length=ccfg.context_length),
+        ["chair", "table", "bed"], confidence=0.0)
+    returned = []
+    detect = det.detect_batch
+
+    def spy(rgbs):
+        out = detect(rgbs)
+        returned.append(out)
+        return out
+
+    det.detect_batch = spy
+    mem = VoxelTokenMemory(cfg, None, perception, detector=det)
+    before = dict(TP.TELEMETRY.counters)
+    t0 = time.perf_counter()
+    for obs, pose in _frames(cfg, 8, seed=4):
+        mem.push_frame(obs, pose)
+    recs = [r for r in TP.SPANS.records if r.start >= t0]
+    delta = {k: v - before.get(k, 0) for k, v in TP.TELEMETRY.counters.items()}
+    return recs, returned, delta, mem
+
+
+def test_detector_spans_land_inside_the_flush(detector_build):
+    """Each flush opens the detector's spans first, in order, then its
+    staging, copies, encode and ingest, all inside it under its flush id."""
+    recs, *_ = detector_build
+    flushes = [r for r in recs if r.name == "memory.flush"]
+    assert len(flushes) == 2
+    for f in flushes:
+        kids = sorted((r for r in recs if r.parent == f.id),
+                      key=lambda r: r.start)
+        assert [r.name for r in kids] == list(DETECTOR_SPANS
+                                              + FLUSH_CHILDREN)
+        for k in kids:
+            assert k.flush == f.flush
+            assert f.start <= k.start <= k.end <= f.end
+
+
+def test_detector_counters_count_what_was_returned(detector_build):
+    _, returned, delta, mem = detector_build
+    n_boxes = sum(len(d) for out in returned for d in out)
+    assert len(returned) == 2 and n_boxes > 0
+    assert delta["detector.frames"] == 8
+    assert delta["detector.boxes"] == n_boxes
+    assert delta["longterm.instances_added"] > 0
+    assert (delta["longterm.instances_added"]
+            - delta["longterm.instances_merged"]
+            == len(mem.long_memory_dict) > 0)
+
+
 # ---------------------------------------------------------------------------
 # a tiny traced run of the benchmark's memory build
 # ---------------------------------------------------------------------------
@@ -216,15 +287,28 @@ def traced_run():
                 for e in self.prof.profiler.kineto_results.events()]
             return super().result()
 
-    before = TP.TELEMETRY.snapshot()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(memory_build, "Tracer", Capture)
-        ctx = tiny.ctx(seconds=0.8, seed=2 ** 31 + 11, trace=True)
-        ctx.cell = {"name": "build.dinov2l-b8", "chips": 1}
-        out = memory_build.run(ctx)
-    after = TP.TELEMETRY.snapshot()
-    delta = {k: after[k] - before.get(k, 0) for k in after}
-    return out, ctx, Capture.events, delta, R
+    def once(seconds, traffic_update):
+        before = TP.TELEMETRY.snapshot()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(memory_build, "Tracer", Capture)
+            ctx = tiny.ctx(seconds=seconds, seed=2 ** 31 + 11, trace=True,
+                           traffic=dict(tiny.traffic(), **traffic_update))
+            ctx.cell = {"name": "build.dinov2l-b8", "chips": 1}
+            # a collection between a span's perf_counter reading and its
+            # profiler range's start would move the one from the other by
+            # its pause (1-2 ms in a process that has loaded JAX): host
+            # noise, not the mapping of the two clocks the tests check
+            gc.collect()
+            gc.disable()
+            try:
+                out = memory_build.run(ctx)
+            finally:
+                gc.enable()
+        after = TP.TELEMETRY.snapshot()
+        delta = {k: after[k] - before.get(k, 0) for k in after}
+        return out, ctx, Capture.events, delta, R
+
+    return split_traced_run(once)
 
 
 def test_tiny_traced_run_is_correct(traced_run):

@@ -14,6 +14,8 @@ tests/test_torch_kernels.py (which import no JAX).
   (64x64 frames, grid 96, a tiny ViT as the encoder), so that it builds on
   the CPU; ``habitat_split`` / ``habitat_args`` the JAX test's two-episode
   ObjectNav split and flags.
+- ``split_traced_run``: a navbench driver's tiny traced run whose window
+  holds both an untraced and a traced flush.
 """
 
 import gzip
@@ -156,3 +158,27 @@ def habitat_args(path, device="cpu", **kw):
         log_root=str(path), device=device)
     args.update(kw)
     return types.SimpleNamespace(**args)
+
+
+def split_traced_run(once, seconds: float = 2.0, tries: int = 4):
+    """``once(seconds, traffic_update)`` runs a navbench driver's tiny
+    traced run of a ``seconds`` window and returns a tuple whose first item
+    is its ``Outcome``.  The traffic's ``trace_seconds`` (the update) is
+    the window less 1 ms: the driver starts tracing at the first flush
+    that begins that far into the window, so the first flush is untraced
+    (the host-time readers read the flushes before the traced part) and
+    every later one traced.  A first flush that outlasts the window (a
+    loaded host) leaves none traced, and the run is repeated with the
+    window doubled.  It runs on one thread: the tiny models gain nothing
+    from more, and the test workers' threads would contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for _ in range(tries):
+            got = once(seconds, {"trace_seconds": seconds - 1e-3})
+            if 0 < got[0].traced_items < got[0].attempted:
+                break
+            seconds *= 2
+    finally:
+        torch.set_num_threads(threads)
+    return got
